@@ -1,0 +1,31 @@
+"""groove_tpu_torch — the Groove render engine on PyTorch and CUDA.
+
+A port of groove_tpu (JAX/Pallas, the reference package beside this one)
+to PyTorch with hand-written CUDA kernels for NVIDIA Hopper (sm_90a).
+This package imports torch and numpy, never jax: it reuses only the
+jax-free host modules of groove_tpu (core/, project/, the compiler's
+events/automation/params, and io.wav's writer).
+
+Layout (each module names its groove_tpu counterpart):
+    compiler/  compile_song (its own copy: the reference's pulls in jax)
+    models/    drumkit/sampler loaders and voice helpers
+    ops/       DSP in torch; kernel wrappers with their plain twins
+    csrc/      CUDA C++ sources of the kernels
+    kernels/   the nvcc build and ctypes binding
+    engine/    the whole-song Renderer
+    io/        the int16 quantizer
+    testing/   seeded synthetic assets and projects
+    cli.py     python -m groove_tpu_torch.cli <project> --wav --perf
+
+Nothing here chooses a device implicitly: every entry point takes one.
+"""
+
+__version__ = "0.1.0"
+
+
+def require_cuda() -> None:
+    """Raise unless a CUDA device is visible to torch."""
+    import torch
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("groove_tpu_torch: CUDA is not available")

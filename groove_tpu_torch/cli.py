@@ -1,0 +1,157 @@
+"""groove-tpu-torch CLI: render project files to WAV on a torch device.
+
+    python -m groove_tpu_torch.cli <project.json[5]> --wav --perf \
+        [--out-dir D] [--sample-rate 44100] [--device cuda]
+
+The whole-timeline path of groove_tpu/cli.py: compile_song -> Renderer ->
+render_quantized -> 16-bit WAV, named like the input with .wav and placed
+next to it (or in --out-dir). Assets are found through
+groove_tpu.project.paths.Paths ($GROOVE_ASSETS first). The reference
+CLI's other flags exit with "not ported yet".
+"""
+
+from __future__ import annotations
+
+import argparse
+import re
+import sys
+import time
+from pathlib import Path
+
+# flags of groove_tpu/cli.py that this CLI does not run yet
+NOT_PORTED = (
+    ("-m", "--mp3"), ("-d", "--debug"), ("-q", "--quiet"),
+    ("-v", "--version"), ("--play",), ("--stream",), ("--segment-frames",),
+    ("--stream-batch",), ("--sliced",), ("--multidevice",), ("--mesh",),
+    ("--live",), ("--midi-out",), ("--loop",), ("--loop-iterations",),
+)
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="groove-tpu-torch",
+        description="Render Groove project files to WAV with PyTorch/CUDA.",
+    )
+    p.add_argument("input", nargs="*", help="project files (JSON or JSON5)")
+    p.add_argument("-w", "--wav", action="store_true",
+                   help="render as WAVE file(s) (appears next to source)")
+    p.add_argument("-p", "--perf", action="store_true",
+                   help="print perf information")
+    p.add_argument("--sample-rate", type=int, default=44100)
+    p.add_argument("--out-dir", type=str, default=None,
+                   help="write WAVs here instead of next to the input")
+    p.add_argument("--device", type=str, default="cuda",
+                   help="torch device to render on (default: cuda)")
+    for flags in NOT_PORTED:
+        p.add_argument(*flags, nargs="*", default=None,
+                       dest="np_" + flags[-1].lstrip("-").replace("-", "_"),
+                       help=argparse.SUPPRESS)
+    return p
+
+
+def output_path(input_filename: str, out_dir: str | None) -> Path:
+    out = re.sub(r"\.(json5?|midi?|nsn)$", ".wav", input_filename)
+    if out == input_filename:
+        raise SystemExit(
+            "would overwrite input file; couldn't generate output filename"
+        )
+    path = Path(out)
+    if out_dir:
+        path = Path(out_dir) / path.name
+        path.parent.mkdir(parents=True, exist_ok=True)
+    return path
+
+
+def main(argv=None, perf_out: list | None = None) -> int:
+    """Render each input; returns 0, or 1 if any file failed. perf_out,
+    when given, receives one dict of timings per rendered file."""
+    args = build_parser().parse_args(argv)
+    for flags in NOT_PORTED:
+        if getattr(args, "np_" + flags[-1].lstrip("-").replace("-", "_")) \
+                is not None:
+            raise SystemExit(f"{flags[-1]}: not ported yet, see ROADMAP.md")
+    if args.device.startswith("cuda"):
+        from groove_tpu_torch import require_cuda
+        require_cuda()
+    from groove_tpu.project.paths import Paths
+
+    paths = Paths()
+    rc = 0
+    for input_filename in args.input:
+        if input_filename.endswith((".mid", ".midi")):
+            print(f"error: {input_filename}: MIDI file import is not ported "
+                  "yet, see ROADMAP.md", file=sys.stderr)
+            rc = 1
+            continue
+        try:
+            perf = _process_file(input_filename, paths, args)
+        except (OSError, ValueError, NotImplementedError) as e:
+            # per-file isolation, like the reference CLI: a bad project
+            # must not abort the batch
+            print(f"error: {input_filename}: {e}", file=sys.stderr)
+            rc = 1
+            continue
+        if perf_out is not None:
+            perf_out.append(perf)
+    return rc
+
+
+def _sync(device) -> None:
+    import torch
+
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _process_file(input_filename: str, paths, args) -> dict:
+    from groove_tpu.project.schema import SongSettings
+    from groove_tpu_torch.compiler.song import compile_song
+    from groove_tpu_torch.engine.render import Renderer
+    from groove_tpu_torch.io.wav import write_wav_16bit_stereo
+
+    t0 = time.perf_counter()
+    song = SongSettings.from_project_file(Path(input_filename))
+    compiled = compile_song(song, paths, sample_rate=args.sample_rate)
+    renderer = Renderer(compiled, device=args.device)
+    _sync(renderer.device)
+    setup_s = time.perf_counter() - t0
+    if args.perf:
+        print(f"Orchestrator instantiation time: {setup_s:.2f}s")
+    print(f"Performing to queue ({compiled.n_frames} frames) ", end="")
+    render_fn = renderer.render_quantized if args.wav else renderer.render
+    t1 = time.perf_counter()
+    samples = render_fn()  # includes the kernel build on first use
+    first_s = time.perf_counter() - t1
+    render_s = first_s
+    if args.perf:
+        # steady state: kernels built and loaded
+        t2 = time.perf_counter()
+        samples = render_fn()
+        render_s = time.perf_counter() - t2
+    print(".")
+    n = len(samples)
+    audio_s = n / args.sample_rate
+    perf = {"input": input_filename, "frames": n, "setup_s": setup_s,
+            "first_render_s": first_s, "render_s": render_s,
+            "xrt": audio_s / render_s if render_s > 0 else None}
+    if args.perf:
+        print(f" Orchestrator performance time: {first_s:.2f}s "
+              f"(first, incl. kernel build) / {render_s * 1000:.2f}ms "
+              f"(steady)")
+        print(f" Sample count: {n}")
+        if render_s > 0 and n:
+            print(f" Samples per msec: {n / (render_s * 1000.0):.2f} "
+                  f"(goal >{args.sample_rate / 1000.0:.2f})")
+            print(f" usec per sample: {render_s * 1e6 / n:.4f} "
+                  f"(goal <{1e6 / args.sample_rate:.2f})")
+            print(f" xRT: {audio_s / render_s:.1f}x realtime")
+    if args.wav:
+        out = output_path(input_filename, args.out_dir)
+        print(f"Rendering queue to {out}")
+        write_wav_16bit_stereo(out, samples, args.sample_rate)
+        perf["wav"] = str(out)
+    return perf
+
+
+if __name__ == "__main__":
+    sys.exit(main())

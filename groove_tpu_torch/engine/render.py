@@ -1,0 +1,356 @@
+"""Whole-song rendering (port of groove_tpu/engine/render.py).
+
+The compiled song graph is walked once per render in topological order:
+instruments render into [2, n] buses, effects transform the sum of their
+sources (plus aux sends), and the main mixer's bus is the song. Automation
+is applied per 64-frame block exactly like the reference, upsampled to
+per-sample tensors where an effect reads it per sample. The walk runs
+eagerly in torch on the Renderer's device; the drumkit and the automated
+24 dB filter run on hand kernels (ops/drums.py, ops/iir_kernels.py).
+
+Sidechain semantics: the reference's SignalPassthroughController observes
+audio during buffer b and emits its control value in buffer b + 1 — a
+one-block delay, reproduced by shifting the derived per-block curve right
+by one block.
+
+Ported so far: drumkits at the song's sample rate; mixer, passthrough,
+gain, limiter, bitcrusher and automated filter-low-pass-24db. Every other
+instrument or effect kind raises NotImplementedError: nothing falls
+silent.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from groove_tpu.compiler import params as param_mod
+from groove_tpu.core.time import SAMPLE_BUFFER_SIZE
+from groove_tpu_torch.compiler.song import MAIN_MIXER_UVID, CompiledSong, \
+    DeviceIR
+from groove_tpu_torch.engine.params import inputs_from_numpy
+from groove_tpu_torch.io.wav import quantize_16bit
+from groove_tpu_torch.ops import drums, effects, iir
+
+BLOCK = SAMPLE_BUFFER_SIZE
+
+
+def not_ported(kind: str) -> NotImplementedError:
+    return NotImplementedError(f"{kind}: not ported yet, see ROADMAP.md")
+
+
+def _upsample_block(curve: torch.Tensor, n: int) -> torch.Tensor:
+    """Block-rate curve [n_blocks] -> per-sample [n] by hold."""
+    return iir.upsample_hold(curve, n, BLOCK)
+
+
+def host_effect_filter_coefs(dev, nb: int, sr: float):
+    """HOST (numpy f32) coefficients of one effect-filter device over nb
+    64-frame control blocks, from its static params and trip automation
+    curves. Returns ("lp24", gain, secs) with gain [nb] and secs = 2
+    tuples of 5 [nb] arrays, ("bq", coefs) with a 5-tuple of [nb] arrays,
+    or None (not a designable filter kind). These exact bits feed both the
+    fidelity planner and the render. Memoized per (DeviceIR, nb, sr)."""
+    cache = getattr(dev, "_host_coef_cache", None)
+    if cache is None:
+        cache = {}
+        dev._host_coef_cache = cache
+    key = (int(nb), float(sr))
+    if key not in cache:
+        cache[key] = _design_effect_filter_coefs(dev, nb, sr)
+    return cache[key]
+
+
+def _design_effect_filter_coefs(dev, nb: int, sr: float):
+    k = dev.kind
+
+    def pb(name, default, d=dev):
+        if name in d.automation:
+            c = np.asarray(d.automation[name], np.float32)
+            if len(c) < nb:
+                c = np.pad(c, (0, nb - len(c)), mode="edge")
+            return c[:nb]
+        return np.full((nb,), d.params.get(name, default), np.float32)
+
+    cutoff = pb("cutoff", 1000.0)
+    if k == "filter-low-pass-24db":
+        q = np.maximum(pb("passband-ripple", 0.707), np.float32(1e-3))
+        gain, secs = iir.lp24_sections(cutoff, q, sr)
+        gain = np.broadcast_to(np.asarray(gain, np.float32), (nb,))
+        secs = [tuple(np.broadcast_to(np.asarray(c, np.float32), (nb,))
+                      for c in sec) for sec in secs]
+        return ("lp24", gain, secs)
+    mk = {
+        "filter-low-pass-12db": iir.rbj_low_pass,
+        "filter-high-pass-12db": iir.rbj_high_pass,
+        "filter-all-pass-12db": iir.rbj_all_pass,
+    }.get(k)
+    if mk is not None:
+        coefs = mk(cutoff, np.maximum(pb("q", 0.707), np.float32(1e-3)), sr)
+    elif k == "filter-band-pass-12db":
+        coefs = iir.rbj_band_pass(
+            cutoff, np.maximum(pb("bandwidth", 1.0), np.float32(1e-3)), sr)
+    elif k == "filter-band-stop-12db":
+        coefs = iir.rbj_band_stop(
+            cutoff, np.maximum(pb("bandwidth", 1.0), np.float32(1e-3)), sr)
+    elif k == "filter-peaking-eq-12db":
+        coefs = iir.rbj_peaking_eq(
+            cutoff, np.maximum(pb("q", 1.0), np.float32(1e-3)),
+            pb("db-gain", 0.0), sr)
+    elif k == "filter-low-shelf-12db":
+        coefs = iir.rbj_low_shelf(cutoff, pb("db-gain", 0.0), sr)
+    elif k == "filter-high-shelf-12db":
+        coefs = iir.rbj_high_shelf(cutoff, pb("db-gain", 0.0), sr)
+    else:
+        return None
+    coefs = tuple(np.broadcast_to(np.asarray(c, np.float32), (nb,))
+                  for c in coefs)
+    return ("bq", coefs)
+
+
+def compute_filter_fidelity(compiled) -> dict:
+    """Host-side fidelity routing for every filter device, with the
+    reference's KERNEL semantics: uvid -> "serial" (static deep-corner
+    poles) or "refine" (near-critical poles anywhere on an automated
+    trajectory, or a static high-q resonance). Absent uvids keep the
+    single-pass cascade. Sidechain-overridden filters have runtime
+    coefficients and are not routed. Unlike the reference off-TPU there
+    is no residence-based deepening of "refine" to "serial": the fused
+    refined kernel is the accuracy path at the deep corner."""
+    out: dict = {}
+    nb = max(1, -(-compiled.n_frames // BLOCK))
+    sr = float(compiled.sample_rate)
+    sidechain_targets = {tgt for _, tgt, _ in compiled.sidechain}
+    for dev in compiled.devices.values():
+        if not dev.kind.startswith("filter-") or dev.uvid in sidechain_targets:
+            continue
+        designed = host_effect_filter_coefs(dev, nb, sr)
+        if designed is None:
+            continue
+        if designed[0] == "lp24":
+            a1 = np.stack([s[3] for s in designed[2]])
+            a2 = np.stack([s[4] for s in designed[2]])
+        else:
+            a1 = np.atleast_1d(designed[1][3])
+            a2 = np.atleast_1d(designed[1][4])
+        static = not dev.automation
+        if static and bool(np.all(a1 < iir._CRITICAL_A1)
+                           & np.all(a2 > iir._CRITICAL_A2)):
+            out[dev.uvid] = "serial"
+        elif iir.needs_refinement(a1, a2):
+            out[dev.uvid] = "refine"
+    return out
+
+
+def _to_domain(p, v: torch.Tensor) -> torch.Tensor:
+    """A registry param's ControlValue -> domain map on a tensor, for a
+    sidechain onto a ported effect's param (the reference's
+    groove_tpu.compiler.params.to_domain_array)."""
+    if p.to_domain is param_mod.Identity:
+        return v
+    if p.to_domain is param_mod.BitsFromV:
+        return torch.trunc(v * 15.0)
+    raise not_ported(f"sidechain onto {p.name}")
+
+
+class Renderer:
+    """Renders one compiled song on one torch device.
+
+    inputs: optional host (numpy) input dict to render from instead of
+    this Renderer's own collection — e.g. groove_tpu's Renderer.inputs
+    converted to numpy; see engine/params.inputs_from_numpy."""
+
+    def __init__(self, compiled: CompiledSong, device, inputs=None):
+        self.c = compiled
+        self.device = torch.device(device)
+        self.host_inputs: dict[str, np.ndarray] = {}
+        self._collect_inputs()
+        self._collect_effect_filters()
+        self._filter_modes = compute_filter_fidelity(compiled)
+        self.inputs = inputs_from_numpy(
+            self.host_inputs if inputs is None else inputs, self.device)
+
+    # ---- host-side input collection --------------------------------------
+
+    def _collect_inputs(self) -> None:
+        for dev in self.c.devices.values():
+            if (dev.role == "instrument" or dev.kind == "calculator") \
+                    and dev.notes is not None:
+                self._collect_instrument(dev)
+            for pname, curve in dev.automation.items():
+                if dev.kind == "oscillator" and pname == "frequency":
+                    continue  # consumed host-side by the reference
+                self.host_inputs[f"{dev.uvid}/auto/{pname}"] = curve
+
+    def _collect_effect_filters(self) -> None:
+        """Host-designed coefficient arrays for every AUTOMATED,
+        non-sidechain effect filter (host_effect_filter_coefs)."""
+        nb = max(1, -(-self.c.n_frames // BLOCK))
+        sr = float(self.c.sample_rate)
+        sidechain_targets = {tgt for _, tgt, _ in self.c.sidechain}
+        for dev in self.c.devices.values():
+            if not dev.kind.startswith("filter-") or not dev.automation \
+                    or dev.uvid in sidechain_targets:
+                continue
+            designed = host_effect_filter_coefs(dev, nb, sr)
+            if designed is None:
+                continue
+            u = dev.uvid
+            if designed[0] == "lp24":
+                self.host_inputs[f"{u}/fc/gain"] = designed[1]
+                self.host_inputs[f"{u}/fc/secs"] = np.stack(
+                    [np.stack(sec) for sec in designed[2]])  # [2, 5, nb]
+            else:
+                self.host_inputs[f"{u}/fc/coefs"] = np.stack(designed[1])
+
+    def _collect_instrument(self, dev: DeviceIR) -> None:
+        if dev.kind != "drumkit":
+            raise not_ported(dev.kind)
+        notes = dev.notes
+        if notes.count == 0:
+            return
+        sr = self.c.sample_rate
+        if not all(int(x) == sr for x in dev.sample_table.rates):
+            raise not_ported("drumkit with a sample rate other than the "
+                             "song's")
+        gate = notes.off_frames - notes.on_frames
+        u = dev.uvid
+        h = self.host_inputs
+        h[f"{u}/keys"] = notes.keys
+        h[f"{u}/vels"] = notes.vels
+        h[f"{u}/on"] = notes.on_frames
+        h[f"{u}/gate"] = gate.astype(np.int32)
+        h[f"{u}/table"] = dev.sample_table.data
+        h[f"{u}/lengths"] = dev.sample_table.lengths
+        h[f"{u}/rates"] = dev.sample_table.rates
+        h[f"{u}/slots"] = dev.slots
+        h[f"{u}/ptable"] = drums.prepare_table(dev.sample_table.data)
+        one_shot = np.full(notes.count, 2**30, np.int64)
+        meta = drums.prepare_hits(dev.slots, notes.on_frames, one_shot,
+                                  notes.vels, dev.sample_table.lengths,
+                                  self.c.n_frames)
+        for name, arr in zip(("hcounts", "hslots", "hstarts", "hshifts",
+                              "hlimits", "hvels"), meta):
+            h[f"{u}/{name}"] = arr
+
+    # ---- render -------------------------------------------------------------
+
+    def _param(self, inputs, dev: DeviceIR, name: str, default: float,
+               n: int, override=None):
+        """Per-sample [n] tensor if automated/overridden, else a float."""
+        if override is not None:
+            return override
+        key = f"{dev.uvid}/auto/{name}"
+        if key in inputs:
+            return _upsample_block(inputs[key], n)
+        return float(dev.params.get(name, default))
+
+    def _zeros(self, n: int) -> torch.Tensor:
+        return torch.zeros((2, n), dtype=torch.float32, device=self.device)
+
+    def _render_instrument(self, inputs, dev: DeviceIR, n: int):
+        if dev.kind != "drumkit":
+            raise not_ported(dev.kind)
+        if dev.notes is None or dev.notes.count == 0:
+            return self._zeros(n)
+        u = dev.uvid
+        return drums.accumulate_hits(
+            inputs[f"{u}/ptable"], inputs[f"{u}/hcounts"],
+            inputs[f"{u}/hslots"], inputs[f"{u}/hstarts"],
+            inputs[f"{u}/hshifts"], inputs[f"{u}/hlimits"],
+            inputs[f"{u}/hvels"], n_frames=n)
+
+    def _apply_effect(self, inputs, dev: DeviceIR, x, n: int, overrides):
+        k = dev.kind
+
+        def P(name, default):
+            return self._param(inputs, dev, name, default, n,
+                               override=overrides.get((dev.uvid, name)))
+
+        if k == "mixer" or k == "signal-passthrough-controller":
+            return x
+        if k == "gain":
+            return effects.gain(x, P("ceiling", 1.0))
+        if k == "limiter":
+            return effects.limiter(x, P("minimum", 0.0), P("maximum", 1.0))
+        if k == "bitcrusher":
+            bits = overrides.get((dev.uvid, "bits-to-crush"))
+            if bits is None:
+                key = f"{dev.uvid}/auto/bits-to-crush"
+                if key in inputs:
+                    bits = _upsample_block(inputs[key], n)
+                else:
+                    bits = float(dev.params.get("bits", 8))
+            return effects.bitcrusher(x, bits)
+        if k == "filter-low-pass-24db" and f"{dev.uvid}/fc/secs" in inputs:
+            # automated: HOST-designed block-rate coefficients
+            fs = inputs[f"{dev.uvid}/fc/secs"]
+            return iir.lp24_apply_blockrate_sections(
+                x, inputs[f"{dev.uvid}/fc/gain"],
+                [tuple(fs[i, j] for j in range(5)) for i in range(2)],
+                fidelity=self._filter_modes.get(dev.uvid))
+        if k == "filter-low-pass-24db":
+            raise not_ported("filter-low-pass-24db without automation")
+        raise not_ported(k)
+
+    def _render(self, inputs) -> torch.Tensor:
+        c = self.c
+        n = c.n_frames
+        outputs: dict[str, torch.Tensor] = {}
+        overrides: dict[tuple, torch.Tensor] = {}
+        sidechain_by_src: dict = {}
+        for src, tgt, pname in c.sidechain:
+            sidechain_by_src.setdefault(src, []).append((tgt, pname))
+        sends_by_aux: dict = {}
+        for src, aux, amount in c.sends:
+            sends_by_aux.setdefault(aux, []).append((src, amount))
+
+        for uvid in c.order:
+            dev = c.devices[uvid]
+            if dev.role == "instrument" or dev.kind == "calculator":
+                outputs[uvid] = self._render_instrument(inputs, dev, n)
+                continue
+            acc = self._zeros(n)
+            for s in c.sinks.get(uvid, []):
+                if s in outputs:
+                    acc = acc + outputs[s]
+            for s, amount in sends_by_aux.get(uvid, []):
+                if s in outputs:
+                    acc = acc + amount * outputs[s]  # BusRoute send
+            if dev.role == "controller" \
+                    and dev.kind != "signal-passthrough-controller":
+                continue  # non-audio controllers have no audio output
+            outputs[uvid] = self._apply_effect(inputs, dev, acc, n, overrides)
+            if uvid in sidechain_by_src:
+                # last sample of block b-1 -> control value for block b
+                last = acc[:, BLOCK - 1::BLOCK]
+                val = torch.abs(torch.mean(last, dim=0))
+                val = torch.cat([torch.zeros(1, dtype=val.dtype,
+                                             device=val.device), val[:-1]])
+                per_sample = _upsample_block(val, n)
+                for tgt, pname in sidechain_by_src[uvid]:
+                    p = param_mod.resolve(c.devices[tgt].kind, pname)
+                    overrides[(tgt, pname)] = (
+                        _to_domain(p, per_sample) if p is not None
+                        else per_sample)
+
+        out = outputs.get(MAIN_MIXER_UVID, self._zeros(n))
+        return out.T  # [n, 2]
+
+    # ---- public -------------------------------------------------------------
+
+    def render_device(self) -> torch.Tensor:
+        """Device-resident float render [n, 2] (no host copy)."""
+        return self._render(self.inputs)
+
+    def render(self) -> np.ndarray:
+        """Float render [n, 2] on the host."""
+        if self.c.n_frames == 0:
+            return np.zeros((0, 2), np.float32)
+        return self.render_device().cpu().numpy()
+
+    def render_quantized(self) -> np.ndarray:
+        """int16 render [n, 2], quantized on the device (io.wav spec)."""
+        if self.c.n_frames == 0:
+            return np.zeros((0, 2), np.int16)
+        return quantize_16bit(self.render_device()).cpu().numpy()
