@@ -1,26 +1,46 @@
-"""On-card smoke run of groove_tpu_torch: the offline render's first slice
-(drumkit -> automated 24 dB low-pass -> mix -> 16-bit WAV) on one CUDA
-device, through the hand-written kernels K1 (drums), K2 (refined lp24)
-and K3 (single-pass lp24).
+"""On-card smoke run of groove_tpu_torch: the offline render (drumkit ->
+effect filters -> mix -> 16-bit WAV) on one CUDA device, through the
+hand-written kernels K1 (drums), K2 (refined lp24), K3 (lp24, block-rate
+denominators), K6 (lp24, per-sample or static denominators), K4/K5/K9
+(one biquad section with block-rate, static or per-sample coefficients)
+and the serial scan.
 
     python3 chip_smoke.py
 
 Phases, one JSON line each:
   1. environment: versions, device, nvidia-smi name and power limit;
-  2. build: nvcc of groove_tpu_torch/csrc into build/groove_tpu_torch;
+  2. build: nvcc of groove_tpu_torch/csrc into one library under
+     build/groove_tpu_torch, one process per source, all at once;
   3. kernels against their plain torch twins on the card, at the main
-     path's shapes ([2, n] for 10 s of the north-star analogue; [64, 65536]
-     for K2/K3): max difference (they must agree bit for bit, as the tests
-     require) and median CUDA-event times of kernel and twin;
-  4. the slice through the CLI (groove_tpu_torch.cli.main --wav --perf) on
-     the 3-minute north-star analogue (K1 + K2), then on the same song with
-     the cutoff kept above 2 kHz (K1 + K3): render time, x realtime, peak
-     device memory, WAV size and peak, kernel launch counts; each WAV is
-     checked against the CPU render of the same song (the twins) bit for
-     bit.
+     path's shapes ([2, n] for 10 s of the songs; [64, 65536]): max
+     difference (they must agree bit for bit, as the tests require) and
+     median CUDA-event times of kernel and twin; then each kernel alone at
+     the 3-minute songs' shapes, beside its bound;
+  4. the main path through the CLI (groove_tpu_torch.cli.main --wav
+     --perf), each run with the launch counts set to 0 just before it and
+     read just after: the 3-minute north-star analogue (K1 + K2), the same
+     song with the cutoff kept above 2 kHz (K1 + K3), and the 3-minute
+     filter-bank analogue (every route of the effect filters: K1, K5, K4,
+     K4 twice for "refine", the serial scan, K6 and K3); then the ops entry
+     point iir.biquad_best with per-sample coefficients (K9, which no
+     render path reaches) on the filter bank's output. Render time,
+     x realtime, peak device memory, WAV size and peak, launch counts;
+  5. outputs: each 3-minute WAV's shape and peak; the north-star and
+     high-sweep WAVs against the CPU render of the same song (the twins)
+     bit for bit, and a 10-second filter-bank render through the CLI
+     against the twins' (the serial scan's twin is a Python loop over
+     time, too slow for 3 minutes on the CPU).
 Then the kernel summary line, the nvidia-smi line, and the result line.
 Without a CUDA device it exits non-zero before printing any result.
 Synthetic assets and outputs go to build/chip_smoke/ in this checkout.
+
+Bounds: bound_ms is the largest of three times: the bytes a call must
+move (inputs read once, outputs written once) over 3.35 TB/s; its
+floating-point operations over 67 TFLOP/s (H100 SXM float32, NVIDIA's
+data sheet); and the algorithm's serial dependency chain (chain_ms:
+dependent float operations, 4 cycles each at the SM clock that
+nvidia-smi reports as clocks.max.sm), which binds these few-row
+recurrences. bound_by is "bytes" when the first binds, else "operations".
 """
 
 import json
@@ -38,6 +58,43 @@ sys.path.insert(0, str(ROOT))
 SONG_MEASURES = 90   # 3 minutes at 120 bpm
 SONG_BPM = 120.0
 CHECK_MEASURES = 5   # 10 s: the kernel-vs-twin shapes
+WIDE = (64, 65536)   # many rows: the other kernel-vs-twin shape
+
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOPS_PER_S = 67e12
+DEPENDENT_OP_CYCLES = 4
+SM_CLOCK_HZ = None  # nvidia-smi's clocks.max.sm, read in main()
+
+# name -> (source, the TPU kernel or XLA scan it replaces)
+KERNELS = {
+    "drums": ("groove_tpu_torch/csrc/drums.cu",
+              "groove_tpu/ops/pallas_drums.py:119"),
+    "lp24_refined": ("groove_tpu_torch/csrc/lp24.cu",
+                     "groove_tpu/ops/pallas_iir.py:1021"),
+    "lp24": ("groove_tpu_torch/csrc/lp24.cu",
+             "groove_tpu/ops/pallas_iir.py:661"),
+    "lp24_cascade": ("groove_tpu_torch/csrc/lp24.cu",
+                     "groove_tpu/ops/pallas_iir.py:561"),
+    "biquad_blockrate": ("groove_tpu_torch/csrc/biquad.cu",
+                         "groove_tpu/ops/pallas_iir.py:632"),
+    "biquad_scalar": ("groove_tpu_torch/csrc/biquad.cu",
+                      "groove_tpu/ops/pallas_iir.py:538"),
+    "biquad_per_sample": ("groove_tpu_torch/csrc/biquad.cu",
+                          "groove_tpu/ops/pallas_iir.py:513"),
+    "biquad_serial": ("groove_tpu_torch/csrc/serial.cu",
+                      "groove_tpu/ops/iir.py:213"),
+}
+KIND = {"lp24_refined": "K2", "lp24": "K3", "lp24_cascade": "K6",
+        "biquad_blockrate": "K4", "biquad_scalar": "K5",
+        "biquad_per_sample": "K9", "biquad_serial": "serial"}
+
+# launches per render of each song, by kernel (the route plan)
+PER_RENDER = {
+    "north-star": {"drums": 1, "lp24_refined": 1},
+    "high-sweep": {"drums": 1, "lp24": 1},
+    "filter-bank": {"drums": 1, "biquad_scalar": 1, "biquad_blockrate": 5,
+                    "biquad_serial": 1, "lp24_cascade": 1, "lp24": 1},
+}
 
 
 def emit(phase: str, **fields) -> None:
@@ -50,12 +107,12 @@ def require(ok: bool, what: str) -> None:
         raise SystemExit(f"chip_smoke: FAILED: {what}")
 
 
-def cuda_ms(fn, reps: int) -> tuple[float, object]:
-    """Median CUDA-event milliseconds of `reps` calls (after one warm-up)
-    and the last result."""
+def cuda_ms(fn, reps: int, warmup: bool = True) -> tuple[float, object]:
+    """Median CUDA-event milliseconds of `reps` calls (after one warm-up
+    unless warmup is False) and the last result."""
     import torch
 
-    out = fn()
+    out = fn() if warmup else None
     times = []
     for _ in range(reps):
         a = torch.cuda.Event(enable_timing=True)
@@ -68,18 +125,92 @@ def cuda_ms(fn, reps: int) -> tuple[float, object]:
     return statistics.median(times), out
 
 
-def compare(name, kernel_fn, plain_fn, peak_ref, reps=(20, 3)):
-    """Time kernel and twin on the same card inputs; they must be equal."""
+def bounds(nbytes: float, flops: float, chain_ops: float) -> dict:
+    """The card's least time for the work: the largest of the bytes over
+    the HBM rate, the operations over the float32 peak and the dependency
+    chain's time."""
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = flops / F32_FLOPS_PER_S * 1e3
+    chain = chain_ops * DEPENDENT_OP_CYCLES / SM_CLOCK_HZ * 1e3
+    return {"bytes": nbytes, "flops": flops, "chain_ops": chain_ops,
+            "bytes_ms": by_bytes, "flops_ms": by_ops, "chain_ms": chain,
+            "bound_ms": max(by_bytes, by_ops, chain),
+            "bound_by": ("bytes" if by_bytes >= max(by_ops, chain)
+                         else "operations")}
+
+
+def compare(name, kernel_fn, plain_fn, peak_ref, work, reps=20):
+    """Time kernel and twin on the same card inputs; they must be equal.
+    The twin runs once: it repeats the kernel's arithmetic as a loop of
+    torch calls and measures launch overhead, not a competitor."""
     import torch
 
-    ms, y = cuda_ms(kernel_fn, reps[0])
-    plain_ms, y_plain = cuda_ms(plain_fn, reps[1])
+    ms, y = cuda_ms(kernel_fn, reps)
+    plain_ms, y_plain = cuda_ms(plain_fn, 1, warmup=False)
     err = float((y - y_plain).abs().max())
     peak = max(1.0, float(peak_ref))
     db = 20.0 * (torch.log10(torch.tensor(err / peak + 1e-30)).item())
     return {"name": name, "shape": list(y.shape), "max_abs_err": err,
             "err_dbfs": db, "bitwise": bool(torch.equal(y, y_plain)),
-            "ms": ms, "plain_ms": plain_ms}
+            "ms": ms, "plain_ms": plain_ms, **bounds(*work)}
+
+
+def iir_work(kind: str, rows: int, n: int, coef_bytes: float) -> tuple:
+    """(bytes, flops, chain ops) of one IIR kernel call on [rows, n]: x
+    read and y written once, the coefficients once. Float operations per
+    sample of one section: 13 in phase 1 and 5-6 in the combine (K2 adds
+    13 for the defect, 7 for the correction scan and 6 for its combine);
+    per ln-block 8 in phase 2. A section's chain is 2 dependent operations
+    per in-block step and 3 per phase-2 step; the serial scan's is 4 per
+    sample (9 operations)."""
+    from groove_tpu_torch.ops.iir_kernels import geometry
+
+    io = 2.0 * rows * n * 4 + coef_bytes
+    if kind == "serial":
+        return io, 9.0 * rows * n, 4.0 * n
+    ln, nb, _ = geometry(n, blockrate=kind in ("K2", "K3", "K4"))
+    per_sample = {"K4": 19, "K5": 19, "K9": 19, "K3": 36, "K6": 36,
+                  "K2": 88}[kind]
+    passes = (2 if kind in ("K2", "K3", "K6") else 1) \
+        * (2 if kind == "K2" else 1)
+    flops = rows * (per_sample * n + 8 * nb * passes)
+    return io, float(flops), float((2 * ln + 3 * nb) * passes)
+
+
+def coef_bytes(coefs) -> float:
+    """Bytes of the distinct coefficient values a call reads (a row
+    broadcast with stride 0 counts once; by-value scalars count 0)."""
+    import torch
+
+    total = 0.0
+    for c in coefs:
+        if torch.is_tensor(c) and c.dim() > 0:
+            total += float((c if c.stride()[0] else c[0]).numel() * 4)
+    return total
+
+
+def iir_call_work(name: str, x, coefs) -> tuple:
+    flat = ([c for sec in coefs for c in sec[3:]] if name.startswith("lp24")
+            else list(coefs))
+    return iir_work(KIND[name], x.shape[0], x.shape[-1], coef_bytes(flat))
+
+
+def drum_work(r, n: int) -> tuple:
+    """(bytes, flops, chain ops) of one K1 call: the table and hit lists
+    read once, [2, n] written once; a multiply and an add per channel for
+    every sample of every hit that lands in the timeline."""
+    h = r.host_inputs
+    on = h["drums/on"].astype("int64")
+    slots = h["drums/slots"]
+    span = (h["drums/lengths"][slots.clip(0)].astype("int64")
+            .clip(max=h["drums/gate"]).clip(max=n - on))
+    hit_samples = float(span[(slots >= 0) & (on < n)].sum())
+    nbytes = 2.0 * n * 4 + sum(
+        float(r.inputs[f"drums/{k}"].numel()
+              * r.inputs[f"drums/{k}"].element_size())
+        for k in ("ptable", "hcounts", "hslots", "hstarts", "hshifts",
+                  "hlimits", "hvels"))
+    return nbytes, 4.0 * hit_samples, 0.0
 
 
 def main() -> int:
@@ -88,26 +219,37 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 1
-    from groove_tpu.io.wav import read_wav
-    from groove_tpu.project.paths import Paths
-    from groove_tpu.project.schema import SongSettings
     from groove_tpu_torch import cli
     from groove_tpu_torch.compiler.song import compile_song
     from groove_tpu_torch.engine.render import Renderer
+    from groove_tpu_torch.io.wav import read_wav
     from groove_tpu_torch.kernels import build
+    from groove_tpu_torch.ops import biquad_kernels as bk
     from groove_tpu_torch.ops import drums, iir_kernels
     from groove_tpu_torch.ops import iir as tiir
+    from groove_tpu_torch.project.paths import Paths
+    from groove_tpu_torch.project.schema import SongSettings
     from groove_tpu_torch.testing import synth
 
+    global SM_CLOCK_HZ
     dev = torch.device("cuda", 0)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip().splitlines()[0]
+
+    def smi(query: str) -> str:
+        return subprocess.run(
+            ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
+            capture_output=True, text=True, check=True,
+            timeout=60).stdout.strip().splitlines()[0]
+
+    name_power = smi("name,power.limit")
+    clock = smi("clocks.max.sm")
+    require(clock.endswith(" MHz") and clock.split()[0].isdigit(),
+            f"nvidia-smi clocks.max.sm reads {clock!r}")
+    SM_CLOCK_HZ = float(clock.split()[0]) * 1e6
     emit("environment", python=sys.version.split()[0],
          torch=torch.__version__, cuda=torch.version.cuda,
          device=torch.cuda.get_device_name(0),
-         count=torch.cuda.device_count(), nvidia_smi=smi)
+         count=torch.cuda.device_count(), nvidia_smi=name_power,
+         max_sm_clock_hz=SM_CLOCK_HZ)
 
     info = build.build()
     build.library()
@@ -120,29 +262,79 @@ def main() -> int:
     shutil.rmtree(work, ignore_errors=True)
     assets = synth.write_assets(work / "assets")
     paths = Paths(roots=[assets])
+    counters = (drums.LAUNCHES, iir_kernels.LAUNCHES, bk.LAUNCHES)
 
-    # ---- 3. kernels vs twins at the main path's shapes --------------------
-    def kernel_inputs(measures: int, project=synth.north_star_project):
-        """The drum hits and the filter's input and sections, as the
-        Renderer hands them to the kernels for this song."""
+    def launches() -> dict:
+        return {k: v for c in counters for k, v in c.items()}
+
+    def zero_launches() -> None:
+        for c in counters:
+            for k in c:
+                c[k] = 0
+
+    def renderer(project, measures: int):
         song = SongSettings.from_json(project(measures, SONG_BPM))
-        r = Renderer(compile_song(song, paths), device=dev)
-        n = r.c.n_frames
+        return Renderer(compile_song(song, paths), device=dev)
+
+    def drum_bus(r):
         hits = [r.inputs[f"drums/{k}"] for k in (
             "ptable", "hcounts", "hslots", "hstarts", "hshifts", "hlimits",
             "hvels")]
-        bus = drums.accumulate_hits(*hits, n_frames=n)
-        x = bus * tiir.upsample_hold(r.inputs["low-pass-1/fc/gain"], n)
-        fs = r.inputs["low-pass-1/fc/secs"]
-        secs = [tuple(fs[i, j].expand(2, -1) for j in range(5))
-                for i in range(2)]
-        return n, hits, x, secs
+        return hits, drums.accumulate_hits(*hits, n_frames=r.c.n_frames)
 
-    n, hits, x, secs = kernel_inputs(CHECK_MEASURES)
-    results = [compare(
+    def lp24_inputs(r, bus):
+        """The north-star filter's input and block-rate sections, as the
+        Renderer hands them to K2/K3."""
+        x = bus * tiir.upsample_hold(r.inputs["low-pass-1/fc/gain"],
+                                     r.c.n_frames)
+        fs = r.inputs["low-pass-1/fc/secs"]
+        return x, [tuple(fs[i, j].expand(2, -1) for j in range(5))
+                   for i in range(2)]
+
+    def sweep(n: int):
+        """Per-sample low-pass coefficients, 200 Hz -> 12 kHz (K9)."""
+        return tiir.rbj_low_pass(
+            torch.logspace(2.3, 4.08, n, dtype=torch.float64).float()
+            .to(dev), 0.707, 44100.0)
+
+    def bank_calls(r, bus):
+        """name -> (kernel, twin, x, coefficients): each filter-bank route's
+        kernel with the input and coefficients the render gives it, and
+        K9 with a per-sample sweep."""
+        sr = float(r.c.sample_rate)
+        bank = synth.FILTER_BANK
+        peq, hp, lp = (bank[u][1] for u in ("peq", "hp40", "lp24-8k"))
+        co = r.inputs["bp-sweep/fc/coefs"]
+        gain, secs = tiir.lp24_sections(lp["cutoff"], lp["passband-ripple"],
+                                        sr)
+        return {
+            "biquad_scalar": (bk.biquad_scalar, bk.biquad_scalar_plain, bus,
+                              tiir.rbj_peaking_eq(peq["cutoff"], peq["q"],
+                                                  peq["db-gain"], sr)),
+            "biquad_blockrate": (bk.biquad_blockrate,
+                                 bk.biquad_blockrate_plain, bus,
+                                 tuple(co[j].expand(2, -1)
+                                       for j in range(5))),
+            "biquad_serial": (bk.biquad_serial, bk.biquad_serial_plain, bus,
+                              tiir.rbj_high_pass(hp["cutoff"], hp["q"], sr)),
+            "lp24_cascade": (iir_kernels.lp24_cascade,
+                             iir_kernels.lp24_cascade_plain,
+                             bus * float(gain), secs),
+            "biquad_per_sample": (bk.biquad_per_sample,
+                                  bk.biquad_per_sample_plain, bus,
+                                  sweep(bus.shape[-1])),
+        }
+
+    # ---- 3. kernels vs twins at the main path's shapes --------------------
+    results = []
+    r = renderer(synth.north_star_project, CHECK_MEASURES)
+    hits, bus = drum_bus(r)
+    n = r.c.n_frames
+    results.append(compare(
         "drums", lambda: drums.accumulate_hits(*hits, n_frames=n),
         lambda: drums.accumulate_hits_plain(*hits, n_frames=n),
-        x.abs().max())]
+        bus.abs().max(), drum_work(r, n)))
+    x, secs = lp24_inputs(r, bus)
     twins = (("lp24_refined", iir_kernels.lp24_refined_blockrate,
               iir_kernels.lp24_refined_blockrate_plain),
              ("lp24", iir_kernels.lp24_blockrate,
@@ -150,65 +342,112 @@ def main() -> int:
     x2, den = iir_kernels._prepare(x, secs, 64)
     for name, kern, plain in twins:
         results.append(compare(name, lambda k=kern: k(x, secs),
-                               lambda p=plain: p(x2, *den), x.abs().max()))
-    # [64, 65536]: many rows through a sweep that rests near 25 Hz
+                               lambda p=plain: p(x2, *den), x.abs().max(),
+                               iir_call_work(name, x, secs)))
+    rb = renderer(synth.filter_bank_project, CHECK_MEASURES)
+    _, bus_b = drum_bus(rb)
+    for name, (kern, plain, xb, co) in bank_calls(rb, bus_b).items():
+        results.append(compare(name, lambda k=kern, a=xb, c=co: k(a, c),
+                               lambda p=plain, a=xb, c=co: p(a, c),
+                               xb.abs().max(), iir_call_work(name, xb, co)))
+    # the refine route's first solve: static coefficients held per block
+    q20 = synth.FILTER_BANK["lp12-q20"][1]
+    held = tuple(torch.full((2, -(-n // 64)), float(c), device=dev)
+                 for c in tiir.rbj_low_pass(q20["cutoff"], q20["q"],
+                                            float(rb.c.sample_rate)))
+    results.append(compare(
+        "biquad_blockrate", lambda: bk.biquad_blockrate(bus_b, held),
+        lambda: bk.biquad_blockrate_plain(bus_b, held), bus_b.abs().max(),
+        iir_call_work("biquad_blockrate", bus_b, held)))
+    main_shape = {}
+    for res in results:
+        main_shape.setdefault(res["name"], res)
+    del r, rb, hits, bus, bus_b, x, secs, x2, den, held
+
+    # [64, 65536]: many rows through sweeps that rest near 25 Hz
     g = torch.Generator().manual_seed(0)
-    rows, nn = 64, 65536
+    rows, nn = WIDE
     t = torch.linspace(0.0, 1.0, nn // 64, dtype=torch.float64) ** 3
-    gain_w, secs_w = tiir.lp24_sections(
-        (25.0 * 800.0 ** t).float().numpy(), 0.707, 44100.0)
+    cut_b = (25.0 * 800.0 ** t).float()
+    gain_w, secs_w = tiir.lp24_sections(cut_b.numpy(), 0.707, 44100.0)
     xw = (torch.randn(rows, nn, generator=g) * 0.3).to(dev)
-    xw = xw * tiir.upsample_hold(torch.from_numpy(gain_w).to(dev), nn)
+    xg = xw * tiir.upsample_hold(torch.from_numpy(gain_w).to(dev), nn)
     sw = [tuple(torch.from_numpy(c).to(dev).expand(rows, -1) for c in sec)
           for sec in secs_w]
-    xw2, denw = iir_kernels._prepare(xw, sw, 64)
+    xw2, denw = iir_kernels._prepare(xg, sw, 64)
     for name, kern, plain in twins:
-        results.append(compare(name, lambda k=kern: k(xw, sw),
+        results.append(compare(name, lambda k=kern: k(xg, sw),
                                lambda p=plain: p(xw2, *denw),
-                               xw.abs().max()))
+                               xg.abs().max(), iir_call_work(name, xg, sw)))
+    _, lp8k = tiir.lp24_sections(8000.0, 0.707, 44100.0)
+    wide = (("biquad_blockrate", bk.biquad_blockrate,
+             bk.biquad_blockrate_plain,
+             tuple(c.to(dev).expand(rows, -1) for c in
+                   tiir.rbj_low_pass(cut_b.to(dev), 0.707, 44100.0))),
+            ("biquad_scalar", bk.biquad_scalar, bk.biquad_scalar_plain,
+             tiir.rbj_peaking_eq(1000.0, 1.5, 6.0, 44100.0)),
+            ("biquad_per_sample", bk.biquad_per_sample,
+             bk.biquad_per_sample_plain, sweep(nn)),
+            ("biquad_serial", bk.biquad_serial, bk.biquad_serial_plain,
+             tiir.rbj_high_pass(40.0, 0.707, 44100.0)),
+            ("lp24_cascade", iir_kernels.lp24_cascade,
+             iir_kernels.lp24_cascade_plain, lp8k))
+    for name, kern, plain, co in wide:
+        results.append(compare(name, lambda k=kern, c=co: k(xw, c),
+                               lambda p=plain, c=co: p(xw, c),
+                               xw.abs().max(), iir_call_work(name, xw, co)))
+    del xw, xg, xw2, denw, sw, wide
     for res in results:
         emit("kernel_vs_twin", **res)
-        require(res["bitwise"], f"{res['name']} differs from its twin")
+        require(res["bitwise"], f"{res['name']} differs from its twin "
+                f"at {res['shape']}")
 
-    # each kernel alone at the 3-minute song's shapes
-    n, hits, x, secs = kernel_inputs(SONG_MEASURES)
-    for name, fn in (
-            ("drums", lambda: drums.accumulate_hits(*hits, n_frames=n)),
-            ("lp24_refined",
-             lambda: iir_kernels.lp24_refined_blockrate(x, secs)),
-            ("lp24", lambda: iir_kernels.lp24_blockrate(x, secs))):
+    # each kernel alone at the 3-minute songs' shapes
+    r = renderer(synth.north_star_project, SONG_MEASURES)
+    hits, bus = drum_bus(r)
+    n = r.c.n_frames
+    x, secs = lp24_inputs(r, bus)
+    alone = [("drums", lambda: drums.accumulate_hits(*hits, n_frames=n),
+              drum_work(r, n)),
+             ("lp24_refined",
+              lambda: iir_kernels.lp24_refined_blockrate(x, secs),
+              iir_call_work("lp24_refined", x, secs)),
+             ("lp24", lambda: iir_kernels.lp24_blockrate(x, secs),
+              iir_call_work("lp24", x, secs))]
+    rb = renderer(synth.filter_bank_project, SONG_MEASURES)
+    _, bus_b = drum_bus(rb)
+    for name, (kern, _, xb, co) in bank_calls(rb, bus_b).items():
+        alone.append((name, lambda k=kern, a=xb, c=co: k(a, c),
+                      iir_call_work(name, xb, co)))
+    for name, fn, wk in alone:
         ms, _ = cuda_ms(fn, 5)
-        emit("kernel_at_song_size", name=name, frames=n, ms=ms)
-    del hits, x, secs
+        emit("kernel_at_song_size", name=name, frames=n, ms=ms, **bounds(*wk))
+    del r, rb, hits, bus, bus_b, x, secs, alone
 
-    # ---- 4. the slice through the CLI --------------------------------------
-    projects = {
-        "north-star": synth.write_project(
-            work / "north-star.json",
-            synth.north_star_project(SONG_MEASURES, SONG_BPM)),
-        "high-sweep": synth.write_project(
-            work / "high-sweep.json",
-            synth.high_sweep_project(SONG_MEASURES, SONG_BPM)),
-    }
+    # ---- 4. the main path through the CLI --------------------------------
+    projects = {"north-star": synth.north_star_project,
+                "high-sweep": synth.high_sweep_project,
+                "filter-bank": synth.filter_bank_project}
+    files = {name: synth.write_project(work / f"{name}.json",
+                                       make(SONG_MEASURES, SONG_BPM))
+             for name, make in projects.items()}
     os.environ["GROOVE_ASSETS"] = str(assets)
-    counters = (drums.LAUNCHES, iir_kernels.LAUNCHES)
-    for c in counters:
-        for k in c:
-            c[k] = 0
+    totals = dict.fromkeys(launches(), 0)
     per_song = {}
-    for name, path in projects.items():
-        before = {**drums.LAUNCHES, **iir_kernels.LAUNCHES}
+    for name, path in files.items():
+        zero_launches()
         torch.cuda.reset_peak_memory_stats(dev)
         perf = []
         rc = cli.main([str(path), "--wav", "--perf", "--out-dir",
                        str(work / "out"), "--device", "cuda"],
                       perf_out=perf)
+        got = launches()
         require(rc == 0 and len(perf) == 1, f"cli failed on {name}")
-        after = {**drums.LAUNCHES, **iir_kernels.LAUNCHES}
-        launches = {k: after[k] - before[k] for k in after}
+        for k in totals:
+            totals[k] += got[k]
         wav = Path(perf[0]["wav"])
         audio, rate = read_wav(wav)
-        per_song[name] = (launches, perf[0], wav, audio)
+        per_song[name] = (perf[0], audio)
         emit("slice", project=name, frames=perf[0]["frames"],
              seconds_of_audio=perf[0]["frames"] / rate,
              setup_s=perf[0]["setup_s"],
@@ -216,48 +455,71 @@ def main() -> int:
              render_s=perf[0]["render_s"], xrt=perf[0]["xrt"],
              max_memory_allocated=torch.cuda.max_memory_allocated(dev),
              wav_bytes=wav.stat().st_size,
-             wav_peak=float(abs(audio).max()), launches=launches)
-    totals = {k: drums.LAUNCHES.get(k, 0) + iir_kernels.LAUNCHES.get(k, 0)
-              for k in ("drums", "lp24_refined", "lp24")}
-    ns, hs = per_song["north-star"][0], per_song["high-sweep"][0]
-    require(ns["drums"] >= 1 and ns["lp24_refined"] >= 1,
-            f"north star launched {ns}")
-    require(hs["drums"] >= 1 and hs["lp24"] >= 1, f"high sweep launched {hs}")
-    require(ns["lp24"] == 0 and hs["lp24_refined"] == 0,
-            f"routing: {ns} {hs}")
+             wav_peak=float(abs(audio).max()),
+             launches={k: v for k, v in got.items() if v})
+        # --perf renders twice: once cold, once steady
+        want = {k: 2 * PER_RENDER[name].get(k, 0) for k in got}
+        require(got == want, f"{name} launched {got}, planned {want}")
+    # K9 is on no render path: the ops entry point iir.biquad_best with
+    # per-sample coefficients, on the filter bank's output
+    out = torch.from_numpy(per_song["filter-bank"][1].T.copy()).to(dev)
+    coefs = sweep(out.shape[-1])
+    zero_launches()
+    y = tiir.biquad_best(out, coefs)
+    torch.cuda.synchronize()
+    got = launches()
+    for k in totals:
+        totals[k] += got[k]
+    finite = bool(torch.isfinite(y).all())
+    emit("ops_entry_point", call="iir.biquad_best, per-sample coefficients",
+         shape=list(y.shape), finite=finite,
+         launches={k: v for k, v in got.items() if v})
+    require(got["biquad_per_sample"] == 1 and finite,
+            f"biquad_best per-sample launched {got}")
+    del out, coefs, y
 
-    # ---- outputs: right shape, audible, and equal to the twins' render ----
-    for name, (_, perf, _, audio) in per_song.items():
+    # ---- 5. outputs: right shape, audible, equal to the twins' render -----
+    for name, (perf, audio) in per_song.items():
         require(audio.shape == (perf["frames"], 2),
                 f"{name}: WAV shape {audio.shape}")
         peak = float(abs(audio).max())
         require(0.05 < peak < 1.0, f"{name}: WAV peak {peak}")
-        song = SongSettings.from_project_file(projects[name])
+    checks = {name: files[name] for name in ("north-star", "high-sweep")}
+    checks["filter-bank-10s"] = synth.write_project(
+        work / "filter-bank-10s.json",
+        synth.filter_bank_project(CHECK_MEASURES, SONG_BPM))
+    for name, path in checks.items():
+        if name in per_song:
+            audio = per_song[name][1]
+        else:
+            perf = []
+            rc = cli.main([str(path), "--wav", "--out-dir",
+                           str(work / "out"), "--device", "cuda"],
+                          perf_out=perf)
+            require(rc == 0, f"cli failed on {name}")
+            audio = read_wav(Path(perf[0]["wav"]))[0]
+        song = SongSettings.from_project_file(path)
         t0 = time.perf_counter()
         q_cpu = Renderer(compile_song(song, paths),
                          device="cpu").render_quantized()
         cpu_s = time.perf_counter() - t0
         q_gpu = (audio * 32768.0).round().astype(q_cpu.dtype)
         diff = int(abs(q_gpu.astype("int32") - q_cpu).max())
-        emit("check", project=name, cpu_twin_render_s=cpu_s,
-             max_lsb_diff_vs_cpu_twins=diff)
+        emit("check", project=name, frames=len(q_cpu),
+             cpu_twin_render_s=cpu_s, max_lsb_diff_vs_cpu_twins=diff)
         require(diff == 0, f"{name}: card render differs from the twins")
 
-    sources = {"drums": ("groove_tpu_torch/csrc/drums.cu",
-                         "groove_tpu/ops/pallas_drums.py:119"),
-               "lp24_refined": ("groove_tpu_torch/csrc/lp24.cu",
-                                "groove_tpu/ops/pallas_iir.py:1021"),
-               "lp24": ("groove_tpu_torch/csrc/lp24.cu",
-                        "groove_tpu/ops/pallas_iir.py:661")}
     kernels = []
-    for res in results[:3]:  # the [2, 10 s] main-path shapes
-        src, rep = sources[res["name"]]
-        kernels.append({"name": res["name"], "route": "cuda", "source": src,
-                        "replaces": rep, "launches": totals[res["name"]],
-                        "max_abs_err": res["max_abs_err"], "ms": res["ms"],
-                        "plain_ms": res["plain_ms"]})
+    for name, (src, rep) in KERNELS.items():
+        res = main_shape[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": src, "replaces": rep,
+            "launches": totals[name], "max_abs_err": res["max_abs_err"],
+            "ms": res["ms"], "plain_ms": res["plain_ms"],
+            "bound_ms": res["bound_ms"], "bound_by": res["bound_by"],
+            "library_ms": None})
     print(json.dumps({"kernels": kernels}))
-    print(smi)
+    print(name_power)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -2,18 +2,23 @@
 
 A port of groove_tpu (JAX/Pallas, the reference package beside this one)
 to PyTorch with hand-written CUDA kernels for NVIDIA Hopper (sm_90a).
-This package imports torch and numpy, never jax: it reuses only the
-jax-free host modules of groove_tpu (core/, project/, the compiler's
-events/automation/params, and io.wav's writer).
+This package imports torch and numpy, never jax, and nothing of
+groove_tpu: the host modules it shares with the reference (core/,
+project/, the compiler's events/automation/params, io.wav's reader and
+writers) are copies, held to their originals by
+tests/test_torch_hostcopy.py.
 
 Layout (each module names its groove_tpu counterpart):
-    compiler/  compile_song (its own copy: the reference's pulls in jax)
+    core/      musical time and value types (copies)
+    project/   JSON5, project schema, patches, asset paths (copies)
+    compiler/  compile_song (its own: the reference's pulls in jax), and
+               copies of events/automation/params
     models/    drumkit/sampler loaders and voice helpers
     ops/       DSP in torch; kernel wrappers with their plain twins
     csrc/      CUDA C++ sources of the kernels
     kernels/   the nvcc build and ctypes binding
     engine/    the whole-song Renderer
-    io/        the int16 quantizer
+    io/        WAV reader/writers and the int16 quantizer
     testing/   seeded synthetic assets and projects
     cli.py     python -m groove_tpu_torch.cli <project> --wav --perf
 

@@ -6,7 +6,7 @@
 The whole-timeline path of groove_tpu/cli.py: compile_song -> Renderer ->
 render_quantized -> 16-bit WAV, named like the input with .wav and placed
 next to it (or in --out-dir). Assets are found through
-groove_tpu.project.paths.Paths ($GROOVE_ASSETS first). The reference
+groove_tpu_torch.project.paths.Paths ($GROOVE_ASSETS first). The reference
 CLI's other flags exit with "not ported yet".
 """
 
@@ -73,7 +73,7 @@ def main(argv=None, perf_out: list | None = None) -> int:
     if args.device.startswith("cuda"):
         from groove_tpu_torch import require_cuda
         require_cuda()
-    from groove_tpu.project.paths import Paths
+    from groove_tpu_torch.project.paths import Paths
 
     paths = Paths()
     rc = 0
@@ -104,7 +104,7 @@ def _sync(device) -> None:
 
 
 def _process_file(input_filename: str, paths, args) -> dict:
-    from groove_tpu.project.schema import SongSettings
+    from groove_tpu_torch.project.schema import SongSettings
     from groove_tpu_torch.compiler.song import compile_song
     from groove_tpu_torch.engine.render import Renderer
     from groove_tpu_torch.io.wav import write_wav_16bit_stereo

@@ -2,9 +2,9 @@
 
 Port of groove_tpu/compiler/song.py. The reference module imports
 models/sampler.py and models/voices.py, which import jax at the top, so
-this package carries its own copy: the same code over the jax-free
-groove_tpu modules (compiler.events/automation/params, core, project)
-and this package's sampler/voices. Standard MIDI File import
+this package carries its own copy: the same code over this package's
+copies of the host modules (compiler.events/automation/params, core,
+project) and its own sampler/voices. Standard MIDI File import
 (compile_midi_file) is not ported yet.
 
 This replaces the reference Orchestrator's dynamic entity store, MIDI bus,
@@ -23,22 +23,22 @@ from typing import Optional
 
 import numpy as np
 
-from groove_tpu.compiler import automation as auto_mod
-from groove_tpu.compiler import events as ev_mod
-from groove_tpu.compiler import params as param_mod
-from groove_tpu.core.time import (
+from groove_tpu_torch.compiler import automation as auto_mod
+from groove_tpu_torch.compiler import events as ev_mod
+from groove_tpu_torch.compiler import params as param_mod
+from groove_tpu_torch.core.time import (
     SAMPLE_BUFFER_SIZE,
     MusicalTime,
     SampleRate,
     render_length_frames,
 )
-from groove_tpu.project.paths import Paths
-from groove_tpu.project.patches import (
+from groove_tpu_torch.project.paths import Paths
+from groove_tpu_torch.project.patches import (
     FmSynthParams,
     WelshPatchSettings,
     WelshVoiceParams,
 )
-from groove_tpu.project.schema import ProjectError, SongSettings, warn
+from groove_tpu_torch.project.schema import ProjectError, SongSettings, warn
 from groove_tpu_torch.models import sampler as sampler_mod
 from groove_tpu_torch.models.voices import (apply_mono_policy,
                                             apply_multilimit_policy,
@@ -123,7 +123,7 @@ def swap_test_entities(song: SongSettings) -> SongSettings:
     trips) is untouched."""
     import copy
 
-    from groove_tpu.project.schema import (
+    from groove_tpu_torch.project.schema import (
         ControllerSettings,
         EffectSettings,
         InstrumentSettings,

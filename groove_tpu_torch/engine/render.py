@@ -5,8 +5,9 @@ instruments render into [2, n] buses, effects transform the sum of their
 sources (plus aux sends), and the main mixer's bus is the song. Automation
 is applied per 64-frame block exactly like the reference, upsampled to
 per-sample tensors where an effect reads it per sample. The walk runs
-eagerly in torch on the Renderer's device; the drumkit and the automated
-24 dB filter run on hand kernels (ops/drums.py, ops/iir_kernels.py).
+eagerly in torch on the Renderer's device; the drumkit and the filters
+run on hand kernels (ops/drums.py, ops/iir_kernels.py,
+ops/biquad_kernels.py).
 
 Sidechain semantics: the reference's SignalPassthroughController observes
 audio during buffer b and emits its control value in buffer b + 1 — a
@@ -14,9 +15,11 @@ one-block delay, reproduced by shifting the derived per-block curve right
 by one block.
 
 Ported so far: drumkits at the song's sample rate; mixer, passthrough,
-gain, limiter, bitcrusher and automated filter-low-pass-24db. Every other
-instrument or effect kind raises NotImplementedError: nothing falls
-silent.
+gain, limiter, bitcrusher, and every filter-* effect — static, automated
+(host-designed coefficient curves) or sidechain-driven (coefficients
+designed on the device from the sidechain's per-block values). Every
+other instrument or effect kind raises NotImplementedError: nothing
+falls silent.
 """
 
 from __future__ import annotations
@@ -24,8 +27,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from groove_tpu.compiler import params as param_mod
-from groove_tpu.core.time import SAMPLE_BUFFER_SIZE
+from groove_tpu_torch.compiler import params as param_mod
+from groove_tpu_torch.core.time import SAMPLE_BUFFER_SIZE
+from groove_tpu_torch.project.schema import warn
 from groove_tpu_torch.compiler.song import MAIN_MIXER_UVID, CompiledSong, \
     DeviceIR
 from groove_tpu_torch.engine.params import inputs_from_numpy
@@ -140,17 +144,6 @@ def compute_filter_fidelity(compiled) -> dict:
         elif iir.needs_refinement(a1, a2):
             out[dev.uvid] = "refine"
     return out
-
-
-def _to_domain(p, v: torch.Tensor) -> torch.Tensor:
-    """A registry param's ControlValue -> domain map on a tensor, for a
-    sidechain onto a ported effect's param (the reference's
-    groove_tpu.compiler.params.to_domain_array)."""
-    if p.to_domain is param_mod.Identity:
-        return v
-    if p.to_domain is param_mod.BitsFromV:
-        return torch.trunc(v * 15.0)
-    raise not_ported(f"sidechain onto {p.name}")
 
 
 class Renderer:
@@ -282,16 +275,77 @@ class Renderer:
                 else:
                     bits = float(dev.params.get("bits", 8))
             return effects.bitcrusher(x, bits)
-        if k == "filter-low-pass-24db" and f"{dev.uvid}/fc/secs" in inputs:
-            # automated: HOST-designed block-rate coefficients
-            fs = inputs[f"{dev.uvid}/fc/secs"]
-            return iir.lp24_apply_blockrate_sections(
-                x, inputs[f"{dev.uvid}/fc/gain"],
-                [tuple(fs[i, j] for j in range(5)) for i in range(2)],
-                fidelity=self._filter_modes.get(dev.uvid))
-        if k == "filter-low-pass-24db":
-            raise not_ported("filter-low-pass-24db without automation")
+        if k.startswith("filter-"):
+            return self._apply_filter(inputs, dev, x, overrides)
         raise not_ported(k)
+
+    def _apply_filter(self, inputs, dev: DeviceIR, x, overrides):
+        """Every filter-* effect, at the reference's 64-frame control
+        cadence (groove_tpu/engine/render.py:931-1001)."""
+        k = dev.kind
+        u = dev.uvid
+        sr = float(self.c.sample_rate)
+        fidelity = self._filter_modes.get(u)
+        # automated filters: HOST-designed coefficient arrays
+        # (_collect_effect_filters) — backend-independent bits
+        if f"{u}/fc/secs" in inputs:
+            fs = inputs[f"{u}/fc/secs"]
+            return iir.lp24_apply_blockrate_sections(
+                x, inputs[f"{u}/fc/gain"],
+                [tuple(fs[i, j] for j in range(5)) for i in range(2)],
+                fidelity=fidelity)
+        if f"{u}/fc/coefs" in inputs:
+            co = inputs[f"{u}/fc/coefs"]
+            return iir.biquad_blockrate(x, tuple(co[j] for j in range(5)),
+                                        fidelity=fidelity)
+
+        def PB(name, default):
+            ov = overrides.get((u, name))
+            if ov is not None:
+                # per-sample override is a 64-sample hold: the first
+                # sample of each block recovers the block value, and
+                # [::BLOCK] has exactly ceil(n/BLOCK) entries
+                return ov[::BLOCK]
+            key = f"{u}/auto/{name}"
+            if key in inputs:
+                return inputs[key]
+            return float(dev.params.get(name, default))
+
+        def fmax(v, lo):
+            # a static param stays a Python float: its design runs on the
+            # host in numpy (backend-independent bits); a tensor (the
+            # sidechain's values) designs on the device
+            return max(v, lo) if isinstance(v, float) \
+                else torch.clamp_min(v, lo)
+
+        cutoff = PB("cutoff", 1000.0)
+        if k == "filter-low-pass-24db":
+            q = PB("passband-ripple", 0.707)
+            return iir.lp24_apply_blockrate(x, cutoff, fmax(q, 1e-3), sr,
+                                            fidelity=fidelity)
+        if k == "filter-low-pass-12db":
+            coefs = iir.rbj_low_pass(cutoff, fmax(PB("q", 0.707), 1e-3), sr)
+        elif k == "filter-high-pass-12db":
+            coefs = iir.rbj_high_pass(cutoff, fmax(PB("q", 0.707), 1e-3), sr)
+        elif k == "filter-all-pass-12db":
+            coefs = iir.rbj_all_pass(cutoff, fmax(PB("q", 0.707), 1e-3), sr)
+        elif k == "filter-band-pass-12db":
+            coefs = iir.rbj_band_pass(
+                cutoff, fmax(PB("bandwidth", 1.0), 1e-3), sr)
+        elif k == "filter-band-stop-12db":
+            coefs = iir.rbj_band_stop(
+                cutoff, fmax(PB("bandwidth", 1.0), 1e-3), sr)
+        elif k == "filter-peaking-eq-12db":
+            coefs = iir.rbj_peaking_eq(
+                cutoff, fmax(PB("q", 1.0), 1e-3), PB("db-gain", 0.0), sr)
+        elif k == "filter-low-shelf-12db":
+            coefs = iir.rbj_low_shelf(cutoff, PB("db-gain", 0.0), sr)
+        elif k == "filter-high-shelf-12db":
+            coefs = iir.rbj_high_shelf(cutoff, PB("db-gain", 0.0), sr)
+        else:
+            warn(f"unknown filter kind {k}; passthrough")
+            return x
+        return iir.biquad_blockrate(x, coefs, fidelity=fidelity)
 
     def _render(self, inputs) -> torch.Tensor:
         c = self.c
@@ -331,8 +385,8 @@ class Renderer:
                 for tgt, pname in sidechain_by_src[uvid]:
                     p = param_mod.resolve(c.devices[tgt].kind, pname)
                     overrides[(tgt, pname)] = (
-                        _to_domain(p, per_sample) if p is not None
-                        else per_sample)
+                        param_mod.to_domain_array(p, per_sample)
+                        if p is not None else per_sample)
 
         out = outputs.get(MAIN_MIXER_UVID, self._zeros(n))
         return out.T  # [n, 2]

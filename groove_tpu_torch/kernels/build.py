@@ -2,10 +2,11 @@
 
 `nvcc` compiles every csrc/*.cu into one shared library with a plain C
 interface, for sm_90a (Hopper), loaded with ctypes. The build happens at
-first use, into build/groove_tpu_torch/ at the repository root, and is
-cached by a hash of the sources and flags. -fmad=false keeps multiplies
-and adds separately rounded, as in the plain torch twins, so the kernels
-can be held to them bitwise.
+first use, into build/groove_tpu_torch/ at the repository root: one nvcc
+process per source, all started at once, then one link. The library is
+cached by a hash of the sources, the shared headers (csrc/*.cuh) and the
+flags. -fmad=false keeps multiplies and adds separately rounded, as in
+the plain torch twins, so the kernels can be held to them bitwise.
 
     python -m groove_tpu_torch.kernels.build   # build now, print ptxas
 """
@@ -25,15 +26,21 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "groove_tpu_torch"
 DEFAULT_CUDA_HOME = "/usr/local/cuda"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-fmad=false", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-fmad=false", "-Xptxas", "-v",
 )
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _I64 = ctypes.c_int64
+_F = ctypes.c_float
 # C entry points: name -> argtypes (every entry returns cudaGetLastError())
 SIGNATURES = {
-    "lp24_cascade": [_I] + [_P] * 15 + [_I, _I64, _I64, _I, _I, _P],
+    "lp24_cascade": ([_I, _I] + [_P] * 5 + [_F] * 4 + [_I64] * 3 + [_P] * 10
+                     + [_I, _I64, _I64, _I, _P]),
+    "biquad_scan": ([_I] + [_P] * 6 + [_F] * 5 + [_I64] * 3 + [_P] * 7
+                    + [_I, _I64, _I64, _I, _P]),
+    "biquad_serial_scan": ([_I] + [_P] * 6 + [_F] * 5 + [_I64] * 3 + [_P]
+                           + [_I, _I64, _I64, _P]),
     "drums_accumulate": [_P, _I] + [_P] * 6 + [_I, _I, _I, _P, _I64, _P],
 }
 
@@ -42,6 +49,10 @@ _lib = None
 
 def sources() -> list[Path]:
     return sorted(CSRC.glob("*.cu"))
+
+
+def headers() -> list[Path]:
+    return sorted(CSRC.glob("*.cuh"))
 
 
 def nvcc() -> str:
@@ -57,9 +68,9 @@ def nvcc() -> str:
 
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources():
-        h.update(src.name.encode())
-        h.update(src.read_bytes())
+    for f in [*sources(), *headers()]:
+        h.update(f.name.encode())
+        h.update(f.read_bytes())
     return BUILD_DIR / f"libgroove_kernels_{h.hexdigest()[:16]}.so"
 
 
@@ -71,14 +82,30 @@ def build() -> dict:
     if out.exists():
         return {"path": str(out), "seconds": 0.0, "log": ""}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    compiler = nvcc()
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources())]
+    objs = [tmp.with_name(f"{tmp.name}.{src.stem}.o") for src in sources()]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    procs = [subprocess.Popen(
+        [compiler, *NVCC_FLAGS, "-I", str(CSRC), "-c", "-o", str(obj),
+         str(src)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for src, obj in zip(sources(), objs)]
+    log = "".join(f"== {src.name}\n{proc.communicate()[0]}"
+                  for src, proc in zip(sources(), procs))
+    failed = [src.name for src, proc in zip(sources(), procs)
+              if proc.returncode != 0]
+    if not failed:
+        link = subprocess.run(
+            [compiler, *NVCC_FLAGS[:2], "-shared", "-o", str(tmp),
+             *map(str, objs)], capture_output=True, text=True)
+        log += link.stdout + link.stderr
+        if link.returncode != 0:
+            failed.append("link")
     seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    if failed:
+        raise RuntimeError(f"nvcc failed: {', '.join(failed)}\n{log}")
     os.replace(tmp, out)
     return {"path": str(out), "seconds": seconds, "log": log}
 

@@ -15,10 +15,10 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from groove_tpu.core.types import note_to_frequency
-from groove_tpu.io.wav import read_wav
-from groove_tpu.project.paths import Paths
-from groove_tpu.project.schema import warn
+from groove_tpu_torch.core.types import note_to_frequency
+from groove_tpu_torch.io.wav import read_wav
+from groove_tpu_torch.project.paths import Paths
+from groove_tpu_torch.project.schema import warn
 
 # GM percussion note -> 707 sample base name (the same map as groove_tpu)
 GM_707_MAP = {

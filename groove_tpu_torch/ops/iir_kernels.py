@@ -1,8 +1,10 @@
-"""Block-rate lp24 cascade kernels K2 and K3 (port of the block-rate
-family of groove_tpu/ops/pallas_iir.py).
+"""lp24 cascade kernels K2, K3 and K6 (port of the lp24 family of
+groove_tpu/ops/pallas_iir.py), and the pieces every TDF2 kernel twin
+shares (ops/biquad_kernels.py uses them too).
 
-The cascade is two TDF2 sections with numerators (1, 2, 1) and
-denominators held for each 64-frame control block. Each section runs the
+The cascade is two TDF2 sections with numerators (1, 2, 1). K3 and K2
+hold the denominators for each 64-frame control block; K6 reads them per
+sample (static cascades pass two scalars). Each section runs the
 two-level serial scheme of the reference (never associative doubling of
 the 2x2 maps, which diverges in f32 near z = 1):
 
@@ -11,7 +13,7 @@ the 2x2 maps, which diverges in f32 near z = 1):
            q1 (identity at j = 0) and the whole-block map (M, C);
   phase 2  cross-block entry states: the serial chain
            S[k+1] = M[k] S[k] + C[k] per row over all blocks;
-  combine  y = x + ((p11 S1 + p12 S2) + q1).
+  combine  y = b0 x + ((p11 S1 + p12 S2) + q1), b0 = 1 here.
 
 K2 (the refined cascade) adds, per section, the defect of the solve
 against the shifted-coefficient TDF2 recurrence in its epsilon-regrouped
@@ -19,35 +21,154 @@ form, and an r-only correction scan that reuses the solve's p11/p12.
 
 Each kernel has its plain torch twin here, written in the same operation
 order: the CPU runs the twin, a CUDA tensor runs the kernel
-(csrc/lp24.cu), and LAUNCHES counts kernel launches. Every multiply and
-add rounds separately except the in-block scans' recurrences, which use
-one correctly rounded fused multiply-add per map entry (fma32 here,
-__fmaf_rn in the kernel): near z = 1 the unfused prefix products lost
-12 dB against the f64 reference on the north-star analogue (measured on
-the CPU), where XLA's contracted evaluation of the reference kernels does
-not. ln is max(block_for(n, 128), 64), as in the reference kernels, so
-both group the recurrence identically.
+(csrc/lp24.cu, csrc/tdf2.cuh), and LAUNCHES counts kernel launches. Every
+multiply and add rounds separately except the in-block scans'
+recurrences, which use one correctly rounded fused multiply-add per map
+entry (fma32 here, __fmaf_rn in the kernel): near z = 1 the unfused
+prefix products lost 12 dB against the f64 reference on the north-star
+analogue (measured on the CPU), where XLA's contracted evaluation of the
+reference kernels does not. ln is max(block_for(n, 128), 64) for the
+block-rate kernels and block_for(n, 128) for K6, as in the reference
+kernels, so both group the recurrence identically.
+
+Coefficient streams (csrc/tdf2.cuh): SCALAR (one value per call, passed
+by value), BLOCK (one per 64-frame block) or SAMPLE (one per sample),
+the latter two read through the strides of a [rows, count] view, so a
+broadcast coefficient is never materialised on the card. Past `count` a
+coefficient reads as 0, as in the reference's zero-padded tiles.
 """
 
 from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 CBLOCK = 64
+SCALAR, BLOCK, SAMPLE = 0, 1, 2  # tdf2::Mode
 
 # kernel launches per wrapper (one per call of the C entry point)
-LAUNCHES = {"lp24": 0, "lp24_refined": 0}
+LAUNCHES = {"lp24": 0, "lp24_refined": 0, "lp24_cascade": 0}
 
 
-def _geometry(n: int) -> tuple[int, int, int]:
-    """(ln, nb, npad): in-block length, number of ln-blocks, padded n."""
+def geometry(n: int, blockrate: bool = True) -> tuple[int, int, int]:
+    """(ln, nb, npad): in-block length, number of ln-blocks, padded n.
+    ln = block_for(n, 128), at least CBLOCK for block-rate kernels."""
     from groove_tpu_torch.ops.iir import block_for
 
-    ln = max(block_for(n, max_block=128), CBLOCK)
+    ln = block_for(n, max_block=128)
+    if blockrate:
+        ln = max(ln, CBLOCK)
     nb = -(-n // ln)
     return ln, nb, nb * ln
+
+
+def is_scalar(c) -> bool:
+    """A static coefficient: a Python number, numpy scalar or 0-dim
+    array or tensor."""
+    return np.ndim(c) == 0 if not torch.is_tensor(c) else c.dim() == 0
+
+
+def scalar32(c) -> np.float32:
+    return np.float32(c.item() if torch.is_tensor(c) else c)
+
+
+def as_f32(c, device) -> torch.Tensor:
+    """A coefficient as a float32 tensor on `device`. A scalar becomes a
+    0-dim tensor by a fill, not a host-to-device copy, which would wait
+    for the device's queue."""
+    if torch.is_tensor(c):
+        return c.to(device=device, dtype=torch.float32)
+    if np.ndim(c) == 0:
+        return torch.full((), float(np.float32(c)), dtype=torch.float32,
+                          device=device)
+    return torch.as_tensor(np.asarray(c, np.float32), device=device)
+
+
+def rows_view(c, shape, device) -> torch.Tensor:
+    """A coefficient broadcast to `shape` ([..., count]) as a float32
+    [rows, count] view on `device` (no copy where strides allow)."""
+    return as_f32(c, device).expand(shape).reshape(-1, shape[-1])
+
+
+class Streams:
+    """The coefficient streams of one kernel call: mode, the arrays
+    (BLOCK/SAMPLE) or values (SCALAR), and the one layout (row stride,
+    entry stride, count) the kernel reads every array through."""
+
+    def __init__(self, mode: int, coefs: list, count: int):
+        self.mode = mode
+        self.count = count
+        if mode == SCALAR:
+            self.values = [float(scalar32(c)) for c in coefs]
+            self.arrays = [None] * len(coefs)
+            self.layout = (0, 0, 1)
+            return
+        if len({t.stride() for t in coefs}) != 1:
+            coefs = [t.contiguous() for t in coefs]
+        self.values = [0.0] * len(coefs)
+        self.arrays = coefs
+        self.layout = (*coefs[0].stride(), count)
+
+    def check(self, x2: torch.Tensor, what: str) -> None:
+        B = x2.shape[0]
+        for t in self.arrays:
+            if t is None:
+                continue
+            if not (t.is_cuda and t.dtype == torch.float32
+                    and t.device == x2.device):
+                raise ValueError(f"{what}: coefficients must be float32 on "
+                                 f"{x2.device}")
+            if tuple(t.shape) != (B, self.count):
+                raise ValueError(f"{what}: coefficients {tuple(t.shape)} "
+                                 f"!= {(B, self.count)}")
+
+    def per_sample(self, B: int, npad: int, device) -> list:
+        """The twins' form: every stream as a [B, npad] tensor, as the
+        kernel reads it at each padded sample."""
+        out = []
+        for v, t in zip(self.values, self.arrays):
+            if self.mode == SCALAR:
+                out.append(torch.full((B, npad), v, dtype=torch.float32,
+                                      device=device))
+            elif self.mode == BLOCK:
+                out.append(_per_sample(t, npad))
+            else:
+                out.append(torch.nn.functional.pad(t, (0, npad - self.count)))
+        return out
+
+
+def ptr(t) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr() if t is not None else 0)
+
+
+def stream_of(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+
+
+def check_input(x2: torch.Tensor, what: str) -> None:
+    if not (x2.is_cuda and x2.dtype == torch.float32
+            and x2.is_contiguous()):
+        raise ValueError(f"{what}: input must be contiguous float32 on a "
+                         "CUDA device")
+
+
+def dispatch(x2: torch.Tensor, plain, launch, key: str, counts: dict,
+             what: str) -> torch.Tensor:
+    """The wrappers' device rule: the twin for a CPU tensor, the kernel
+    (counted) for a CUDA tensor, an error otherwise — no fallback."""
+    if x2.device.type == "cpu":
+        return plain()
+    if x2.device.type == "cuda":
+        y = launch()
+        counts[key] += 1
+        return y
+    raise RuntimeError(f"{what}: unsupported device {x2.device}")
+
+
+# --------------------------------------------------------------------------
+# Block-rate cascades K3 and K2
 
 
 def _denoms(sections_b, rows: int, nb64: int):
@@ -68,9 +189,8 @@ def _prepare(x: torch.Tensor, sections_b, cblock: int):
     n = x.shape[-1]
     nb64 = -(-n // cblock)
     cshape = x.shape[:-1] + (nb64,)
-    sections_b = [tuple(torch.as_tensor(c, dtype=torch.float32,
-                                        device=x.device).expand(cshape)
-                        for c in sec) for sec in sections_b]
+    sections_b = [tuple(as_f32(c, x.device).expand(cshape) for c in sec)
+                  for sec in sections_b]
     x2 = x.reshape(-1, n).contiguous()
     return x2, _denoms(sections_b, x2.shape[0], nb64)
 
@@ -80,13 +200,11 @@ def lp24_blockrate(x: torch.Tensor, sections_b,
     """K3: fused single-pass lp24 cascade over [..., n] with block-rate
     sections (the reference's lp24_blockrate_pallas)."""
     x2, den = _prepare(x, sections_b, cblock)
-    if x2.device.type == "cpu":
-        y = lp24_blockrate_plain(x2, *den)
-    elif x2.device.type == "cuda":
-        y = _launch(False, x2, den)
-        LAUNCHES["lp24"] += 1
-    else:
-        raise RuntimeError(f"lp24 kernel: unsupported device {x2.device}")
+    y = dispatch(x2, lambda: lp24_blockrate_plain(x2, *den),
+                 lambda: _launch(False, x2, Streams(BLOCK, list(den),
+                                                    den[0].shape[1]),
+                                 geometry(x2.shape[1])[0]),
+                 "lp24", LAUNCHES, "lp24 kernel")
     return y.reshape(x.shape)
 
 
@@ -96,33 +214,70 @@ def lp24_refined_blockrate(x: torch.Tensor, sections_b,
     section) over [..., n] (the reference's
     lp24_refined_blockrate_pallas)."""
     x2, den = _prepare(x, sections_b, cblock)
-    if x2.device.type == "cpu":
-        y = lp24_refined_blockrate_plain(x2, *den)
-    elif x2.device.type == "cuda":
-        y = _launch(True, x2, den)
-        LAUNCHES["lp24_refined"] += 1
-    else:
-        raise RuntimeError(f"lp24 kernel: unsupported device {x2.device}")
+    y = dispatch(x2, lambda: lp24_refined_blockrate_plain(x2, *den),
+                 lambda: _launch(True, x2, Streams(BLOCK, list(den),
+                                                   den[0].shape[1]),
+                                 geometry(x2.shape[1])[0]),
+                 "lp24_refined", LAUNCHES, "lp24 kernel")
     return y.reshape(x.shape)
 
 
-def _launch(refined: bool, x2: torch.Tensor, den) -> torch.Tensor:
+# --------------------------------------------------------------------------
+# K6: per-sample (or static) denominators
+
+
+def _prepare_cascade(x: torch.Tensor, sections):
+    """x2 [B, n] and the negated denominators of both sections as Streams
+    (SCALAR when all four are static, else SAMPLE views of x's shape)."""
+    if x.dtype != torch.float32:
+        raise TypeError(f"lp24 kernels take float32, got {x.dtype}")
+    n = x.shape[-1]
+    x2 = x.reshape(-1, n).contiguous()
+    dens = [sec[i] for sec in sections for i in (3, 4)]
+    if all(is_scalar(c) for c in dens):
+        return x2, Streams(SCALAR, [-scalar32(c) for c in dens], 1)
+    views = [rows_view(-as_f32(c, x.device), x.shape, x.device)
+             for c in dens]
+    return x2, Streams(SAMPLE, views, n)
+
+
+def lp24_cascade(x: torch.Tensor, sections) -> torch.Tensor:
+    """K6: fused single-pass lp24 cascade over [..., n] whose sections'
+    denominators are per-sample arrays broadcastable to x.shape, or
+    scalars (the reference's lp24_cascade_pallas). Only the denominators
+    reach the kernel: the numerators are filters004's constant (1, 2, 1)."""
+    x2, st = _prepare_cascade(x, sections)
+    ln = geometry(x2.shape[1], blockrate=False)[0]
+    y = dispatch(x2, lambda: _lp24_cascade_plain(x2, st),
+                 lambda: _launch(False, x2, st, ln),
+                 "lp24_cascade", LAUNCHES, "lp24 kernel")
+    return y.reshape(x.shape)
+
+
+def lp24_cascade_plain(x: torch.Tensor, sections) -> torch.Tensor:
+    """K6's plain twin on x's device, whatever the device."""
+    x2, st = _prepare_cascade(x, sections)
+    return _lp24_cascade_plain(x2, st).reshape(x.shape)
+
+
+def _lp24_cascade_plain(x2, st: Streams) -> torch.Tensor:
+    B, n = x2.shape
+    ln, _, npad = geometry(n, blockrate=False)
+    return _cascade_plain(x2, st.per_sample(B, npad, x2.device), ln,
+                          refined=False)
+
+
+def _launch(refined: bool, x2: torch.Tensor, st: Streams,
+            ln: int) -> torch.Tensor:
     """Run csrc/lp24.cu's lp24_cascade on [B, n] CUDA inputs. Allocates
     the output and every scratch buffer; raises on a refused launch."""
     from groove_tpu_torch.kernels.build import library
 
+    check_input(x2, "lp24 kernel")
+    st.check(x2, "lp24 kernel")
     B, n = x2.shape
-    nb64 = -(-n // CBLOCK)
-    for t in (x2,) + den:
-        if not (t.is_cuda and t.dtype == torch.float32 and t.is_contiguous()
-                and t.device == x2.device):
-            raise ValueError("lp24 kernel: inputs must be contiguous "
-                             "float32 on one CUDA device")
-    for t in den:
-        if tuple(t.shape) != (B, nb64):
-            raise ValueError(f"lp24 kernel: coefficients {tuple(t.shape)} "
-                             f"!= {(B, nb64)}")
-    ln, nb, npad = _geometry(n)
+    nb = -(-n // ln)
+    npad = nb * ln
     f32 = dict(dtype=torch.float32, device=x2.device)
     xp = torch.nn.functional.pad(x2, (0, npad - n))
     y = torch.empty((B, n), **f32)
@@ -132,15 +287,11 @@ def _launch(refined: bool, x2: torch.Tensor, den) -> torch.Tensor:
     s = torch.empty((B, nb, 2), **f32)
     p11, p12, q1, ya = full[:4]
     y0, d = (full[4], full[5]) if refined else (None, None)
-
-    def ptr(t):
-        return ctypes.c_void_p(t.data_ptr() if t is not None else 0)
-
     err = library().lp24_cascade(
-        int(refined), ptr(xp), *(ptr(t) for t in den), ptr(y),
-        ptr(p11), ptr(p12), ptr(q1), ptr(ya), ptr(y0), ptr(d),
-        ptr(m), ptr(c), ptr(s), B, n, npad, ln, nb64,
-        ctypes.c_void_p(torch.cuda.current_stream(x2.device).cuda_stream))
+        int(refined), st.mode, ptr(xp), *(ptr(t) for t in st.arrays),
+        *st.values, *st.layout, ptr(y), ptr(p11), ptr(p12), ptr(q1),
+        ptr(ya), ptr(y0), ptr(d), ptr(m), ptr(c), ptr(s), B, n, npad, ln,
+        stream_of(x2))
     if err:
         raise RuntimeError(f"lp24 kernel launch failed: CUDA error {err}")
     return y
@@ -177,9 +328,10 @@ def _per_sample(na: torch.Tensor, npad: int) -> torch.Tensor:
     return upsample_hold(na, npad)
 
 
-def _phase1(na1, na2, z, ln: int):
-    """In-block prefix maps over [B, nb, ln]: shifted rows (p11, p12, q1)
-    and the block maps m [B, nb, 4], c [B, nb, 2]."""
+def phase1(na1, na2, b1m, b2m, z, ln: int):
+    """In-block prefix maps over [B, nb, ln] with numerator terms
+    b1m * z and b2m * z: shifted rows (p11, p12, q1) and the block maps
+    m [B, nb, 4], c [B, nb, 2]."""
     p11s, p12s, q1s = (torch.empty_like(z) for _ in range(3))
     one = torch.ones_like(z[..., 0])
     zero = torch.zeros_like(z[..., 0])
@@ -189,8 +341,8 @@ def _phase1(na1, na2, z, ln: int):
         p12s[..., j] = p12
         q1s[..., j] = q1
         a, b, xj = na1[..., j], na2[..., j], z[..., j]
-        c1 = (2.0 + a) * xj
-        c2 = (1.0 + b) * xj
+        c1 = b1m[..., j] * xj
+        c2 = b2m[..., j] * xj
         p11, p12, p21, p22, q1, q2 = (
             fma32(a, p11, p21), fma32(a, p12, p22), b * p11, b * p12,
             fma32(a, q1, q2) + c1, fma32(b, q1, c2))
@@ -211,7 +363,7 @@ def _corr_phase1(na1, na2, d, ln: int):
     return q1s, torch.stack([r1, r2], -1)
 
 
-def _phase2(m: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+def phase2(m: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     """Serial cross-block chain per row: entry states S [B, nb, 2]."""
     B, nb = m.shape[:2]
     s = torch.empty((B, nb, 2), dtype=m.dtype, device=m.device)
@@ -231,15 +383,21 @@ def _shift(v: torch.Tensor, k: int) -> torch.Tensor:
     return torch.nn.functional.pad(v, (k, 0))[..., :-k]
 
 
+def fold_back(v: torch.Tensor) -> torch.Tensor:
+    """[B, nb, ln] -> [B, nb * ln]."""
+    return v.reshape(v.shape[0], -1)
+
+
 def _section(z, na1, na2, ln: int, refined: bool):
     """One cascade section on a padded [B, npad] input."""
     B, npad = z.shape
     nb = npad // ln
     fold = lambda v: v.reshape(B, nb, ln)  # noqa: E731
-    p11, p12, q1, m, c = _phase1(fold(na1), fold(na2), fold(z), ln)
-    s = _phase2(m, c)
+    p11, p12, q1, m, c = phase1(fold(na1), fold(na2), fold(2.0 + na1),
+                                fold(1.0 + na2), fold(z), ln)
+    s = phase2(m, c)
     S1, S2 = s[..., 0:1], s[..., 1:2]
-    y0 = z + _fold_back(p11 * S1 + p12 * S2 + q1)
+    y0 = z + fold_back(p11 * S1 + p12 * S2 + q1)
     if not refined:
         return y0
     z1, z2 = _shift(z, 1), _shift(z, 2)
@@ -249,33 +407,34 @@ def _section(z, na1, na2, ln: int, refined: bool):
     second = (y0 - y1) - (y1 - y2)
     d = (z + 2.0 * z1 + z2) - second - e1 * y1 - e2 * y2
     q1c, r = _corr_phase1(fold(na1), fold(na2), fold(d), ln)
-    sc = _phase2(m, r)
+    sc = phase2(m, r)
     corr = fold(d) + p11 * sc[..., 0:1] + p12 * sc[..., 1:2] + q1c
-    return y0 + _fold_back(corr)
+    return y0 + fold_back(corr)
 
 
-def _fold_back(v: torch.Tensor) -> torch.Tensor:
-    """[B, nb, ln] -> [B, nb * ln]."""
-    return v.reshape(v.shape[0], -1)
-
-
-def _cascade_plain(x2, na1a, na2a, na1b, na2b, refined: bool):
-    B, n = x2.shape
-    ln, nb, npad = _geometry(n)
+def _cascade_plain(x2, dens, ln: int, refined: bool):
+    """Both sections over x2 [B, n]; dens: the four negated denominators
+    as per-sample [B, npad] tensors."""
+    n = x2.shape[1]
+    npad = dens[0].shape[1]
     z = torch.nn.functional.pad(x2, (0, npad - n))
-    ya = _section(z, _per_sample(na1a, npad), _per_sample(na2a, npad), ln,
-                  refined)
-    y = _section(ya, _per_sample(na1b, npad), _per_sample(na2b, npad), ln,
-                 refined)
+    ya = _section(z, dens[0], dens[1], ln, refined)
+    y = _section(ya, dens[2], dens[3], ln, refined)
     return y[:, :n].contiguous()
+
+
+def _blockrate_plain(x2, den, refined: bool):
+    ln, _, npad = geometry(x2.shape[1])
+    return _cascade_plain(x2, [_per_sample(d, npad) for d in den], ln,
+                          refined)
 
 
 def lp24_blockrate_plain(x2, na1a, na2a, na1b, na2b) -> torch.Tensor:
     """K3's plain twin: x2 [B, n], negated denominators [B, nb64]."""
-    return _cascade_plain(x2, na1a, na2a, na1b, na2b, refined=False)
+    return _blockrate_plain(x2, (na1a, na2a, na1b, na2b), refined=False)
 
 
 def lp24_refined_blockrate_plain(x2, na1a, na2a, na1b,
                                  na2b) -> torch.Tensor:
     """K2's plain twin: x2 [B, n], negated denominators [B, nb64]."""
-    return _cascade_plain(x2, na1a, na2a, na1b, na2b, refined=True)
+    return _blockrate_plain(x2, (na1a, na2a, na1b, na2b), refined=True)

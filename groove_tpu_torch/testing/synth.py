@@ -11,7 +11,12 @@ north_star_project is an analogue of drums-filtered-24db: a 707 drumkit on
 channel 9 (kick, snare, hats and crash on keys 35/38/42/44/49 as
 16th-note patterns) feeding filter-low-pass-24db `low-pass-1`, whose
 cutoff trip rises from `low` to `high` over the song (0 -> 25 Hz,
-1 -> 20 kHz), then the main mixer."""
+1 -> 20 kHz), then the main mixer.
+
+filter_bank_project is an analogue of a filter bank: the same kit drives
+parallel patch-cable chains through one filter each, summed by a gain
+into the main mixer, so that one song takes every route of the effect
+filters (FILTER_BANK)."""
 
 from __future__ import annotations
 
@@ -21,7 +26,7 @@ from pathlib import Path
 
 import numpy as np
 
-from groove_tpu.io.wav import write_wav_16bit_stereo
+from groove_tpu_torch.io.wav import write_wav_16bit_stereo
 from groove_tpu_torch.models.sampler import GM_707_MAP, ROUND_ROBINS
 
 KIT_DIR = Path("samples") / "elphnt.io" / "707"
@@ -108,6 +113,83 @@ def high_sweep_project(measures: int = 1, bpm: float = 185.0) -> dict:
     """The same song with the cutoff kept at or above 2 kHz, which stays
     away from z = 1 and routes to the single-pass cascade."""
     return north_star_project(measures, bpm, low=TRIP_2KHZ, high=1.0)
+
+
+def _trip_value(hz: float) -> float:
+    """The cutoff trip value (a Normal, 25 * 800 ** v Hz) of `hz`."""
+    return math.log(hz / 25.0) / math.log(800.0)
+
+
+def _rise(path_id: str, low: float, high: float, measures: int) -> dict:
+    """A path rising once from trip value `low` to `high` over the song:
+    one exponential step per measure."""
+    return {"id": path_id, "note-value": "whole", "steps": [
+        {"exponential": {"start": low + (high - low) * k / measures,
+                         "end": low + (high - low) * (k + 1) / measures}}
+        for k in range(measures)]}
+
+
+# filter-bank device -> (effect kind, static params, the fidelity route
+# the reference takes for it; kernels in filter_bank_project's docstring)
+FILTER_BANK = {
+    "peq": ("filter-peaking-eq-12db",
+            {"cutoff": 1000.0, "q": 1.5, "db-gain": 6.0}, "plain"),
+    "lp12-q20": ("filter-low-pass-12db", {"cutoff": 1000.0, "q": 20.0},
+                 "refine"),
+    "hp40": ("filter-high-pass-12db", {"cutoff": 40.0, "q": 0.707},
+             "serial"),
+    "bp-sweep": ("filter-band-pass-12db",
+                 {"cutoff": 500.0, "bandwidth": 1000.0}, "plain"),
+    "lp12-sweep": ("filter-low-pass-12db", {"cutoff": 25.0, "q": 0.707},
+                   "refine"),
+    "lp24-8k": ("filter-low-pass-24db",
+                {"cutoff": 8000.0, "passband-ripple": 0.707}, "plain"),
+    "lp24-sc": ("filter-low-pass-24db",
+                {"cutoff": 1000.0, "passband-ripple": 0.707}, "plain"),
+}
+SIDECHAIN_UVID = "sc"
+# the sidechain-driven filter's transients (its cutoff jumps with the
+# drums' level) peak near 3x full scale over a 3-minute song: its chain
+# has a level of its own
+SIDECHAIN_LEVEL = 0.25
+
+
+def filter_bank_project(measures: int = 1, bpm: float = 185.0) -> dict:
+    """The drums -> filter bank -> gain -> main-mixer project. Static:
+    peaking EQ at 1 kHz (K5), low-pass 1 kHz q 20 (refine: K4 twice),
+    high-pass 40 Hz (serial scan), low-pass-24db at 8 kHz (K6). Automated:
+    a band-pass rising from 500 Hz to 5 kHz, 1 kHz wide (K4), and a
+    low-pass rising from 25 Hz to about 1.4 kHz (refine: K4 twice).
+    Sidechain: a passthrough controller on the drums drives a
+    low-pass-24db's cutoff (K3), followed by a gain of SIDECHAIN_LEVEL."""
+    p = north_star_project(measures, bpm)
+    devices = p["devices"][:1] + [
+        {"controller": [SIDECHAIN_UVID,
+                        {"signal-passthrough-controller": [{}]}]},
+        {"effect": ["bank", {"gain": {"ceiling": 0.35}}]},
+        {"effect": ["sc-level", {"gain": {"ceiling": SIDECHAIN_LEVEL}}]},
+    ]
+    cables = [["bank", "main-mixer"]]
+    for uvid, (kind, params, _) in FILTER_BANK.items():
+        devices.append({"effect": [uvid, {kind: dict(params)}]})
+        if uvid == "lp24-sc":
+            cables.append(["drums", SIDECHAIN_UVID, uvid, "sc-level", "bank"])
+        else:
+            cables.append(["drums", uvid, "bank"])
+    p["title"] = "filter-bank analogue"
+    p["devices"] = devices
+    p["patch-cables"] = cables
+    p["paths"] = [_rise("bp-rise", _trip_value(500.0), _trip_value(5000.0),
+                        measures),
+                  _rise("lp-rise", 0.0, 0.6, measures)]
+    p["trips"] = [
+        {"id": "trip-bp", "paths": ["bp-rise"],
+         "target": {"id": "bp-sweep", "param": "cutoff"}},
+        {"id": "trip-lp", "paths": ["lp-rise"],
+         "target": {"id": "lp12-sweep", "param": "cutoff"}}]
+    p["controls"] = [{"id": "sc-cutoff", "source": SIDECHAIN_UVID,
+                      "target": {"id": "lp24-sc", "param": "cutoff"}}]
+    return p
 
 
 def write_project(path, project: dict) -> Path:

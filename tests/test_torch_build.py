@@ -1,8 +1,8 @@
 """The kernel build's host logic (groove_tpu_torch/kernels/build.py) and the
 wrappers' device rule, on a host without nvcc or a GPU: the library name
-follows the sources, a missing compiler is reported, and a tensor that is
-neither on the CPU nor on a CUDA device is refused instead of falling back
-to a twin."""
+follows the sources and the shared headers, a missing compiler is
+reported, and a tensor that is neither on the CPU nor on a CUDA device is
+refused instead of falling back to a twin."""
 
 from __future__ import annotations
 
@@ -17,18 +17,23 @@ def test_library_path_follows_sources(tmp_path, monkeypatch):
     src = tmp_path / "csrc"
     src.mkdir()
     (src / "a.cu").write_text("// one\n")
+    (src / "h.cuh").write_text("// shared\n")
     monkeypatch.setattr(build, "CSRC", src)
     monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "out")
     first = build.library_path()
     assert first == build.library_path()
     assert first.parent == tmp_path / "out"
     (src / "a.cu").write_text("// two\n")
-    assert build.library_path() != first
+    second = build.library_path()
+    assert second != first
+    (src / "h.cuh").write_text("// changed\n")
+    assert build.library_path() not in (first, second)
 
 
 def test_sources_are_the_packaged_kernels():
     names = [p.name for p in build.sources()]
-    assert names == ["drums.cu", "lp24.cu"]
+    assert names == ["biquad.cu", "drums.cu", "lp24.cu", "serial.cu"]
+    assert [p.name for p in build.headers()] == ["tdf2.cuh"]
     for p in build.sources():
         text = p.read_text()
         assert 'extern "C"' in text and "cudaGetLastError" in text
@@ -55,6 +60,7 @@ def test_drum_wrapper_refuses_other_devices():
 
 def test_signatures_cover_every_entry_point():
     text = "".join(p.read_text() for p in build.sources())
+    assert text.count('extern "C"') == len(build.SIGNATURES)
     for name, argtypes in build.SIGNATURES.items():
         head = text[text.index(f'extern "C" int {name}('):]
         params = head[:head.index(")")].count(",") + 1

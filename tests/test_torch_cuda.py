@@ -1,6 +1,9 @@
 """The CUDA kernels of groove_tpu_torch against their plain torch twins on
-a card, bit for bit: K1 (drums), K3 (lp24) and K2 (refined lp24), plus a
-short render of the slice on the card against the same render on the CPU.
+a card, bit for bit: K1 (drums), K3 (lp24), K2 (refined lp24), K6 (lp24
+with per-sample or static denominators), K4/K5/K9 (one biquad section with
+block-rate, static or per-sample coefficients) and the serial scan, plus
+short renders of the slices on the card against the same renders on the
+CPU.
 
 These tests need an NVIDIA GPU (marker `cuda`; they skip without one) and
 import no jax, so the machine with the card runs them:
@@ -14,11 +17,11 @@ import numpy as np
 import pytest
 import torch
 
-from groove_tpu.project.paths import Paths
-from groove_tpu.project.schema import SongSettings
 from groove_tpu_torch.compiler.song import compile_song
 from groove_tpu_torch.engine.render import Renderer
-from groove_tpu_torch.ops import drums, iir, iir_kernels
+from groove_tpu_torch.ops import biquad_kernels, drums, iir, iir_kernels
+from groove_tpu_torch.project.paths import Paths
+from groove_tpu_torch.project.schema import SongSettings
 from groove_tpu_torch.testing import synth
 
 pytestmark = pytest.mark.cuda
@@ -97,9 +100,107 @@ def test_wrappers_refuse_bad_inputs(cuda_device):
         drums.accumulate_hits(table.to(cuda_device), *meta, n_frames=4096)
 
 
+def _noise(shape, seed: int = 0) -> torch.Tensor:
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy((rng.standard_normal(shape) * 0.3)
+                            .astype(np.float32))
+
+
+def _lowpass(count: int, low: float, high: float, q: float = 0.707):
+    """Five low-pass coefficient arrays [count] sweeping low -> high."""
+    cut = np.geomspace(low, high, count).astype(np.float32)
+    return tuple(torch.from_numpy(np.ascontiguousarray(c)) for c in
+                 iir.rbj_low_pass(cut, np.float32(q), 44100.0))
+
+
+def _check(fn, counter, key, x, coefs, device):
+    """One counted launch on the card, bitwise equal to the CPU twin."""
+    before = counter[key]
+    y = fn(x.to(device), tuple(c.to(device) if torch.is_tensor(c) else c
+                               for c in coefs))
+    torch.cuda.synchronize()
+    assert counter[key] == before + 1
+    assert torch.equal(y.cpu(), fn(x, coefs))
+
+
+@pytest.mark.parametrize("shape", [(2, 57216), (16, 16384), (2, 3, 5000)])
+def test_biquad_blockrate_kernel_matches_twin(cuda_device, shape):
+    """K4 through an automated sweep that rests near 25 Hz."""
+    nb = -(-shape[-1] // 64)
+    coefs = tuple(c.expand(*shape[:-1], nb) for c in
+                  _lowpass(nb, 25.0, 8000.0))
+    _check(biquad_kernels.biquad_blockrate, biquad_kernels.LAUNCHES,
+           "biquad_blockrate", _noise(shape), coefs, cuda_device)
+
+
+@pytest.mark.parametrize("shape,cutoff,q", [
+    ((2, 57216), 1000.0, 1.5), ((16, 16384), 300.0, 0.707),
+    ((2, 3, 5000), 1000.0, 20.0)])
+def test_biquad_scalar_kernel_matches_twin(cuda_device, shape, cutoff, q):
+    coefs = iir.rbj_peaking_eq(cutoff, q, 6.0, 44100.0)
+    _check(biquad_kernels.biquad_scalar, biquad_kernels.LAUNCHES,
+           "biquad_scalar", _noise(shape, 1), coefs, cuda_device)
+
+
+@pytest.mark.parametrize("shape", [(2, 57216), (3, 5000)])
+def test_biquad_per_sample_kernel_matches_twin(cuda_device, shape):
+    """K9 with per-sample coefficients shared by the rows (stride 0)."""
+    coefs = _lowpass(shape[-1], 200.0, 12000.0)
+    _check(biquad_kernels.biquad_per_sample, biquad_kernels.LAUNCHES,
+           "biquad_per_sample", _noise(shape, 2), coefs, cuda_device)
+
+
+@pytest.mark.parametrize("per_sample", [False, True],
+                         ids=["static", "per-sample"])
+@pytest.mark.parametrize("shape", [(2, 57216), (3, 5000), (2, 4999)])
+def test_serial_kernel_matches_twin(cuda_device, shape, per_sample):
+    """n = 4999 leaves the rows unaligned for the kernel's float4 tiles:
+    the wrapper pads them."""
+    if per_sample:
+        coefs = _lowpass(shape[-1], 25.0, 400.0)
+    else:
+        coefs = iir.rbj_high_pass(40.0, 0.707, 44100.0)
+    _check(biquad_kernels.biquad_serial, biquad_kernels.LAUNCHES,
+           "biquad_serial", _noise(shape, 3), coefs, cuda_device)
+
+
+@pytest.mark.parametrize("mode", ["static", "per-sample", "broadcast"])
+@pytest.mark.parametrize("shape", [(2, 57216), (3, 5000)])
+def test_lp24_cascade_kernel_matches_twin(cuda_device, shape, mode):
+    """K6: static denominators (by value), per-sample ones per row, and
+    per-sample ones shared by the rows (read with row stride 0)."""
+    n = shape[-1]
+    if mode == "static":
+        _, secs = iir.lp24_sections(8000.0, 0.707, 44100.0)
+    else:
+        cut = np.geomspace(60.0, 15000.0, n).astype(np.float32)
+        _, secs = iir.lp24_sections(cut, np.float32(0.9), 44100.0)
+        secs = [tuple(torch.from_numpy(np.ascontiguousarray(c)) for c in s)
+                for s in secs]
+        if mode == "per-sample":
+            secs = [tuple(c.expand(shape).contiguous() for c in s)
+                    for s in secs]
+    x = _noise(shape, 4)
+    before = iir_kernels.LAUNCHES["lp24_cascade"]
+    dev = [tuple(c.to(cuda_device) if torch.is_tensor(c) else c for c in s)
+           for s in secs]
+    y = iir_kernels.lp24_cascade(x.to(cuda_device), dev)
+    torch.cuda.synchronize()
+    assert iir_kernels.LAUNCHES["lp24_cascade"] == before + 1
+    assert torch.equal(y.cpu(), iir_kernels.lp24_cascade(x, secs))
+
+
+def test_biquad_wrappers_refuse_bad_inputs(cuda_device):
+    coefs = iir.rbj_low_pass(1000.0, 0.707, 44100.0)
+    for fn in (biquad_kernels.biquad_scalar, biquad_kernels.biquad_serial):
+        with pytest.raises(TypeError):
+            fn(_noise((2, 4096)).double().to(cuda_device), coefs)
+
+
 @pytest.mark.parametrize("make", [synth.north_star_project,
-                                  synth.high_sweep_project],
-                         ids=["north-star", "high-sweep"])
+                                  synth.high_sweep_project,
+                                  synth.filter_bank_project],
+                         ids=["north-star", "high-sweep", "filter-bank"])
 def test_short_slice_on_card_equals_cpu(cuda_device, tmp_path, make):
     assets = synth.write_assets(tmp_path, max_seconds=0.4)
     compiled = compile_song(SongSettings.from_json(make()),

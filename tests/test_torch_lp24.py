@@ -1,7 +1,8 @@
-"""The port's block-rate lp24 cascades (groove_tpu_torch/ops/iir_kernels.py,
-kernels K2 and K3) against the reference's Pallas kernels run through the
-interpreter on the CPU, and the port's numpy coefficient design against
-groove_tpu.ops.iir bit for bit.
+"""The port's lp24 cascades (groove_tpu_torch/ops/iir_kernels.py: K2 and K3
+with block-rate denominators, K6 with per-sample or static ones) against
+the reference's Pallas kernels run through the interpreter on the CPU,
+the static cascade's routing, and the port's numpy coefficient design
+against groove_tpu.ops.iir bit for bit.
 
 Inputs are numpy-seeded noise through a 2 kHz -> 20 kHz sweep (poles away
 from z = 1) and a 25 Hz -> 20 kHz sweep that rests near 25 Hz (the deep
@@ -23,6 +24,17 @@ Measured on the CPU (numpy seed 0, n = 16384):
 
 Against the f64 reference the twins land within 2 dB of the interpreted
 kernels on every case (K2 at the 25 Hz corner: -117.1 vs -115.0 dBFS).
+
+K6 (numpy seed 4), and the static cascade's three routes through
+iir.lp24_apply_blockrate (numpy seed 10, n = 16384):
+
+    case                                      measured   bar
+    K6  2 rows, static 8 kHz                  -141.0     -133
+    K6  [2, 3, 5000], static 8 kHz            -144.5     -136
+    K6  2 rows, per-sample 60 Hz -> 15 kHz    -106.3     -98
+    static 8 kHz (K6)                         -144.5     -136
+    static 30 Hz (two serial scans)           equal      -130
+    static 1 kHz q 8 (two refined sections)   -136.4     -128
 The kernels themselves are held to the twins bit for bit on a CUDA card
 by tests/test_torch_cuda.py."""
 
@@ -124,6 +136,82 @@ def test_twins_against_f64(low):
         assert db2 <= db3 - 30.0, (db2, db3)
     else:
         assert db3 <= -130.0, db3
+
+
+K6_CASES = {
+    "static-B2": ((2, 16384), "static", -133.0),
+    "static-2x3x5000": ((2, 3, 5000), "static", -136.0),
+    "per-sample-B2": ((2, 16384), "per-sample", -98.0),
+}
+
+
+@pytest.mark.parametrize("case", list(K6_CASES))
+def test_k6_twin_matches_interpreted_kernel(case):
+    shape, mode, bar = K6_CASES[case]
+    n = shape[-1]
+    x = (np.random.default_rng(4).standard_normal(shape) * 0.3) \
+        .astype(np.float32)
+    if mode == "static":
+        gain, secs = jiir.lp24_sections(8000.0, 0.707, SR)
+    else:
+        gain, secs = jiir.lp24_sections(np.geomspace(60.0, 15000.0, n)
+                                        .astype(np.float32),
+                                        np.float32(0.9), SR)
+    x = (x * gain).astype(np.float32)
+    y_jax = np.asarray(pallas_iir.lp24_cascade_pallas(
+        jnp.asarray(x), [tuple(jnp.asarray(c) for c in s) for s in secs],
+        interpret=True))
+    ts = [tuple(torch.from_numpy(np.asarray(c)) if np.ndim(c) else c
+                for c in s) for s in secs]
+    y = tk.lp24_cascade(torch.from_numpy(x), ts)
+    assert y.shape == shape and y.dtype == torch.float32
+    ref = x.astype(np.float64)
+    for s in secs:
+        ref = jiir.biquad_ref(ref, tuple(np.asarray(c, np.float64)
+                                         for c in s))
+    db = _db(y.numpy(), y_jax, ref)
+    assert db <= bar, f"K6 {case}: {db:.1f} dBFS > {bar}"
+    assert _db(y.numpy(), ref, ref) <= _db(y_jax, ref, ref) + 3.0
+
+
+STATIC_LP24 = {
+    # id: (cutoff, q, kernels reached, bar vs the reference dBFS)
+    "8kHz-K6": (8000.0, 0.707, ["lp24_cascade"], -136.0),
+    "30Hz-serial": (30.0, 0.707, ["biquad_serial"] * 2, -130.0),
+    "1kHz-q8-refine": (1000.0, 8.0, ["biquad_blockrate"] * 4, -128.0),
+}
+
+
+@pytest.mark.parametrize("case", list(STATIC_LP24))
+def test_static_lp24_routes(monkeypatch, case):
+    """lp24_apply_blockrate with a static cutoff designs on the host and
+    routes on the poles: the fused cascade K6, two serial scans at the
+    deep corner, two refined sections (K4 twice each) for a high-q
+    resonance — against the reference's routing with its kernels
+    interpreted."""
+    from groove_tpu_torch.ops import biquad_kernels as bk
+
+    cutoff, q, expect, bar = STATIC_LP24[case]
+    seen = []
+    for mod, name in ((tk, "lp24_cascade"), (bk, "biquad_serial"),
+                      (bk, "biquad_blockrate")):
+        fn = getattr(mod, name)
+        monkeypatch.setattr(mod, name, lambda *a, _f=fn, _n=name, **k: (
+            seen.append(_n), _f(*a, **k))[1])
+    monkeypatch.setattr(jiir, "USE_PALLAS", True)
+    monkeypatch.setattr(pallas_iir, "FORCE_INTERPRET", True)
+    x = (np.random.default_rng(10).standard_normal((2, 16384)) * 0.3) \
+        .astype(np.float32)
+    y = tiir.lp24_apply_blockrate(torch.from_numpy(x), cutoff, q, SR)
+    assert seen == expect
+    y_jax = np.asarray(jiir.lp24_apply_blockrate(jnp.asarray(x), cutoff, q,
+                                                 SR))
+    gain, secs = jiir.lp24_sections(cutoff, q, SR)
+    ref = x.astype(np.float64) * np.float64(gain)
+    for s in secs:
+        ref = jiir.biquad_ref(ref, tuple(np.float64(c) for c in s))
+    assert _db(y.numpy(), y_jax, ref) <= bar
+    assert _db(y.numpy(), ref, ref) <= -100.0
 
 
 def test_unaligned_length_and_leading_dims():

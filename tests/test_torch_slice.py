@@ -1,17 +1,42 @@
-"""The port's first slice end to end on the CPU: drumkit -> automated
-24 dB filter -> mix -> int16, through groove_tpu_torch's Renderer, against
-groove_tpu's Renderer with its Pallas kernels run through the interpreter
-(the kernel routing the port follows), and against the f64 reference
-renderer (tools/f64_reference.render_f64).
+"""The port's slices end to end on the CPU: drumkit -> effect filters ->
+mix -> int16, through groove_tpu_torch's Renderer, against groove_tpu's
+Renderer with its Pallas kernels run through the interpreter (the kernel
+routing the port follows), and against the f64 reference renderer
+(tools/f64_reference.render_f64).
 
 Measured on the CPU (synthetic kit, numpy seed 0, about 1.3 s of audio):
 
-    project      port vs JAX   port vs f64   JAX vs f64
-    north-star   -135.4        -129.7        -131.3     (K1 + K2)
-    high-sweep   -138.5        -141.1        -139.0     (K1 + K3)
+    project             port vs JAX      port vs f64   JAX vs f64
+    north-star          -135.4 (-128)    -129.7        -131.3
+    high-sweep          -138.5 (-128)    -141.1        -139.0
+    filter-bank         -76.9 (-69)      -68.3         -68.1
+    filter-bank w/o sc  -96.2 (-88)      -101.2        -98.1
+    sidechain-eq        -123.0 (-115)    -150.9        -123.0
+    sidechain-lp24      -133.0 (-125)    -143.3        -132.8
 
-Bars: port vs JAX at -128 dBFS; port vs f64 within 3 dB of JAX vs f64;
-int16 output within 1 LSB of JAX's."""
+north-star runs K1 + K2, high-sweep K1 + K3; the filter bank every route
+of the effect filters (testing/synth.FILTER_BANK): K5, K4, K4 twice,
+the serial scan, K6 and, for its sidechain-driven low-pass-24db, K3.
+That sidechain filter dominates the filter bank's residuals: its cutoff
+follows the drums' level and falls to 25 Hz whenever they are quiet, its
+coefficients are designed at run time (torch here, jax.numpy there,
+about an ulp apart), and the reference routes such filters to the single
+pass, whose error near z = 1 is the largest of any route: the int16
+outputs differ by up to 5 LSB there. Both packages read about -68 dBFS
+against f64 with it; without that chain the port meets the -80 dBFS bar
+with the reference. No floor on that cutoff keeps it well conditioned:
+each block's value is |mean(L, R)| of a drum sample, so it drops to
+25 Hz whenever the channels cancel, and a state built at a higher cutoff
+is then released through poles next to z = 1 (a limiter in front of
+the controller, raising every |x| to a floor, does not help: the
+channels still cancel, and the transients grow with the floor). The two sidechain slices hold the same device-side designs (tensor
+rbj_peaking_eq -> K4, tensor lp24_sections -> K3) on parameters that
+the drums move gently: a peaking EQ's db-gain at 1 kHz and a
+low-pass-24db's passband-ripple at 8 kHz.
+
+Bars: port vs JAX in parentheses; port vs f64 within 3 dB of JAX vs f64,
+and at most -80 dBFS where the reference meets it; int16 output within
+1 LSB of JAX's (12 LSB for the whole filter bank)."""
 
 from __future__ import annotations
 
@@ -28,25 +53,70 @@ import torch
 
 from groove_tpu.compiler.song import compile_song as jax_compile
 from groove_tpu.engine.render import Renderer as JaxRenderer
-from groove_tpu.io.wav import quantize_16bit_device, read_wav
+from groove_tpu.io.wav import quantize_16bit_device
 from groove_tpu.ops import dca as jdca
 from groove_tpu.ops import effects as jeffects
-from groove_tpu.project.paths import Paths
-from groove_tpu.project.schema import SongSettings
+from groove_tpu.project.paths import Paths as JaxPaths
+from groove_tpu.project.schema import SongSettings as JaxSongSettings
 from groove_tpu_torch import cli
 from groove_tpu_torch.compiler.song import compile_song
 from groove_tpu_torch.engine.params import inputs_from_numpy
 from groove_tpu_torch.engine.render import Renderer, compute_filter_fidelity
+from groove_tpu_torch.io.wav import quantize_16bit, read_wav
 from groove_tpu_torch.ops import dca, effects
+from groove_tpu_torch.project.paths import Paths
+from groove_tpu_torch.project.schema import SongSettings
 from groove_tpu_torch.testing import synth
 
 REPO = Path(__file__).resolve().parents[1]
 
+
+def _without_sidechain(measures: int = 1) -> dict:
+    """The filter bank less its sidechain-driven chain."""
+    p = synth.filter_bank_project(measures)
+    p["devices"] = [d for d in p["devices"]
+                    if not {"lp24-sc", "sc-level", synth.SIDECHAIN_UVID} & {
+                        v[0] for v in d.values()}]
+    p["patch-cables"] = [c for c in p["patch-cables"] if "lp24-sc" not in c]
+    p["controls"] = []
+    return p
+
+
+def _sidechain_only(kind: str, params: dict, param: str):
+    """drums -> passthrough controller -> one filter whose `param` the
+    controller drives (coefficients designed on the render's device)."""
+    def make(measures: int = 1) -> dict:
+        p = synth.filter_bank_project(measures)
+        p["devices"] = p["devices"][:2] + [{"effect": ["target", {
+            kind: dict(params)}]}]
+        p["patch-cables"] = [["drums", synth.SIDECHAIN_UVID, "target",
+                              "main-mixer"]]
+        p["paths"], p["trips"] = [], []
+        p["controls"] = [{"id": "sc-param", "source": synth.SIDECHAIN_UVID,
+                          "target": {"id": "target", "param": param}}]
+        return p
+    return make
+
+
+BANK_ROUTES = {u: r for u, (_, _, r) in synth.FILTER_BANK.items()
+               if r != "plain"}
 SLICES = {
-    # name: (project, expected fidelity routing, bar vs JAX dBFS)
+    # name: (project, expected fidelity routing, bar vs JAX dBFS, int16
+    #        bar vs JAX LSB, bar vs f64 dBFS or None where the reference
+    #        misses -80)
     "north-star": (synth.north_star_project, {synth.FILTER_UVID: "refine"},
-                   -128.0),
-    "high-sweep": (synth.high_sweep_project, {}, -128.0),
+                   -128.0, 1, -80.0),
+    "high-sweep": (synth.high_sweep_project, {}, -128.0, 1, -80.0),
+    "filter-bank": (synth.filter_bank_project, BANK_ROUTES, -69.0, 12,
+                    None),
+    "filter-bank-no-sidechain": (_without_sidechain, BANK_ROUTES, -88.0, 1,
+                                 -80.0),
+    "sidechain-eq": (_sidechain_only("filter-peaking-eq-12db", {
+        "cutoff": 1000.0, "q": 1.5, "db-gain": 6.0}, "db-gain"), {},
+        -115.0, 1, -80.0),
+    "sidechain-lp24": (_sidechain_only("filter-low-pass-24db", {
+        "cutoff": 8000.0, "passband-ripple": 0.707}, "passband-ripple"), {},
+        -125.0, 1, -80.0),
 }
 
 
@@ -58,20 +128,24 @@ def assets(tmp_path_factory):
 
 @pytest.fixture(scope="module")
 def renders(assets):
-    """name -> (port compiled, JAX compiled, JAX Renderer, JAX render)
-    with the reference on its kernel path (Pallas interpreter)."""
+    """name -> (port compiled, JAX compiled, JAX Renderer, JAX render,
+    port render) with the reference on its kernel path (Pallas
+    interpreter) and the port on its twins."""
     from groove_tpu.ops import iir, pallas_iir
 
     out = {}
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(iir, "USE_PALLAS", True)
         mp.setattr(pallas_iir, "FORCE_INTERPRET", True)
-        for name, (make, _, _) in SLICES.items():
-            song = SongSettings.from_json(make())
-            jc = jax_compile(song, Paths(roots=[assets]))
+        for name, (make, *_) in SLICES.items():
+            text = json.dumps(make())
+            jc = jax_compile(JaxSongSettings.from_json5_str(text),
+                             JaxPaths(roots=[assets]))
             jr = JaxRenderer(jc)
-            out[name] = (compile_song(song, Paths(roots=[assets])), jc, jr,
-                         np.asarray(jr.render()))
+            tc = compile_song(SongSettings.from_json5_str(text),
+                              Paths(roots=[assets]))
+            out[name] = (tc, jc, jr, np.asarray(jr.render()),
+                         Renderer(tc, device="cpu").render())
     return out
 
 
@@ -91,38 +165,43 @@ def test_fidelity_routing(renders, name):
 
 @pytest.mark.parametrize("name", list(SLICES))
 def test_slice_matches_reference_kernels(renders, name):
-    compiled, _, _, ref = renders[name]
-    r = Renderer(compiled, device="cpu")
-    got = r.render()
+    compiled, _, _, ref, got = renders[name]
     assert got.shape == ref.shape == (compiled.n_frames, 2)
     assert got.dtype == np.float32 and np.isfinite(got).all()
     assert np.abs(got).max() > 0.05  # drums are audible
     db = _db(got, ref, ref)
     assert db <= SLICES[name][2], f"{name}: {db:.1f} dBFS vs JAX"
-    q = r.render_quantized()
+    q = quantize_16bit(torch.from_numpy(got)).numpy()
     q_ref = np.asarray(quantize_16bit_device(jnp.asarray(ref)))
     assert q.dtype == np.int16
-    assert np.max(np.abs(q.astype(np.int32) - q_ref)) <= 1
+    assert np.max(np.abs(q.astype(np.int32) - q_ref)) <= SLICES[name][3]
+
+
+def test_render_quantized_is_the_quantized_render(renders):
+    compiled, _, _, _, got = renders["north-star"]
+    q = Renderer(compiled, device="cpu").render_quantized()
+    assert np.array_equal(q, quantize_16bit(torch.from_numpy(got)).numpy())
 
 
 @pytest.mark.parametrize("name", list(SLICES))
 def test_slice_against_f64_reference(renders, name):
     from tools.f64_reference import render_f64
 
-    compiled, jc, _, ref_jax = renders[name]
+    _, jc, _, ref_jax, got = renders[name]
     ref = render_f64(jc)
-    got = Renderer(compiled, device="cpu").render()
     port_db = _db(got, ref, ref)
     jax_db = _db(ref_jax, ref, ref)
     assert port_db <= jax_db + 3.0, (port_db, jax_db)
-    assert port_db <= -80.0
+    bar = SLICES[name][4]
+    if bar is not None:
+        assert port_db <= bar
 
 
 @pytest.mark.parametrize("name", list(SLICES))
 def test_inputs_from_reference_renderer(renders, name):
     """The reference Renderer's inputs, carried over as numpy, equal the
     port's own collection bit for bit and render the same song."""
-    compiled, _, jr, _ = renders[name]
+    compiled, _, jr, _, got = renders[name]
     theirs = {k: np.asarray(v) for k, v in jr.inputs.items()}
     own = Renderer(compiled, device="cpu")
     assert theirs.keys() == own.host_inputs.keys()
@@ -133,45 +212,47 @@ def test_inputs_from_reference_renderer(renders, name):
                        inputs=theirs)
     for k, t in inputs_from_numpy(theirs, "cpu").items():
         assert torch.equal(carried.inputs[k], t)
-    assert np.array_equal(carried.render(), own.render())
+    assert np.array_equal(carried.render(), got)
 
 
 def test_port_imports_and_renders_without_jax(assets, tmp_path):
-    """A process whose import system refuses jax imports every module of
-    groove_tpu_torch, renders the short analogue on the CPU and runs the
-    CLI to a WAV."""
-    project = synth.write_project(tmp_path / "north-star.json",
-                                  synth.north_star_project())
+    """A process whose import system refuses jax and groove_tpu imports
+    every module of groove_tpu_torch, renders the filter-bank analogue
+    (about 1.3 s, every route of the effect filters) on the CPU and runs
+    the CLI to a WAV."""
+    project = synth.write_project(tmp_path / "filter-bank.json",
+                                  synth.filter_bank_project())
     code = f"""
 import importlib, pkgutil, sys
 
-class _NoJax:
+class _Refuse:
     def find_spec(self, name, path=None, target=None):
-        if name.split(".")[0] in ("jax", "jaxlib"):
-            raise ImportError("jax is blocked in this process")
+        if name.split(".")[0] in ("jax", "jaxlib", "groove_tpu"):
+            raise ImportError(name + " is blocked in this process")
         return None
 
-sys.meta_path.insert(0, _NoJax())
+sys.meta_path.insert(0, _Refuse())
 import numpy as np
 import groove_tpu_torch
 for m in pkgutil.walk_packages(groove_tpu_torch.__path__,
                                "groove_tpu_torch."):
     importlib.import_module(m.name)
-from groove_tpu.io.wav import read_wav
-from groove_tpu.project.paths import Paths
-from groove_tpu.project.schema import SongSettings
 from groove_tpu_torch import cli
 from groove_tpu_torch.compiler.song import compile_song
 from groove_tpu_torch.engine.render import Renderer
+from groove_tpu_torch.io.wav import read_wav
+from groove_tpu_torch.project.paths import Paths
+from groove_tpu_torch.project.schema import SongSettings
 song = SongSettings.from_project_file({str(project)!r})
 r = Renderer(compile_song(song, Paths(roots=[{str(assets)!r}])), "cpu")
 q = r.render_quantized()
 assert cli.main([{str(project)!r}, "--wav", "--perf", "--device", "cpu",
                  "--out-dir", {str(tmp_path / "out")!r}]) == 0
-x, rate = read_wav({str(tmp_path / "out" / "north-star.wav")!r})
+x, rate = read_wav({str(tmp_path / "out" / "filter-bank.wav")!r})
 assert rate == 44100 and x.shape == q.shape
 assert np.array_equal(np.round(x * 32768).astype(np.int16), q)
-assert not [m for m in sys.modules if m.split(".")[0] == "jax"]
+assert not [m for m in sys.modules
+            if m.split(".")[0] in ("jax", "jaxlib", "groove_tpu")]
 print("JAX-FREE OK", q.shape)
 """
     env = dict(os.environ, GROOVE_ASSETS=str(assets),
@@ -181,6 +262,12 @@ print("JAX-FREE OK", q.shape)
                           timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "JAX-FREE OK" in proc.stdout
+    # the block is real: the same process refuses groove_tpu itself
+    probe = subprocess.run(
+        [sys.executable, "-c", code.split("import numpy")[0]
+         + "import groove_tpu.core.time\n"], cwd=tmp_path, env=env,
+        capture_output=True, text=True, timeout=60)
+    assert probe.returncode != 0 and "is blocked" in probe.stderr
 
 
 # ---- the rest of the graph walk: gain, limiter, bitcrusher, sends,
@@ -211,10 +298,11 @@ def test_graph_walk_matches_reference(assets):
     """XLA contracts some of the reference's multiply-adds (the send's
     acc + amount * x) into FMAs on the CPU: measured at most 1.2e-7 apart,
     bar 2.4e-7."""
-    song = SongSettings.from_json(_graph_project())
-    jc = jax_compile(song, Paths(roots=[assets]))
+    jc = jax_compile(JaxSongSettings.from_json(_graph_project()),
+                     JaxPaths(roots=[assets]))
     ref = np.asarray(JaxRenderer(jc).render())
-    got = Renderer(compile_song(song, Paths(roots=[assets])), "cpu").render()
+    got = Renderer(compile_song(SongSettings.from_json(_graph_project()),
+                                Paths(roots=[assets])), "cpu").render()
     assert np.abs(ref).max() > 0.01
     assert np.max(np.abs(got - ref)) <= 2.4e-7
 
@@ -257,7 +345,7 @@ def _with_device(p, index, device):
     return p
 
 
-@pytest.mark.parametrize("case", ["oscillator", "reverb", "static-lp24"])
+@pytest.mark.parametrize("case", ["oscillator", "reverb", "compressor"])
 def test_unported_parts_raise(assets, case):
     p = synth.north_star_project()
     if case == "oscillator":
@@ -269,6 +357,8 @@ def test_unported_parts_raise(assets, case):
             "attenuation": 0.5, "seconds": 0.2}}]})
         p["trips"] = []
     else:
+        _with_device(p, 1, {"effect": [synth.FILTER_UVID, {"compressor": {
+            "threshold": 0.5, "ratio": 4.0}}]})
         p["trips"] = []
     song = SongSettings.from_json(p)
     with pytest.raises(NotImplementedError, match="not ported yet"):
