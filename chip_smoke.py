@@ -1,9 +1,10 @@
 """On-card smoke run of groove_tpu_torch: the offline render (drumkit ->
-effect filters -> mix -> 16-bit WAV) on one CUDA device, through the
-hand-written kernels K1 (drums), K2 (refined lp24), K3 (lp24, block-rate
-denominators), K6 (lp24, per-sample or static denominators), K4/K5/K9
-(one biquad section with block-rate, static or per-sample coefficients)
-and the serial scan.
+effect filters -> mix -> 16-bit WAV) and the segment-streamed render of
+sliced Welsh voices on one CUDA device, through the hand-written kernels
+K1 (drums), K2 (refined lp24), K3 (lp24, block-rate denominators), K6
+(lp24, per-sample or static denominators), K4/K5/K9 (one biquad section
+with block-rate, static or per-sample coefficients), the serial scan, and
+K7/K8 (K3/K2 with carried state: the sliced Welsh cascades).
 
     python3 chip_smoke.py
 
@@ -15,7 +16,11 @@ Phases, one JSON line each:
      path's shapes ([2, n] for 10 s of the songs; [64, 65536]): max
      difference (they must agree bit for bit, as the tests require) and
      median CUDA-event times of kernel and twin; then each kernel alone at
-     the 3-minute songs' shapes, beside its bound;
+     the 3-minute songs' shapes, beside its bound. K7 and K8 are held
+     to their twins on the inputs the sliced Welsh render gives them (one
+     4096-frame segment of the 10-second Welsh analogue, with the carried
+     state of that segment) and at [64, 65536] from a carried state, and
+     two chained half calls must equal one call (y and state);
   4. the main path through the CLI (groove_tpu_torch.cli.main --wav
      --perf), each run with the launch counts set to 0 just before it and
      read just after: the 3-minute north-star analogue (K1 + K2), the same
@@ -23,13 +28,19 @@ Phases, one JSON line each:
      filter-bank analogue (every route of the effect filters: K1, K5, K4,
      K4 twice for "refine", the serial scan, K6 and K3); then the ops entry
      point iir.biquad_best with per-sample coefficients (K9, which no
-     render path reaches) on the filter bank's output. Render time,
+     render path reaches) on the filter bank's output; then the 3-minute
+     Welsh analogue through the CLI's --stream --sliced at 4096-frame
+     segments (every Welsh device sliced, K7 and K8 launched once per
+     segment and bucket, as the renderer plans), and K7 and K8 alone on
+     the inputs of one of its segments, beside their bounds. Render time,
      x realtime, peak device memory, WAV size and peak, launch counts;
   5. outputs: each 3-minute WAV's shape and peak; the north-star and
      high-sweep WAVs against the CPU render of the same song (the twins)
      bit for bit, and a 10-second filter-bank render through the CLI
      against the twins' (the serial scan's twin is a Python loop over
-     time, too slow for 3 minutes on the CPU).
+     time, too slow for 3 minutes on the CPU); the 10-second Welsh
+     analogue streamed as one segment and as 4096-frame segments (bit
+     for bit), and its card WAV against the CPU twins' stream.
 Then the kernel summary line, the nvidia-smi line, and the result line.
 Without a CUDA device it exits non-zero before printing any result.
 Synthetic assets and outputs go to build/chip_smoke/ in this checkout.
@@ -83,10 +94,18 @@ KERNELS = {
                           "groove_tpu/ops/pallas_iir.py:513"),
     "biquad_serial": ("groove_tpu_torch/csrc/serial.cu",
                       "groove_tpu/ops/iir.py:213"),
+    "lp24_stream": ("groove_tpu_torch/csrc/lp24.cu",
+                    "groove_tpu/ops/pallas_iir.py:448"),
+    "lp24_refined_stream": ("groove_tpu_torch/csrc/lp24.cu",
+                            "groove_tpu/ops/pallas_iir.py:1082"),
 }
 KIND = {"lp24_refined": "K2", "lp24": "K3", "lp24_cascade": "K6",
         "biquad_blockrate": "K4", "biquad_scalar": "K5",
-        "biquad_per_sample": "K9", "biquad_serial": "serial"}
+        "biquad_per_sample": "K9", "biquad_serial": "serial",
+        "lp24_stream": "K7", "lp24_refined_stream": "K8"}
+STREAM_KERNELS = ("lp24_stream", "lp24_refined_stream")
+WELSH_SEGMENT = 4096  # the sliced render's segment (frames)
+WELSH_AT = 40        # the segment of the 10-second song held to the twins
 
 # launches per render of each song, by kernel (the route plan)
 PER_RENDER = {
@@ -142,37 +161,48 @@ def bounds(nbytes: float, flops: float, chain_ops: float) -> dict:
 def compare(name, kernel_fn, plain_fn, peak_ref, work, reps=20):
     """Time kernel and twin on the same card inputs; they must be equal.
     The twin runs once: it repeats the kernel's arithmetic as a loop of
-    torch calls and measures launch overhead, not a competitor."""
+    torch calls and measures launch overhead, not a competitor. A stream
+    kernel returns (y, state'): both are compared."""
     import torch
 
     ms, y = cuda_ms(kernel_fn, reps)
     plain_ms, y_plain = cuda_ms(plain_fn, 1, warmup=False)
+    shape = list((y[0] if isinstance(y, tuple) else y).shape)
+    if isinstance(y, tuple):
+        y, y_plain = (torch.cat([t.reshape(-1) for t in v])
+                      for v in (y, y_plain))
     err = float((y - y_plain).abs().max())
     peak = max(1.0, float(peak_ref))
     db = 20.0 * (torch.log10(torch.tensor(err / peak + 1e-30)).item())
-    return {"name": name, "shape": list(y.shape), "max_abs_err": err,
+    return {"name": name, "shape": shape, "max_abs_err": err,
             "err_dbfs": db, "bitwise": bool(torch.equal(y, y_plain)),
             "ms": ms, "plain_ms": plain_ms, **bounds(*work)}
 
 
-def iir_work(kind: str, rows: int, n: int, coef_bytes: float) -> tuple:
+def iir_work(kind: str, rows: int, n: int, coef_bytes: float,
+             state_rows: int = 0) -> tuple:
     """(bytes, flops, chain ops) of one IIR kernel call on [rows, n]: x
-    read and y written once, the coefficients once. Float operations per
-    sample of one section: 13 in phase 1 and 5-6 in the combine (K2 adds
-    13 for the defect, 7 for the correction scan and 6 for its combine);
-    per ln-block 8 in phase 2. A section's chain is 2 dependent operations
-    per in-block step and 3 per phase-2 step; the serial scan's is 4 per
-    sample (9 operations)."""
-    from groove_tpu_torch.ops.iir_kernels import geometry
+    read and y written once, the coefficients once, a carried state
+    [rows, state_rows] read and written once (K7, K8). Float operations
+    per sample of one section: 13 in phase 1 and 5-6 in the combine (K2
+    and K8 add 13 for the defect, 7 for the correction scan and 6 for its
+    combine); per ln-block 8 in phase 2. A section's chain is 2 dependent
+    operations per in-block step and 3 per phase-2 step; the serial
+    scan's is 4 per sample (9 operations). K7 and K8 are K3 and K2 with
+    ln pinned to 64."""
+    from groove_tpu_torch.ops.iir_kernels import CBLOCK, geometry
 
-    io = 2.0 * rows * n * 4 + coef_bytes
+    io = 2.0 * rows * n * 4 + coef_bytes + 2.0 * rows * state_rows * 4
     if kind == "serial":
         return io, 9.0 * rows * n, 4.0 * n
-    ln, nb, _ = geometry(n, blockrate=kind in ("K2", "K3", "K4"))
+    if kind in ("K7", "K8"):
+        ln, nb = CBLOCK, n // CBLOCK
+    else:
+        ln, nb, _ = geometry(n, blockrate=kind in ("K2", "K3", "K4"))
     per_sample = {"K4": 19, "K5": 19, "K9": 19, "K3": 36, "K6": 36,
-                  "K2": 88}[kind]
-    passes = (2 if kind in ("K2", "K3", "K6") else 1) \
-        * (2 if kind == "K2" else 1)
+                  "K2": 88, "K7": 36, "K8": 88}[kind]
+    passes = (2 if kind in ("K2", "K3", "K6", "K7", "K8") else 1) \
+        * (2 if kind in ("K2", "K8") else 1)
     flops = rows * (per_sample * n + 8 * nb * passes)
     return io, float(flops), float((2 * ln + 3 * nb) * passes)
 
@@ -190,9 +220,83 @@ def coef_bytes(coefs) -> float:
 
 
 def iir_call_work(name: str, x, coefs) -> tuple:
+    from groove_tpu_torch.ops.iir_kernels import STATE_ROWS
+
     flat = ([c for sec in coefs for c in sec[3:]] if name.startswith("lp24")
             else list(coefs))
-    return iir_work(KIND[name], x.shape[0], x.shape[-1], coef_bytes(flat))
+    return iir_work(KIND[name], x.shape[0], x.shape[-1], coef_bytes(flat),
+                    STATE_ROWS.get(name, 0))
+
+
+class Capture:
+    """While active, keeps copies of the arguments (x, sections, state) of
+    call number `at` (from 0) of each stream kernel, so that the kernels
+    can be rerun alone and against their twins on the render's own
+    inputs. The wrappers call the kernels as they are, counts included."""
+
+    def __init__(self, at: int):
+        self.at = at
+        self.calls = dict.fromkeys(STREAM_KERNELS, 0)
+        self.args: dict = {}
+
+    def __enter__(self):
+        from groove_tpu_torch.ops import iir_kernels
+
+        self.saved = {k: getattr(iir_kernels, wrapper(k))
+                      for k in STREAM_KERNELS}
+        for k, fn in self.saved.items():
+            setattr(iir_kernels, wrapper(k), self._wrap(k, fn))
+        return self
+
+    def _wrap(self, key, fn):
+        def call(x, sections, state):
+            if self.calls[key] == self.at:
+                self.args[key] = (
+                    x.clone(), [tuple(c.contiguous().clone() for c in sec)
+                                for sec in sections], state.clone())
+            self.calls[key] += 1
+            return fn(x, sections, state)
+        return call
+
+    def __exit__(self, *exc):
+        from groove_tpu_torch.ops import iir_kernels
+
+        for k, fn in self.saved.items():
+            setattr(iir_kernels, wrapper(k), fn)
+
+
+def wrapper(key: str) -> str:
+    """The ops/iir_kernels wrapper of a stream kernel's launch count."""
+    return {"lp24_stream": "lp24_blockrate_stream",
+            "lp24_refined_stream": "lp24_refined_blockrate_stream"}[key]
+
+
+def stream_twin(key: str, x, sections, state):
+    """The stream kernel's plain twin on the same (card) inputs."""
+    from groove_tpu_torch.ops import iir_kernels
+
+    x2, den, st = iir_kernels._prepare_stream(
+        x, sections, state, iir_kernels.STATE_ROWS[key])
+    plain = (iir_kernels.lp24_refined_blockrate_stream_plain
+             if key == "lp24_refined_stream"
+             else iir_kernels.lp24_blockrate_stream_plain)
+    return plain(x2, *den, st)
+
+
+def chains(key: str, x, sections, state) -> bool:
+    """Two chained half calls equal one call, y and state."""
+    import torch
+    from groove_tpu_torch.ops import iir_kernels
+
+    fn = getattr(iir_kernels, wrapper(key))
+    h = x.shape[-1] // 2
+    y, st = fn(x, sections, state)
+    ya, sa = fn(x[:, :h].contiguous(),
+                [tuple(c[:, :h // 64] for c in s) for s in sections], state)
+    yb, sb = fn(x[:, h:].contiguous(),
+                [tuple(c[:, h // 64:] for c in s) for s in sections], sa)
+    return bool(torch.equal(torch.cat([ya, yb], 1), y)
+                and torch.equal(sb, st))
 
 
 def drum_work(r, n: int) -> tuple:
@@ -221,7 +325,10 @@ def main() -> int:
         return 1
     from groove_tpu_torch import cli
     from groove_tpu_torch.compiler.song import compile_song
+    import numpy as np
+
     from groove_tpu_torch.engine.render import Renderer
+    from groove_tpu_torch.engine.stream import StreamingRenderer
     from groove_tpu_torch.io.wav import read_wav
     from groove_tpu_torch.kernels import build
     from groove_tpu_torch.ops import biquad_kernels as bk
@@ -359,9 +466,6 @@ def main() -> int:
         "biquad_blockrate", lambda: bk.biquad_blockrate(bus_b, held),
         lambda: bk.biquad_blockrate_plain(bus_b, held), bus_b.abs().max(),
         iir_call_work("biquad_blockrate", bus_b, held)))
-    main_shape = {}
-    for res in results:
-        main_shape.setdefault(res["name"], res)
     del r, rb, hits, bus, bus_b, x, secs, x2, den, held
 
     # [64, 65536]: many rows through sweeps that rest near 25 Hz
@@ -396,7 +500,44 @@ def main() -> int:
         results.append(compare(name, lambda k=kern, c=co: k(xw, c),
                                lambda p=plain, c=co: p(xw, c),
                                xw.abs().max(), iir_call_work(name, xw, co)))
+    # K7 and K8 at [64, 65536] from the state a first call carries out
+    chained = {}
+    for key in STREAM_KERNELS:
+        kern = getattr(iir_kernels, wrapper(key))
+        zero = torch.zeros((rows, iir_kernels.STATE_ROWS[key]), device=dev)
+        _, st_w = kern(xg, sw, zero)
+        results.append(compare(key, lambda k=kern, s=st_w: k(xg, sw, s),
+                               lambda k=key, s=st_w: stream_twin(k, xg, sw,
+                                                                 s),
+                               xg.abs().max(), iir_call_work(key, xg, sw)))
+        chained[(key, tuple(xg.shape))] = chains(key, xg, sw, st_w)
     del xw, xg, xw2, denw, sw, wide
+
+    # K7 and K8 on the sliced Welsh render's own inputs: segment WELSH_AT
+    # of the 10-second Welsh analogue streamed at 4096-frame segments,
+    # with the state carried into that segment
+    sliced = type("SlicedStreamingRenderer", (StreamingRenderer,),
+                  {"WELSH_SLICED": True})
+    welsh10 = compile_song(SongSettings.from_json(
+        synth.welsh_project(CHECK_MEASURES, SONG_BPM)), paths)
+    with Capture(at=WELSH_AT) as cap:
+        welsh10_q = sliced(welsh10, dev, WELSH_SEGMENT).render(quantize=True)
+    for key in STREAM_KERNELS:
+        x, secs, st = cap.args[key]
+        kern = getattr(iir_kernels, wrapper(key))
+        results.insert(0, compare(
+            key, lambda k=kern, a=(x, secs, st): k(*a),
+            lambda k=key, a=(x, secs, st): stream_twin(k, *a),
+            x.abs().max(), iir_call_work(key, x, secs)))
+        chained[(key, tuple(x.shape))] = chains(key, x, secs, st)
+    del cap, x, secs, st
+    for (key, shape), ok in chained.items():
+        emit("chained_calls", name=key, shape=list(shape), equal_to_one_call=ok)
+        require(ok, f"{key}: chained half calls differ from one call at "
+                f"{shape}")
+    main_shape = {}  # each kernel at the main path's shape: its first result
+    for res in results:
+        main_shape.setdefault(res["name"], res)
     for res in results:
         emit("kernel_vs_twin", **res)
         require(res["bitwise"], f"{res['name']} differs from its twin "
@@ -478,6 +619,48 @@ def main() -> int:
             f"biquad_best per-sample launched {got}")
     del out, coefs, y
 
+    # the 3-minute Welsh analogue, segment-streamed with sliced voices
+    wpath = synth.write_project(work / "welsh.json", synth.welsh_project(
+        SONG_MEASURES, SONG_BPM))
+    wc = compile_song(SongSettings.from_project_file(wpath), paths)
+    welsh_devices = sorted(u for u, d in wc.devices.items()
+                           if d.kind in ("welsh", "welsh-raw"))
+    zero_launches()
+    torch.cuda.reset_peak_memory_stats(dev)
+    perf = []
+    with Capture(at=-(-wc.n_frames // WELSH_SEGMENT) // 2) as cap:
+        rc = cli.main([str(wpath), "--wav", "--perf", "--stream", "--sliced",
+                       "--segment-frames", str(WELSH_SEGMENT), "--device",
+                       "cuda", "--out-dir", str(work / "out")],
+                      perf_out=perf)
+    got = launches()
+    require(rc == 0 and len(perf) == 1, "cli failed on welsh")
+    for k in totals:
+        totals[k] += got[k]
+    stream_info = perf[0]["stream"]
+    wav = Path(perf[0]["wav"])
+    audio, rate = read_wav(wav)
+    per_song["welsh"] = (perf[0], audio)
+    emit("slice", project="welsh", frames=perf[0]["frames"],
+         seconds_of_audio=perf[0]["frames"] / rate,
+         setup_s=perf[0]["setup_s"], render_s=perf[0]["render_s"],
+         xrt=perf[0]["xrt"],
+         max_memory_allocated=torch.cuda.max_memory_allocated(dev),
+         wav_bytes=wav.stat().st_size, wav_peak=float(abs(audio).max()),
+         launches={k: v for k, v in got.items() if v}, **stream_info)
+    require(stream_info["sliced"] == welsh_devices,
+            f"welsh: sliced {stream_info['sliced']} of {welsh_devices}")
+    want = {k: stream_info["planned_launches"].get(k, 0) for k in got}
+    require(got == want, f"welsh launched {got}, planned {want}")
+    # K7 and K8 alone on the inputs of one of its segments
+    for key in STREAM_KERNELS:
+        x, secs, st = cap.args[key]
+        kern = getattr(iir_kernels, wrapper(key))
+        ms, _ = cuda_ms(lambda k=kern, a=(x, secs, st): k(*a), 20)
+        emit("kernel_at_song_size", name=key, frames=x.shape[-1],
+             rows=x.shape[0], ms=ms, **bounds(*iir_call_work(key, x, secs)))
+    del cap, x, secs, st
+
     # ---- 5. outputs: right shape, audible, equal to the twins' render -----
     for name, (perf, audio) in per_song.items():
         require(audio.shape == (perf["frames"], 2),
@@ -508,6 +691,33 @@ def main() -> int:
         emit("check", project=name, frames=len(q_cpu),
              cpu_twin_render_s=cpu_s, max_lsb_diff_vs_cpu_twins=diff)
         require(diff == 0, f"{name}: card render differs from the twins")
+    # the 10-second Welsh analogue: one segment equals 4096-frame segments
+    # on the card, and the card's streamed WAV equals the CPU twins'
+    one = sliced(welsh10, dev, -(-welsh10.n_frames // 64) * 64).render(
+        quantize=True)
+    one_equal = bool(np.array_equal(one, welsh10_q))
+    w10 = synth.write_project(work / "welsh-10s.json", synth.welsh_project(
+        CHECK_MEASURES, SONG_BPM))
+    perf = []
+    rc = cli.main([str(w10), "--wav", "--stream", "--sliced",
+                   "--segment-frames", str(WELSH_SEGMENT), "--device",
+                   "cuda", "--out-dir", str(work / "out")], perf_out=perf)
+    require(rc == 0, "cli failed on welsh-10s")
+    audio = read_wav(Path(perf[0]["wav"]))[0]
+    auto = type("AutoStreamingRenderer", (StreamingRenderer,),
+                {"WELSH_SLICED": "auto"})
+    t0 = time.perf_counter()
+    q_cpu = auto(compile_song(SongSettings.from_project_file(w10), paths),
+                 "cpu", WELSH_SEGMENT).render(quantize=True)
+    cpu_s = time.perf_counter() - t0
+    q_gpu = (audio * 32768.0).round().astype(q_cpu.dtype)
+    diff = int(abs(q_gpu.astype("int32") - q_cpu).max())
+    emit("check", project="welsh-10s", frames=len(q_cpu),
+         cpu_twin_render_s=cpu_s, max_lsb_diff_vs_cpu_twins=diff,
+         one_segment_equals_4096_frame_segments=one_equal)
+    require(one_equal, "welsh-10s: one segment differs from 4096-frame "
+            "segments on the card")
+    require(diff == 0, "welsh-10s: card stream differs from the twins")
 
     kernels = []
     for name, (src, rep) in KERNELS.items():

@@ -17,7 +17,7 @@ Layout (each module names its groove_tpu counterpart):
     ops/       DSP in torch; kernel wrappers with their plain twins
     csrc/      CUDA C++ sources of the kernels
     kernels/   the nvcc build and ctypes binding
-    engine/    the whole-song Renderer
+    engine/    the whole-song Renderer and the segment StreamingRenderer
     io/        WAV reader/writers and the int16 quantizer
     testing/   seeded synthetic assets and projects
     cli.py     python -m groove_tpu_torch.cli <project> --wav --perf

@@ -2,12 +2,18 @@
 
     python -m groove_tpu_torch.cli <project.json[5]> --wav --perf \
         [--out-dir D] [--sample-rate 44100] [--device cuda]
+    python -m groove_tpu_torch.cli <project> --wav --perf --stream \
+        --sliced [--segment-frames 4096] [--stream-batch 8]
 
 The whole-timeline path of groove_tpu/cli.py: compile_song -> Renderer ->
 render_quantized -> 16-bit WAV, named like the input with .wav and placed
-next to it (or in --out-dir). Assets are found through
-groove_tpu_torch.project.paths.Paths ($GROOVE_ASSETS first). The reference
-CLI's other flags exit with "not ported yet".
+next to it (or in --out-dir). --stream renders segment by segment
+(engine/stream.StreamingRenderer, int16 quantized on the device) and
+writes each segment into the WAV as it arrives; --sliced routes Welsh
+voices to sliced rendering where it wins (the only streamed Welsh path
+ported). Assets are found through groove_tpu_torch.project.paths.Paths
+($GROOVE_ASSETS first). The reference CLI's other flags exit with "not
+ported yet".
 """
 
 from __future__ import annotations
@@ -21,8 +27,7 @@ from pathlib import Path
 # flags of groove_tpu/cli.py that this CLI does not run yet
 NOT_PORTED = (
     ("-m", "--mp3"), ("-d", "--debug"), ("-q", "--quiet"),
-    ("-v", "--version"), ("--play",), ("--stream",), ("--segment-frames",),
-    ("--stream-batch",), ("--sliced",), ("--multidevice",), ("--mesh",),
+    ("-v", "--version"), ("--play",), ("--multidevice",), ("--mesh",),
     ("--live",), ("--midi-out",), ("--loop",), ("--loop-iterations",),
 )
 
@@ -42,6 +47,19 @@ def build_parser() -> argparse.ArgumentParser:
                    help="write WAVs here instead of next to the input")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device to render on (default: cuda)")
+    p.add_argument("--stream", action="store_true",
+                   help="render segment-streamed with bounded device memory; "
+                        "the WAV is written as segments arrive")
+    p.add_argument("--segment-frames", type=int, default=262144,
+                   help="streamed segment length (a multiple of 64)")
+    p.add_argument("--stream-batch", type=int, default=8,
+                   help="segments rendered per host fetch in --stream "
+                        "(the audio is the same for every value)")
+    p.add_argument("--sliced", action="store_true",
+                   help="--stream only: render each segment's slice of "
+                        "every active Welsh note with carried per-note "
+                        "filter state, per device where the work model "
+                        "says it wins")
     for flags in NOT_PORTED:
         p.add_argument(*flags, nargs="*", default=None,
                        dest="np_" + flags[-1].lstrip("-").replace("-", "_"),
@@ -112,6 +130,8 @@ def _process_file(input_filename: str, paths, args) -> dict:
     t0 = time.perf_counter()
     song = SongSettings.from_project_file(Path(input_filename))
     compiled = compile_song(song, paths, sample_rate=args.sample_rate)
+    if args.stream:
+        return _render_streamed(compiled, input_filename, args, t0)
     renderer = Renderer(compiled, device=args.device)
     _sync(renderer.device)
     setup_s = time.perf_counter() - t0
@@ -149,6 +169,53 @@ def _process_file(input_filename: str, paths, args) -> dict:
         out = output_path(input_filename, args.out_dir)
         print(f"Rendering queue to {out}")
         write_wav_16bit_stereo(out, samples, args.sample_rate)
+        perf["wav"] = str(out)
+    return perf
+
+
+def _render_streamed(compiled, input_filename: str, args, t0: float) -> dict:
+    """Segment-streamed render (--stream): segments quantized to int16 on
+    the device land in the WAV as they are produced."""
+    import torch
+
+    from groove_tpu_torch.engine.stream import StreamingRenderer
+    from groove_tpu_torch.io.wav import write_wav_16bit_stereo_stream
+
+    cls = StreamingRenderer
+    if args.sliced:
+        # "auto": per-device routing by the _slice_wins work model
+        cls = type("SlicedStreamingRenderer", (StreamingRenderer,),
+                   {"WELSH_SLICED": "auto"})
+    r = cls(compiled, args.device, segment_frames=args.segment_frames)
+    device = torch.device(args.device)
+    _sync(device)
+    setup_s = time.perf_counter() - t0
+    batch = max(1, min(args.stream_batch, r.n_segs))
+    if args.perf:
+        print(f"Orchestrator instantiation time: {setup_s:.2f}s")
+    print(f"Streaming {compiled.n_frames} frames in {r.n_segs} x {r.S}-frame "
+          f"segments (batch {batch}) ", end="", flush=True)
+    chunks = r.stream(batch_segments=batch, quantize=True)
+    t1 = time.perf_counter()
+    if args.wav:
+        out = output_path(input_filename, args.out_dir)
+        total = write_wav_16bit_stereo_stream(out, chunks, args.sample_rate)
+    else:
+        total = sum(len(c) for c in chunks)
+    render_s = time.perf_counter() - t1
+    print(".")
+    audio_s = total / args.sample_rate
+    perf = {"input": input_filename, "frames": total, "setup_s": setup_s,
+            "render_s": render_s,
+            "xrt": audio_s / render_s if render_s > 0 else None,
+            "stream": {"segments": r.n_segs, "segment_frames": r.S,
+                       "batch": batch, "sliced": sorted(r._sliced),
+                       "planned_launches": r.planned_launches()}}
+    if args.perf:
+        print(f" Streamed render: {render_s:.2f}s for {total} frames "
+              f"(incl. the WAV write) — {perf['xrt']:.1f}x realtime")
+    if args.wav:
+        print(f"Rendering queue to {out}")
         perf["wav"] = str(out)
     return perf
 

@@ -65,7 +65,8 @@ void scan(const float* x, const Coef* co, Layout l, float* y, float* p11,
                                   stream>>>(x, co[0], co[1], co[2], co[3], l,
                                             p11, p12, q1, m, c, B, npad, nb,
                                             ln);
-  tdf2::phase2_kernel<<<B, kThreads, 0, stream>>>(m, c, s, nb);
+  tdf2::phase2_kernel<<<B, kThreads, 0, stream>>>(m, c, s, nb,
+                                                  tdf2::kNoCarry);
   combine_kernel<M><<<grid_for((int64_t)B * npad), kThreads, 0, stream>>>(
       x, co[4], l, p11, p12, q1, s, y, B, n, npad, nb, ln);
 }

@@ -1,5 +1,5 @@
 // Shared pieces of the two-level TDF2 scan for Hopper (sm_90a), used by
-// lp24.cu (K2, K3, K6), biquad.cu (K4, K5, K9) and serial.cu.
+// lp24.cu (K2, K3, K6, K7, K8), biquad.cu (K4, K5, K9) and serial.cu.
 //
 // Every kernel of groove_tpu/ops/pallas_iir.py runs one algorithm per
 // section: phase 1, in-block prefix affine maps (a serial scan over ln
@@ -109,15 +109,32 @@ __global__ void phase1_kernel(const float* __restrict__ z, Coef na1, Coef na2,
   c[t * 2 + 1] = Q2;
 }
 
+}  // namespace
+
+// A chain's state carried across calls (the stateful stream kernels K7 and
+// K8): the pair entering block 0 is read from in[row * stride + {0, 1}]
+// (zeros when in is null) and the pair leaving the last block is written
+// to out[row * stride + {0, 1}] (skipped when out is null).
+struct Carry {
+  const float* in;
+  float* out;
+  int64_t stride;
+};
+
+constexpr Carry kNoCarry = {nullptr, nullptr, 0};
+
+namespace {
+
 // Phase 2: one thread block per row. Tiles of block maps are staged in
 // shared memory by all threads; thread 0 walks the chain
 // S[k+1] = M[k] S[k] + C[k]; all threads write the entry states back.
 // s: [B, nb, 2], the state ENTERING block k. The TPU's lane-roll sweeps
 // and chunk carries compute exactly this chain; the 2x2 maps are never
-// composed associatively (that diverges in f32 near z = 1).
+// composed associatively (that diverges in f32 near z = 1). `carry` seeds
+// the chain and exports its exit (kNoCarry: zero entry, no export).
 __global__ void phase2_kernel(const float* __restrict__ m,
                               const float* __restrict__ c,
-                              float* __restrict__ s, int nb) {
+                              float* __restrict__ s, int nb, Carry carry) {
   __shared__ float sm[kChainTile * 4];
   __shared__ float sc[kChainTile * 2];
   __shared__ float ss[kChainTile * 2];
@@ -126,6 +143,10 @@ __global__ void phase2_kernel(const float* __restrict__ m,
   const float* cr = c + row * nb * 2;
   float* sr = s + row * nb * 2;
   float s1 = 0.0f, s2 = 0.0f;  // carried by thread 0
+  if (carry.in != nullptr) {
+    s1 = carry.in[row * carry.stride];
+    s2 = carry.in[row * carry.stride + 1];
+  }
   for (int base = 0; base < nb; base += kChainTile) {
     int cnt = min(kChainTile, nb - base);
     for (int i = threadIdx.x; i < cnt * 4; i += blockDim.x)
@@ -147,6 +168,10 @@ __global__ void phase2_kernel(const float* __restrict__ m,
     for (int i = threadIdx.x; i < cnt * 2; i += blockDim.x)
       sr[(int64_t)base * 2 + i] = ss[i];
     __syncthreads();
+  }
+  if (threadIdx.x == 0 && carry.out != nullptr) {
+    carry.out[row * carry.stride] = s1;
+    carry.out[row * carry.stride + 1] = s2;
   }
 }
 

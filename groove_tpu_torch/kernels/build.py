@@ -35,7 +35,7 @@ _I64 = ctypes.c_int64
 _F = ctypes.c_float
 # C entry points: name -> argtypes (every entry returns cudaGetLastError())
 SIGNATURES = {
-    "lp24_cascade": ([_I, _I] + [_P] * 5 + [_F] * 4 + [_I64] * 3 + [_P] * 10
+    "lp24_cascade": ([_I, _I] + [_P] * 5 + [_F] * 4 + [_I64] * 3 + [_P] * 12
                      + [_I, _I64, _I64, _I, _P]),
     "biquad_scan": ([_I] + [_P] * 6 + [_F] * 5 + [_I64] * 3 + [_P] * 7
                     + [_I, _I64, _I64, _I, _P]),

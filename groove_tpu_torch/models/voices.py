@@ -44,6 +44,58 @@ def scatter_notes(note_audio: torch.Tensor, on_frames,
     return out[..., :n_frames]
 
 
+def bucket_notes(need_frames: np.ndarray, cap: int, max_buckets: int = 3,
+                 minimum: int = 256, launch_rows: int = 16):
+    """Partition notes into span buckets to bound wasted render work (a
+    copy of the reference's host function).
+
+    A single per-instrument span is the MAX over notes, so one whole-note
+    drone would make every short note render a drone-length window.
+    Buckets group notes by their own need = gate + tail rounded up to 128
+    frames; unique needs partition into <= max_buckets contiguous
+    segments by an exact minimum-cost DP where cost(bucket) = span x (rows
+    + launch_rows). Extending a note's window past its own need appends
+    exact zeros, so bucket spans never change audio.
+
+    need_frames: [n] per-note required window (gate + tail + 1).
+    cap: upper clamp (timeline length, rounded up).
+    Returns list of (span, indices) with every need <= its bucket span.
+    """
+    cap128 = -(-cap // 128) * 128
+    need = np.minimum(np.maximum(need_frames.astype(np.int64), minimum),
+                      cap128)
+    need = np.minimum(-(-need // 128) * 128, cap128)  # 128-aligned spans
+    spans = np.unique(need)                       # [m] ascending
+    groups = [np.nonzero(need == v)[0] for v in spans]
+    m = len(spans)
+    # O(k m^2) DP, vectorized over the split point (cost of segment
+    # (a..b-1] = span_{b-1} * (count(a..b) + launch_rows)).
+    cnt = np.array([len(g) for g in groups], np.int64)
+    C = np.concatenate([[0], np.cumsum(cnt)])            # [m+1]
+    INF = np.int64(2**62)
+    f = np.full((max_buckets + 1, m + 1), INF)
+    arg = np.zeros((max_buckets + 1, m + 1), np.int64)
+    f[0][0] = 0
+    for k in range(1, max_buckets + 1):
+        for b in range(1, m + 1):
+            a = np.arange(b)
+            cand = f[k - 1][a] + spans[b - 1] * (C[b] - C[a] + launch_rows)
+            i = int(np.argmin(cand))
+            f[k][b], arg[k][b] = cand[i], a[i]
+    k = int(np.argmin(f[:, m]))
+    cuts = []
+    b = m
+    while b > 0:
+        a = int(arg[k][b])
+        cuts.append((a, b))
+        b, k = a, k - 1
+    out = []
+    for a, b in reversed(cuts):
+        idx = np.concatenate(groups[a:b])
+        out.append((int(spans[b - 1]), np.sort(idx)))
+    return out
+
+
 def glide_prev_keys(keys: np.ndarray, on: np.ndarray) -> np.ndarray:
     """Per-note glide-source keys: the key of the latest STRICTLY-earlier
     onset on the same device; notes sharing an onset glide from the same

@@ -1,6 +1,9 @@
-"""lp24 cascade kernels K2, K3 and K6 (port of the lp24 family of
+"""lp24 cascade kernels K2, K3, K6, K7 and K8 (port of the lp24 family of
 groove_tpu/ops/pallas_iir.py), and the pieces every TDF2 kernel twin
-shares (ops/biquad_kernels.py uses them too).
+shares (ops/biquad_kernels.py uses them too). K7 and K8 are K3 and K2
+with their state carried from call to call (STATE_ROWS): ln is pinned to
+64 and n must be a multiple of 64, so that chained calls are bitwise one
+long call.
 
 The cascade is two TDF2 sections with numerators (1, 2, 1). K3 and K2
 hold the denominators for each 64-frame control block; K6 reads them per
@@ -49,7 +52,8 @@ CBLOCK = 64
 SCALAR, BLOCK, SAMPLE = 0, 1, 2  # tdf2::Mode
 
 # kernel launches per wrapper (one per call of the C entry point)
-LAUNCHES = {"lp24": 0, "lp24_refined": 0, "lp24_cascade": 0}
+LAUNCHES = {"lp24": 0, "lp24_refined": 0, "lp24_cascade": 0,
+            "lp24_stream": 0, "lp24_refined_stream": 0}
 
 
 def geometry(n: int, blockrate: bool = True) -> tuple[int, int, int]:
@@ -267,10 +271,12 @@ def _lp24_cascade_plain(x2, st: Streams) -> torch.Tensor:
                           refined=False)
 
 
-def _launch(refined: bool, x2: torch.Tensor, st: Streams,
-            ln: int) -> torch.Tensor:
+def _launch(refined: bool, x2: torch.Tensor, st: Streams, ln: int,
+            state: torch.Tensor | None = None):
     """Run csrc/lp24.cu's lp24_cascade on [B, n] CUDA inputs. Allocates
-    the output and every scratch buffer; raises on a refused launch."""
+    the output, the exported state (for a carried `state`) and every
+    scratch buffer; raises on a refused launch. Returns y, or (y, state')
+    for the stream kernels."""
     from groove_tpu_torch.kernels.build import library
 
     check_input(x2, "lp24 kernel")
@@ -287,14 +293,90 @@ def _launch(refined: bool, x2: torch.Tensor, st: Streams,
     s = torch.empty((B, nb, 2), **f32)
     p11, p12, q1, ya = full[:4]
     y0, d = (full[4], full[5]) if refined else (None, None)
+    state_out = None
+    if state is not None:
+        check_input(state, "lp24 stream kernel state")
+        state_out = torch.empty_like(state)
     err = library().lp24_cascade(
         int(refined), st.mode, ptr(xp), *(ptr(t) for t in st.arrays),
-        *st.values, *st.layout, ptr(y), ptr(p11), ptr(p12), ptr(q1),
-        ptr(ya), ptr(y0), ptr(d), ptr(m), ptr(c), ptr(s), B, n, npad, ln,
-        stream_of(x2))
+        *st.values, *st.layout, ptr(state), ptr(state_out), ptr(y),
+        ptr(p11), ptr(p12), ptr(q1), ptr(ya), ptr(y0), ptr(d), ptr(m),
+        ptr(c), ptr(s), B, n, npad, ln, stream_of(x2))
     if err:
         raise RuntimeError(f"lp24 kernel launch failed: CUDA error {err}")
-    return y
+    return y if state is None else (y, state_out)
+
+
+# --------------------------------------------------------------------------
+# K7 and K8: the block-rate cascades with carried state (sliced Welsh)
+
+# Carried state rows per kernel. K7 [B, 4]: (s1a, s2a, s1b, s2b), each
+# section's solve pair. K8 [B, 20]: per section (A at 0, B at 10) the solve
+# pair, the correction pair, the section input z at lags 1 and 2, the
+# solve y0 at lags 1 and 2, and the last block's na1 and na2 — the
+# reference's layouts (pallas_iir._make_kernel_lp24_refined_blk), so a
+# state moves between the packages unchanged.
+STATE_ROWS = {"lp24_stream": 4, "lp24_refined_stream": 20}
+
+
+def _prepare_stream(x: torch.Tensor, sections_b, state, rows: int):
+    n = x.shape[-1]
+    if n % CBLOCK or n == 0:
+        raise ValueError(
+            f"stateful stream kernel needs n % {CBLOCK} == 0, got {n} "
+            "(exported state would include padded samples)")
+    x2, den = _prepare(x, sections_b, CBLOCK)
+    st = torch.as_tensor(state).to(device=x.device, dtype=torch.float32)
+    st = st.reshape(x2.shape[0], rows).contiguous()
+    return x2, den, st
+
+
+def _stream(refined: bool, key: str, x, sections_b, state):
+    rows = STATE_ROWS[key]
+    x2, den, st = _prepare_stream(x, sections_b, state, rows)
+    y, st2 = dispatch(
+        x2, lambda: _stream_plain(refined, x2, den, st),
+        lambda: _launch(refined, x2, Streams(BLOCK, list(den),
+                                             den[0].shape[1]), CBLOCK, st),
+        key, LAUNCHES, "lp24 stream kernel")
+    return y.reshape(x.shape), st2.reshape(x.shape[:-1] + (rows,))
+
+
+def lp24_blockrate_stream(x: torch.Tensor, sections_b,
+                          state) -> tuple[torch.Tensor, torch.Tensor]:
+    """K7: K3 over [..., n] (n a multiple of 64) with the TDF2 state
+    [..., 4] carried in and out (the reference's
+    lp24_blockrate_stream_pallas). ln is pinned to 64, so chaining calls
+    through the state is bitwise one long call. Returns (y, state')."""
+    return _stream(False, "lp24_stream", x, sections_b, state)
+
+
+def lp24_refined_blockrate_stream(x: torch.Tensor, sections_b,
+                                  state) -> tuple[torch.Tensor,
+                                                  torch.Tensor]:
+    """K8: K2 over [..., n] (n a multiple of 64) with the state [..., 20]
+    carried in and out (the reference's
+    lp24_refined_blockrate_stream_pallas; zeros to start). Returns
+    (y, state')."""
+    return _stream(True, "lp24_refined_stream", x, sections_b, state)
+
+
+def _stream_plain(refined: bool, x2, den, state):
+    npad = x2.shape[1]
+    return _cascade_plain(x2, [_per_sample(d, npad) for d in den], CBLOCK,
+                          refined, state)
+
+
+def lp24_blockrate_stream_plain(x2, na1a, na2a, na1b, na2b, state):
+    """K7's plain twin: x2 [B, n], negated denominators [B, n / 64],
+    state [B, 4]. Returns (y, state')."""
+    return _stream_plain(False, x2, (na1a, na2a, na1b, na2b), state)
+
+
+def lp24_refined_blockrate_stream_plain(x2, na1a, na2a, na1b, na2b, state):
+    """K8's plain twin: x2 [B, n], negated denominators [B, n / 64],
+    state [B, 20]. Returns (y, state')."""
+    return _stream_plain(True, x2, (na1a, na2a, na1b, na2b), state)
 
 
 # --------------------------------------------------------------------------
@@ -363,24 +445,38 @@ def _corr_phase1(na1, na2, d, ln: int):
     return q1s, torch.stack([r1, r2], -1)
 
 
-def phase2(m: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
-    """Serial cross-block chain per row: entry states S [B, nb, 2]."""
+def chain(m: torch.Tensor, c: torch.Tensor, seed=None):
+    """Serial cross-block chain per row from the pair `seed` [B, 2] (zeros
+    when None): entry states S [B, nb, 2] and the exit state [B, 2]."""
     B, nb = m.shape[:2]
     s = torch.empty((B, nb, 2), dtype=m.dtype, device=m.device)
-    s1 = torch.zeros(B, dtype=m.dtype, device=m.device)
-    s2 = torch.zeros_like(s1)
+    if seed is None:
+        s1 = torch.zeros(B, dtype=m.dtype, device=m.device)
+        s2 = torch.zeros_like(s1)
+    else:
+        s1, s2 = seed[:, 0], seed[:, 1]
     for k in range(nb):
         s[:, k, 0] = s1
         s[:, k, 1] = s2
         mk, ck = m[:, k], c[:, k]
         s1, s2 = (mk[:, 0] * s1 + mk[:, 1] * s2 + ck[:, 0],
                   mk[:, 2] * s1 + mk[:, 3] * s2 + ck[:, 1])
-    return s
+    return s, torch.stack([s1, s2], -1)
 
 
-def _shift(v: torch.Tensor, k: int) -> torch.Tensor:
-    """Shift right along the last axis with zero history."""
-    return torch.nn.functional.pad(v, (k, 0))[..., :-k]
+def phase2(m: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """Serial cross-block chain per row from zero: entry states
+    S [B, nb, 2]."""
+    return chain(m, c)[0]
+
+
+def _shift(v: torch.Tensor, k: int, h1=None, h2=None) -> torch.Tensor:
+    """Shift right by k (1 or 2) along the last axis; the samples before
+    the start are h1 (lag 1) and h2 (lag 2), [B, 1] columns, or zeros."""
+    if h1 is None:
+        return torch.nn.functional.pad(v, (k, 0))[..., :-k]
+    head = [h1] if k == 1 else [h2, h1]
+    return torch.cat([*head, v[..., :-k]], dim=-1)
 
 
 def fold_back(v: torch.Tensor) -> torch.Tensor:
@@ -388,39 +484,56 @@ def fold_back(v: torch.Tensor) -> torch.Tensor:
     return v.reshape(v.shape[0], -1)
 
 
-def _section(z, na1, na2, ln: int, refined: bool):
-    """One cascade section on a padded [B, npad] input."""
+def _section(z, na1, na2, ln: int, refined: bool, st=None):
+    """One cascade section on a padded [B, npad] input. st: None (zero
+    state) or the section's carried rows, [B, 2] (K7: the solve pair) or
+    [B, 10] (K8: STATE_ROWS' section layout). Returns (y, exported rows or
+    None)."""
     B, npad = z.shape
     nb = npad // ln
     fold = lambda v: v.reshape(B, nb, ln)  # noqa: E731
+    col = (lambda j: None) if st is None \
+        else (lambda j: st[:, j:j + 1])  # noqa: E731
     p11, p12, q1, m, c = phase1(fold(na1), fold(na2), fold(2.0 + na1),
                                 fold(1.0 + na2), fold(z), ln)
-    s = phase2(m, c)
+    s, exit_solve = chain(m, c, None if st is None else st[:, 0:2])
     S1, S2 = s[..., 0:1], s[..., 1:2]
     y0 = z + fold_back(p11 * S1 + p12 * S2 + q1)
     if not refined:
-        return y0
-    z1, z2 = _shift(z, 1), _shift(z, 2)
-    y1, y2 = _shift(y0, 1), _shift(y0, 2)
-    e1 = 2.0 - _shift(na1, 1)
-    e2 = -_shift(na2, 2) - 1.0
+        return y0, None if st is None else exit_solve
+    z1, z2 = _shift(z, 1, col(4)), _shift(z, 2, col(4), col(5))
+    y1, y2 = _shift(y0, 1, col(6)), _shift(y0, 2, col(6), col(7))
+    e1 = 2.0 - _shift(na1, 1, col(8))
+    e2 = -_shift(na2, 2, col(9), col(9)) - 1.0
     second = (y0 - y1) - (y1 - y2)
     d = (z + 2.0 * z1 + z2) - second - e1 * y1 - e2 * y2
     q1c, r = _corr_phase1(fold(na1), fold(na2), fold(d), ln)
-    sc = phase2(m, r)
+    sc, exit_corr = chain(m, r, None if st is None else st[:, 2:4])
     corr = fold(d) + p11 * sc[..., 0:1] + p12 * sc[..., 1:2] + q1c
-    return y0 + fold_back(corr)
+    y = y0 + fold_back(corr)
+    if st is None:
+        return y, None
+    edges = torch.stack([z[:, -1], z[:, -2], y0[:, -1], y0[:, -2],
+                         na1[:, -1], na2[:, -1]], -1)
+    return y, torch.cat([exit_solve, exit_corr, edges], -1)
 
 
-def _cascade_plain(x2, dens, ln: int, refined: bool):
+def _cascade_plain(x2, dens, ln: int, refined: bool, state=None):
     """Both sections over x2 [B, n]; dens: the four negated denominators
-    as per-sample [B, npad] tensors."""
+    as per-sample [B, npad] tensors; state: None, or the carried [B, 4]
+    (K7) or [B, 20] (K8) state, and then (y, state') is returned."""
     n = x2.shape[1]
     npad = dens[0].shape[1]
     z = torch.nn.functional.pad(x2, (0, npad - n))
-    ya = _section(z, dens[0], dens[1], ln, refined)
-    y = _section(ya, dens[2], dens[3], ln, refined)
-    return y[:, :n].contiguous()
+    half = None if state is None else state.shape[1] // 2
+    sa = None if state is None else state[:, :half]
+    sb = None if state is None else state[:, half:]
+    ya, oa = _section(z, dens[0], dens[1], ln, refined, sa)
+    y, ob = _section(ya, dens[2], dens[3], ln, refined, sb)
+    y = y[:, :n].contiguous()
+    if state is None:
+        return y
+    return y, torch.cat([oa, ob], -1)
 
 
 def _blockrate_plain(x2, den, refined: bool):

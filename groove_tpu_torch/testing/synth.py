@@ -16,7 +16,12 @@ cutoff trip rises from `low` to `high` over the song (0 -> 25 Hz,
 filter_bank_project is an analogue of a filter bank: the same kit drives
 parallel patch-cable chains through one filter each, summed by a gain
 into the main mixer, so that one song takes every route of the effect
-filters (FILTER_BANK)."""
+filters (FILTER_BANK).
+
+welsh_project is an analogue of a Welsh-voice song (scale-c4-major's
+kind): two inline welsh-raw voices, a refined-cascade pad and a
+single-pass lead with noise and an amplitude LFO (WELSH_PAD,
+WELSH_LEAD)."""
 
 from __future__ import annotations
 
@@ -190,6 +195,90 @@ def filter_bank_project(measures: int = 1, bpm: float = 185.0) -> dict:
     p["controls"] = [{"id": "sc-cutoff", "source": SIDECHAIN_UVID,
                       "target": {"id": "lp24-sc", "param": "cutoff"}}]
     return p
+
+
+# Welsh analogue: two welsh-raw voices (inline WelshSynthParams, so no
+# patch file is needed). Envelope releases equal their decays (the
+# reference's patch derivation), so both voices ring about 1.6 s past
+# note-off.
+WELSH_PAD = {
+    # resonant low resting cutoff: its sustained poles sit next to z = 1,
+    # so filter_fidelity_mode routes it to the refined cascade (K8)
+    "oscillator-1": {"waveform": "sawtooth", "tune": {"float": 1.0},
+                     "mix-pct": 1.0},
+    "oscillator-2": {"waveform": "sine", "tune": {"float": 2.0},
+                     "mix-pct": 0.5},
+    "oscillator-2-track": True, "oscillator-2-sync": False, "noise": 0.0,
+    "lfo": {"routing": "none", "waveform": "sine", "frequency": 0.0,
+            "depth": "none"},
+    "glide": 0, "unison": False, "polyphony": "multi",
+    "filter-type-24db": {"cutoff-hz": 120.0, "cutoff-pct": 0.2},
+    "filter-type-12db": {"cutoff-hz": 120.0, "cutoff-pct": 0.2},
+    "filter-resonance": 0.6, "filter-envelope-weight": 0.45,
+    "filter-envelope": {"attack": 0.3, "decay": 1.6, "sustain": 0.2,
+                        "release": 1.6},
+    "amp-envelope": {"attack": 0.15, "decay": 1.6, "sustain": 0.7,
+                     "release": 1.6},
+}
+WELSH_LEAD = {
+    # bright filter with noise and an amplitude LFO: the single-pass
+    # cascade (K7)
+    "oscillator-1": {"waveform": "square", "tune": {"float": 1.0},
+                     "mix-pct": 1.0},
+    "oscillator-2": {"waveform": "sawtooth", "tune": {"float": 1.005},
+                     "mix-pct": 0.6},
+    "oscillator-2-track": True, "oscillator-2-sync": False, "noise": 0.25,
+    "lfo": {"routing": "amplitude", "waveform": "sine", "frequency": 5.0,
+            "depth": {"pct": 0.3}},
+    "glide": 0, "unison": False, "polyphony": "multi",
+    "filter-type-24db": {"cutoff-hz": 2500.0, "cutoff-pct": 0.6},
+    "filter-type-12db": {"cutoff-hz": 2500.0, "cutoff-pct": 0.6},
+    "filter-resonance": 0.2, "filter-envelope-weight": 0.9,
+    "filter-envelope": {"attack": 0.01, "decay": 1.6, "sustain": 0.5,
+                        "release": 1.6},
+    "amp-envelope": {"attack": 0.01, "decay": 1.6, "sustain": 0.6,
+                     "release": 1.6},
+}
+
+
+def welsh_project(measures: int = 1, bpm: float = 120.0) -> dict:
+    """Two welsh-raw voices at centre pan into the main mixer (so the song
+    is channel-symmetric): a pad of 4-note chords in half notes on channel
+    0 (refined cascade) and a lead in eighths on channel 1 (single-pass
+    cascade, noise 0.25, amplitude LFO). The melody comes from numpy's
+    generator seeded 0. 90 measures at 120 bpm are 3 minutes
+    (7,938,048 frames)."""
+    rng = np.random.default_rng(0)
+    chords = [(48, 55, 60, 64), (53, 57, 60, 65), (45, 52, 57, 60),
+              (43, 50, 55, 59)]
+    scale = [60, 62, 64, 67, 69, 72, 74, 76]
+    pads, leads = [], []
+    for k in range(4):
+        a, b = chords[k], chords[(k + 1) % 4]
+        pads.append({"id": f"pad-{k}", "note-value": "half",
+                     "notes": [[a[i], b[i]] for i in range(4)]})
+        line = [int(scale[i]) if r > 0.2 else 0 for i, r in
+                zip(rng.integers(0, len(scale), 8), rng.random(8))]
+        leads.append({"id": f"lead-{k}", "note-value": "eighth",
+                      "notes": [line]})
+    return {
+        "title": "welsh analogue",
+        "clock": {"bpm": bpm, "time-signature": [4, 4]},
+        "devices": [
+            {"instrument": ["pad", {"welsh-raw": [
+                {"midi-in": 0, "gain": 0.06}, dict(WELSH_PAD)]}]},
+            {"instrument": ["lead", {"welsh-raw": [
+                {"midi-in": 1, "gain": 0.25}, dict(WELSH_LEAD)]}]},
+        ],
+        "patch-cables": [["pad", "main-mixer"], ["lead", "main-mixer"]],
+        "patterns": pads + leads,
+        "tracks": [
+            {"id": "pad-track", "midi-channel": 0,
+             "patterns": [f"pad-{k % 4}" for k in range(measures)]},
+            {"id": "lead-track", "midi-channel": 1,
+             "patterns": [f"lead-{k % 4}" for k in range(measures)]},
+        ],
+    }
 
 
 def write_project(path, project: dict) -> Path:

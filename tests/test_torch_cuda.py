@@ -1,9 +1,10 @@
 """The CUDA kernels of groove_tpu_torch against their plain torch twins on
 a card, bit for bit: K1 (drums), K3 (lp24), K2 (refined lp24), K6 (lp24
 with per-sample or static denominators), K4/K5/K9 (one biquad section with
-block-rate, static or per-sample coefficients) and the serial scan, plus
-short renders of the slices on the card against the same renders on the
-CPU.
+block-rate, static or per-sample coefficients), the serial scan and the
+stream kernels K7/K8 (K3/K2 with carried state; chained calls equal one
+call), plus short renders of the slices and of a streamed Welsh song on
+the card against the same renders on the CPU.
 
 These tests need an NVIDIA GPU (marker `cuda`; they skip without one) and
 import no jax, so the machine with the card runs them:
@@ -19,6 +20,7 @@ import torch
 
 from groove_tpu_torch.compiler.song import compile_song
 from groove_tpu_torch.engine.render import Renderer
+from groove_tpu_torch.engine.stream import StreamingRenderer
 from groove_tpu_torch.ops import biquad_kernels, drums, iir, iir_kernels
 from groove_tpu_torch.project.paths import Paths
 from groove_tpu_torch.project.schema import SongSettings
@@ -207,3 +209,54 @@ def test_short_slice_on_card_equals_cpu(cuda_device, tmp_path, make):
                             Paths(roots=[assets]))
     on_card = Renderer(compiled, cuda_device).render()
     assert np.array_equal(on_card, Renderer(compiled, "cpu").render())
+
+
+@pytest.mark.parametrize("refined", [False, True], ids=["K7", "K8"])
+@pytest.mark.parametrize("rows,n,low", [(12, 4096, 120.0), (3, 16384, 25.0),
+                                        (64, 65536, 500.0)])
+def test_stream_kernel_matches_twin_and_chains(cuda_device, refined, rows, n,
+                                               low):
+    """From a carried state (the exit of a first call), each stream kernel
+    equals its twin; two chained half calls equal one call, y and
+    state."""
+    x, secs = _sweep(rows, low, 2 * n, seed=5)
+    fn = (iir_kernels.lp24_refined_blockrate_stream if refined
+          else iir_kernels.lp24_blockrate_stream)
+    key = "lp24_refined_stream" if refined else "lp24_stream"
+    width = iir_kernels.STATE_ROWS[key]
+
+    def part(a, b, dev):
+        return (x[:, a:b].contiguous().to(dev),
+                [tuple(c[:, a // 64:b // 64].contiguous().to(dev)
+                       for c in s) for s in secs])
+
+    _, st0 = fn(*part(0, n, "cpu"), torch.zeros(rows, width))
+    before = iir_kernels.LAUNCHES[key]
+    y, st = fn(*part(n, 2 * n, cuda_device), st0.to(cuda_device))
+    torch.cuda.synchronize()
+    assert iir_kernels.LAUNCHES[key] == before + 1
+    y_cpu, st_cpu = fn(*part(n, 2 * n, "cpu"), st0)
+    assert torch.equal(y.cpu(), y_cpu) and torch.equal(st.cpu(), st_cpu)
+    h = n + n // 2
+    ya, sa = fn(*part(n, h, cuda_device), st0.to(cuda_device))
+    yb, sb = fn(*part(h, 2 * n, cuda_device), sa)
+    assert torch.equal(torch.cat([ya, yb], 1), y) and torch.equal(sb, st)
+
+
+def test_welsh_stream_on_card_equals_cpu(cuda_device):
+    """A 1 s Welsh analogue streamed in 4096-frame slices on the card: the
+    CPU twins' render bit for bit, and the card's one-segment render."""
+    compiled = compile_song(SongSettings.from_json(
+        synth.welsh_project(1, 240.0)), Paths(roots=[]))
+    sliced = type("Sliced", (StreamingRenderer,), {"WELSH_SLICED": True})
+    before = dict(iir_kernels.LAUNCHES)
+    r = sliced(compiled, cuda_device, segment_frames=4096)
+    on_card = r.render(quantize=True)
+    got = {k: iir_kernels.LAUNCHES[k] - before[k]
+           for k in ("lp24_stream", "lp24_refined_stream")}
+    assert got == r.planned_launches()
+    assert np.array_equal(on_card, sliced(compiled, "cpu", 4096).render(
+        quantize=True))
+    one = -(-compiled.n_frames // 64) * 64
+    assert np.array_equal(on_card, sliced(compiled, cuda_device, one).render(
+        quantize=True))

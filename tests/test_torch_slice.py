@@ -219,9 +219,12 @@ def test_port_imports_and_renders_without_jax(assets, tmp_path):
     """A process whose import system refuses jax and groove_tpu imports
     every module of groove_tpu_torch, renders the filter-bank analogue
     (about 1.3 s, every route of the effect filters) on the CPU and runs
-    the CLI to a WAV."""
+    the CLI to a WAV, then streams a 1 s Welsh analogue (sliced, on the
+    stream kernels' twins) through the CLI's --stream --sliced."""
     project = synth.write_project(tmp_path / "filter-bank.json",
                                   synth.filter_bank_project())
+    welsh = synth.write_project(tmp_path / "welsh.json",
+                                synth.welsh_project(1, 240.0))
     code = f"""
 import importlib, pkgutil, sys
 
@@ -251,6 +254,18 @@ assert cli.main([{str(project)!r}, "--wav", "--perf", "--device", "cpu",
 x, rate = read_wav({str(tmp_path / "out" / "filter-bank.wav")!r})
 assert rate == 44100 and x.shape == q.shape
 assert np.array_equal(np.round(x * 32768).astype(np.int16), q)
+from groove_tpu_torch.engine.stream import StreamingRenderer
+perf = []
+assert cli.main([{str(welsh)!r}, "--wav", "--stream", "--sliced",
+                 "--segment-frames", "4096", "--device", "cpu",
+                 "--out-dir", {str(tmp_path / "out")!r}], perf_out=perf) == 0
+assert perf[0]["stream"]["sliced"] == ["lead", "pad"]
+w, rate = read_wav({str(tmp_path / "out" / "welsh.wav")!r})
+S = type("S", (StreamingRenderer,), {{"WELSH_SLICED": True}})
+c = compile_song(SongSettings.from_project_file({str(welsh)!r}), Paths())
+qw = S(c, "cpu", 4096).render(quantize=True)
+assert w.shape == qw.shape and np.abs(qw).max() > 1000
+assert np.array_equal(np.round(w * 32768).astype(np.int16), qw)
 assert not [m for m in sys.modules
             if m.split(".")[0] in ("jax", "jaxlib", "groove_tpu")]
 print("JAX-FREE OK", q.shape)
@@ -365,7 +380,7 @@ def test_unported_parts_raise(assets, case):
         Renderer(compile_song(song, Paths(roots=[assets])), "cpu").render()
 
 
-@pytest.mark.parametrize("flag", [["--stream"], ["--loop", "0", "4"],
+@pytest.mark.parametrize("flag", [["--play"], ["--loop", "0", "4"],
                                   ["-q"], ["--mesh"]])
 def test_cli_refuses_unported_flags(flag):
     with pytest.raises(SystemExit, match="not ported yet"):
