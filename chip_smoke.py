@@ -4,7 +4,8 @@ sliced Welsh voices on one CUDA device, through the hand-written kernels
 K1 (drums), K2 (refined lp24), K3 (lp24, block-rate denominators), K6
 (lp24, per-sample or static denominators), K4/K5/K9 (one biquad section
 with block-rate, static or per-sample coefficients), the serial scan, and
-K7/K8 (K3/K2 with carried state: the sliced Welsh cascades).
+K7/K8 (K3/K2 with carried state: the sliced Welsh cascades, one launch of
+csrc/lp24_stream.cu per call).
 
     python3 chip_smoke.py
 
@@ -19,8 +20,16 @@ Phases, one JSON line each:
      the 3-minute songs' shapes, beside its bound. K7 and K8 are held
      to their twins on the inputs the sliced Welsh render gives them (one
      4096-frame segment of the 10-second Welsh analogue, with the carried
-     state of that segment) and at [64, 65536] from a carried state, and
-     two chained half calls must equal one call (y and state);
+     state of that segment), at [64, 65536] from a carried state and at
+     [12, 2 tiles + 192] (many shared-memory tiles, the last one short,
+     row-broadcast coefficients), and two chained half calls must equal
+     one call (y and state). At each of these shapes the one-launch kernel
+     is also timed in turns with the earlier multi-launch route
+     (ms, earlier_ms; they must agree bit for bit), beside the time of an
+     empty kernel launched the same way (launch_floor_ms) and the
+     kernel's device time (device_ms: a captured CUDA graph of 20 calls,
+     replayed); a captured graph of one call must replay to the eager
+     call's bits;
   4. the main path through the CLI (groove_tpu_torch.cli.main --wav
      --perf), each run with the launch counts set to 0 just before it and
      read just after: the 3-minute north-star analogue (K1 + K2), the same
@@ -94,9 +103,9 @@ KERNELS = {
                           "groove_tpu/ops/pallas_iir.py:513"),
     "biquad_serial": ("groove_tpu_torch/csrc/serial.cu",
                       "groove_tpu/ops/iir.py:213"),
-    "lp24_stream": ("groove_tpu_torch/csrc/lp24.cu",
+    "lp24_stream": ("groove_tpu_torch/csrc/lp24_stream.cu",
                     "groove_tpu/ops/pallas_iir.py:448"),
-    "lp24_refined_stream": ("groove_tpu_torch/csrc/lp24.cu",
+    "lp24_refined_stream": ("groove_tpu_torch/csrc/lp24_stream.cu",
                             "groove_tpu/ops/pallas_iir.py:1082"),
 }
 KIND = {"lp24_refined": "K2", "lp24": "K3", "lp24_cascade": "K6",
@@ -275,12 +284,64 @@ def stream_twin(key: str, x, sections, state):
     """The stream kernel's plain twin on the same (card) inputs."""
     from groove_tpu_torch.ops import iir_kernels
 
-    x2, den, st = iir_kernels._prepare_stream(
+    x2, den, st = iir_kernels.stream_args(
         x, sections, state, iir_kernels.STATE_ROWS[key])
     plain = (iir_kernels.lp24_refined_blockrate_stream_plain
              if key == "lp24_refined_stream"
              else iir_kernels.lp24_blockrate_stream_plain)
-    return plain(x2, *den, st)
+    return plain(x2, *(-d for d in den), st)
+
+
+def in_turns(fn_a, fn_b, reps: int) -> tuple:
+    """Median CUDA-event milliseconds of two functions timed in turns (a,
+    b, b, a; `reps` calls a turn) on the same card in the same run, and
+    their last results."""
+    ta1, out_a = cuda_ms(fn_a, reps)
+    tb1, out_b = cuda_ms(fn_b, reps)
+    tb2, _ = cuda_ms(fn_b, reps)
+    ta2, _ = cuda_ms(fn_a, reps)
+    return (ta1 + ta2) / 2.0, (tb1 + tb2) / 2.0, out_a, out_b
+
+
+GRAPH_CALLS = 20  # calls in the captured graph that times the device alone
+
+
+def stream_kernel_check(key: str, x, sections, state) -> dict:
+    """The one-launch stream kernel beside the earlier multi-launch route
+    on the same inputs: both timed in turns as whole wrapper calls, equal
+    bit for bit (y and state); an empty kernel launched the same way; a
+    captured CUDA graph of one call, replayed, equal to the eager call;
+    and the kernel's device time from a captured graph of GRAPH_CALLS
+    calls."""
+    import torch
+    from groove_tpu_torch.ops import iir_kernels
+
+    kern = getattr(iir_kernels, wrapper(key))
+    refined = key == "lp24_refined_stream"
+    ms, earlier_ms, new, old = in_turns(
+        lambda: kern(x, sections, state),
+        lambda: iir_kernels._stream_earlier(refined, x, sections, state), 20)
+    floor_ms, _ = cuda_ms(lambda: iir_kernels.launch_floor(x.device), 50)
+    one = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(one):
+        y_g, st_g = kern(x, sections, state)
+    y_g.zero_()
+    st_g.zero_()
+    one.replay()
+    torch.cuda.synchronize()
+    many = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(many):
+        for _ in range(GRAPH_CALLS):
+            kern(x, sections, state)
+    graph_ms, _ = cuda_ms(many.replay, 10)
+    return {"name": key, "shape": list(x.shape), "ms": ms,
+            "earlier_ms": earlier_ms, "launch_floor_ms": floor_ms,
+            "device_ms": graph_ms / GRAPH_CALLS,
+            "equals_earlier_route": all(
+                torch.equal(a, b) for a, b in zip(new, old)),
+            "graph_replay_equals_eager": bool(
+                torch.equal(y_g, new[0]) and torch.equal(st_g, new[1])),
+            **bounds(*iir_call_work(key, x, sections))}
 
 
 def chains(key: str, x, sections, state) -> bool:
@@ -501,16 +562,26 @@ def main() -> int:
                                lambda p=plain, c=co: p(xw, c),
                                xw.abs().max(), iir_call_work(name, xw, co)))
     # K7 and K8 at [64, 65536] from the state a first call carries out
+    # and at [12, 2 tiles + 192]: many shared-memory tiles, the last one
+    # short, the coefficients still the row-broadcast (stride 0) views
     chained = {}
+    beside_earlier = []
+    tiles_n = 2 * iir_kernels.STREAM_TILE + 192
+    xt = xg[:12, :tiles_n].contiguous()
+    st_t = [tuple(c[:12, :tiles_n // 64] for c in sec) for sec in sw]
     for key in STREAM_KERNELS:
         kern = getattr(iir_kernels, wrapper(key))
         zero = torch.zeros((rows, iir_kernels.STATE_ROWS[key]), device=dev)
         _, st_w = kern(xg, sw, zero)
-        results.append(compare(key, lambda k=kern, s=st_w: k(xg, sw, s),
-                               lambda k=key, s=st_w: stream_twin(k, xg, sw,
-                                                                 s),
-                               xg.abs().max(), iir_call_work(key, xg, sw)))
+        carried = st_w[:12].contiguous()
+        for a, co, st in ((xg, sw, st_w), (xt, st_t, carried)):
+            results.append(compare(
+                key, lambda k=kern, v=(a, co, st): k(*v),
+                lambda k=key, v=(a, co, st): stream_twin(k, *v),
+                a.abs().max(), iir_call_work(key, a, co)))
+            beside_earlier.append(stream_kernel_check(key, a, co, st))
         chained[(key, tuple(xg.shape))] = chains(key, xg, sw, st_w)
+    del xt, st_t
     del xw, xg, xw2, denw, sw, wide
 
     # K7 and K8 on the sliced Welsh render's own inputs: segment WELSH_AT
@@ -530,7 +601,14 @@ def main() -> int:
             lambda k=key, a=(x, secs, st): stream_twin(k, *a),
             x.abs().max(), iir_call_work(key, x, secs)))
         chained[(key, tuple(x.shape))] = chains(key, x, secs, st)
+        beside_earlier.insert(0, stream_kernel_check(key, x, secs, st))
     del cap, x, secs, st
+    for res in beside_earlier:
+        emit("stream_kernel_vs_earlier_route", **res)
+        require(res["equals_earlier_route"], f"{res['name']} differs from "
+                f"the earlier route at {res['shape']}")
+        require(res["graph_replay_equals_eager"], f"{res['name']}: a "
+                f"captured graph's replay differs at {res['shape']}")
     for (key, shape), ok in chained.items():
         emit("chained_calls", name=key, shape=list(shape), equal_to_one_call=ok)
         require(ok, f"{key}: chained half calls differ from one call at "
@@ -655,10 +733,12 @@ def main() -> int:
     # K7 and K8 alone on the inputs of one of its segments
     for key in STREAM_KERNELS:
         x, secs, st = cap.args[key]
-        kern = getattr(iir_kernels, wrapper(key))
-        ms, _ = cuda_ms(lambda k=kern, a=(x, secs, st): k(*a), 20)
-        emit("kernel_at_song_size", name=key, frames=x.shape[-1],
-             rows=x.shape[0], ms=ms, **bounds(*iir_call_work(key, x, secs)))
+        res = stream_kernel_check(key, x, secs, st)
+        emit("kernel_at_song_size", frames=x.shape[-1], rows=x.shape[0],
+             **res)
+        require(res["equals_earlier_route"]
+                and res["graph_replay_equals_eager"],
+                f"{key} on the 3-minute song's segment: {res}")
     del cap, x, secs, st
 
     # ---- 5. outputs: right shape, audible, equal to the twins' render -----

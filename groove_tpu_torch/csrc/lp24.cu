@@ -1,26 +1,24 @@
 // lp24 cascade kernels for Hopper (sm_90a): K3, the single-pass cascade
 // with block-rate denominators; K2, the same cascade with its
 // defect-correction ("refine") pass; K6, the single-pass cascade with
-// per-sample (or static, by-value) denominators; K7 and K8, K3 and K2 with
-// their state carried from call to call (the sliced Welsh voices of the
-// streaming renderer).
+// per-sample (or static, by-value) denominators. The stream kernels K7 and
+// K8 (K3 and K2 with their state carried from call to call) live in
+// lp24_stream.cu, one launch per call; their earlier route through this
+// file's kernels (state_in/state_out below) stays callable as the yardstick
+// that the new kernel is timed and compared against, on no render path.
 //
 // Replaces groove_tpu/ops/pallas_iir.py:
 //   K3  _make_kernel_lp24_blk (pallas_call in _lp24_blk_2d)
 //   K2  _make_kernel_lp24_refined_blk, state_io=False (pallas_call in
 //       _lp24_refined_blk_2d)
 //   K6  _make_kernel_lp24 (pallas_call in _lp24_2d)
-//   K7  _make_kernel_lp24_blk_state (pallas_call in _lp24_blk_state_2d)
-//   K8  _make_kernel_lp24_refined_blk, state_io=True (pallas_call in
-//       _lp24_refined_blk_state_2d)
-// K7 and K8 are K3 and K2 with ln pinned to 64 (so that chained calls are
-// bitwise one long call) and a State: each phase-2 chain starts from the
-// carried pair and exports its exit (tdf2::Carry), and K8's defect reads
-// the previous call's z, y0 and coefficient edges before sample 0 (History)
-// and exports its own (edges_kernel). n is a multiple of 64, so there is no
-// padded block and the exit is the last real block's; the TPU kernels'
-// last_lane bookkeeping belongs to their chunk layout and has no
-// counterpart here.
+// The earlier stateful route is K3 and K2 with ln pinned to 64 (so that
+// chained calls are bitwise one long call) and a State: each phase-2 chain
+// starts from the carried pair and exports its exit (tdf2::Carry), and the
+// refined cascade's defect reads the previous call's z, y0 and coefficient
+// edges before sample 0 (History) and exports its own (edges_kernel). n is
+// a multiple of 64, so there is no padded block and the exit is the last
+// real block's.
 // K6 is K3 with the denominators read per sample (tdf2::kSample, through
 // strides, so the static cascade's broadcast scalars are never
 // materialised) or passed by value (tdf2::kScalar), and its in-block
@@ -78,10 +76,7 @@ __global__ void corr_phase1_kernel(const float* __restrict__ d, Coef na1,
     int64_t k = blk * ln + j;
     float a = at<kBlock>(na1, l, row, k);
     float b = at<kBlock>(na2, l, row, k);
-    float dj = d[i];
-    float r1 = __fmaf_rn(a, R1, R2) + a * dj;
-    float r2 = __fmaf_rn(b, R1, b * dj);
-    R1 = r1; R2 = r2;
+    tdf2::corr_step(a, b, d[i], R1, R2);
   }
   c[t * 2 + 0] = R1;
   c[t * 2 + 1] = R2;
@@ -116,8 +111,8 @@ __global__ void combine_kernel(const float* __restrict__ z,
   out[row * out_stride + k] = z[i] + v;
 }
 
-// The history before sample 0 of one section, as the stream kernel K8
-// carries it (rows 4-9 of the section's state, ops/iir_kernels.py
+// The history before sample 0 of one section, as the refined stream
+// cascade carries it (rows 4-9 of the section's state, ops/iir_kernels.py
 // STATE_ROWS): z and the solve's y0 at lags 1 and 2, and the previous
 // call's last na1 and na2. Null: zero history (K2).
 struct History {
@@ -129,12 +124,8 @@ __device__ __forceinline__ float hist(History h, int64_t row, int j) {
   return h.p != nullptr ? h.p[row * h.stride + j] : 0.0f;
 }
 
-// Defect of the solve y0 against the shifted-coefficient TDF2 recurrence of
-// the (1, 2, 1) section, epsilon-regrouped (ops/iir.py
-// biquad_blockrate_refined in the reference):
-//   d = (z + 2 z1 + z2) - ((y0 - y1) - (y1 - y2)) - e1 y1 - e2 y2,
-//   e1 = 2 - na1[(i-1) >> 6], e2 = -na2[(i-2) >> 6] - 1,
-// with the carried history `h` before sample 0.
+// Defect of the solve y0 (tdf2::lp24_defect), elementwise, with the carried
+// history `h` before sample 0.
 __global__ void defect_kernel(const float* __restrict__ z,
                               const float* __restrict__ y0, Coef na1,
                               Coef na2, Layout l, History h,
@@ -151,13 +142,10 @@ __global__ void defect_kernel(const float* __restrict__ z,
   float y2 = k >= 2 ? y0[i - 2] : (k == 1 ? hist(h, row, 2) : hist(h, row, 3));
   float a1s = k >= 1 ? at<kBlock>(na1, l, row, k - 1) : hist(h, row, 4);
   float a2s = k >= 2 ? at<kBlock>(na2, l, row, k - 2) : hist(h, row, 5);
-  float e1 = 2.0f - a1s;
-  float e2 = -a2s - 1.0f;
-  float second = (y00 - y1) - (y1 - y2);
-  d[i] = (z0 + 2.0f * z1 + z2) - second - e1 * y1 - e2 * y2;
+  d[i] = tdf2::lp24_defect(z0, z1, z2, y00, y1, y2, a1s, a2s);
 }
 
-// K8's edge export, one thread per row: the section input z and solve y0
+// The refined stateful route's edge export, one thread per row: the section input z and solve y0
 // at the last two samples and the last block's na1, na2 go to
 // out[row * stride + 0..5] (the History the next call reads).
 __global__ void edges_kernel(const float* __restrict__ z,
@@ -177,14 +165,14 @@ __global__ void edges_kernel(const float* __restrict__ z,
   o[5] = at<kBlock>(na2, l, row, npad - 1);
 }
 
-// Carried state of the stream kernels, row offsets within a state row
-// (ops/iir_kernels.py STATE_ROWS): K7 [B, 4] holds each section's solve
-// pair at 2 * sec; K8 [B, 20] holds per section, at base 10 * sec, the
+// Carried state of the stateful route, row offsets within a state row
+// (ops/iir_kernels.py STATE_ROWS): [B, 4] holds each section's solve pair
+// at 2 * sec; the refined [B, 20] holds per section, at base 10 * sec, the
 // solve pair (+0), the correction pair (+2) and the History (+4..+9).
 struct State {
   const float* in;   // null: zero state, no export (K2, K3, K6)
   float* out;
-  int64_t stride;    // 4 (K7) or 20 (K8)
+  int64_t stride;    // 4 (single pass) or 20 (refined)
 };
 
 template <int M>
@@ -246,8 +234,8 @@ void cascade(bool refined, const float* x, const Coef* na1s,
 // read in `mode` (tdf2::Mode): kScalar takes the values v1a, v2a, v1b, v2b;
 // kBlock and kSample take the arrays, all four indexed by one layout (row
 // stride rs, entry stride ts, count entries per row). refined (K2, K8)
-// needs kBlock. state_in/state_out: null for the stateless kernels; for
-// the stream kernels K7 (refined = 0) and K8 (refined = 1) the carried
+// needs kBlock. state_in/state_out: null for K2, K3 and K6; for the
+// earlier route of the stream cascades (refined = 0 or 1) the carried
 // state [B, 4] or [B, 20] entering and leaving the call (distinct buffers;
 // the caller pins ln = 64 and n = npad, a multiple of 64, so the exit is
 // the last real block's). Scratch, all allocated by the caller: p11, p12,

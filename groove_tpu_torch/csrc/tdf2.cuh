@@ -1,13 +1,20 @@
 // Shared pieces of the two-level TDF2 scan for Hopper (sm_90a), used by
-// lp24.cu (K2, K3, K6, K7, K8), biquad.cu (K4, K5, K9) and serial.cu.
+// lp24.cu (K2, K3, K6), lp24_stream.cu (K7, K8), biquad.cu (K4, K5, K9)
+// and serial.cu.
 //
 // Every kernel of groove_tpu/ops/pallas_iir.py runs one algorithm per
 // section: phase 1, in-block prefix affine maps (a serial scan over ln
 // samples per block); phase 2, the serial cross-block chain of the block
 // maps; then an elementwise combine. This header holds what the sections
-// share: how a coefficient is read, the in-block recurrence step (with its
-// one explicit __fmaf_rn per map entry, mirrored by fma32 in the plain
-// twins of ops/iir_kernels.py), the phase-1 kernel and the phase-2 chain.
+// share: how a coefficient is read, the in-block recurrence steps of the
+// solve and of the refined cascades' correction (`step` = `step_p` twice
+// and `step_q`, `corr_step`: one
+// explicit __fmaf_rn per map entry, mirrored by fma32 in the plain twins of
+// ops/iir_kernels.py), the refined cascades' defect (`lp24_defect`), the
+// phase-1 kernel and the phase-2 chain. The device functions are the only
+// copy of that arithmetic: the multi-launch kernels here and in lp24.cu and
+// the one-launch stream kernel of lp24_stream.cu all call them, so they
+// cannot drift apart.
 //
 // Coefficients come in three modes, the reference's three kernel families:
 //   kScalar  one value per call, passed by value (_biquad_scalar_2d's SMEM
@@ -59,6 +66,58 @@ inline unsigned grid_for(int64_t n) {
   return (unsigned)((n + kThreads - 1) / kThreads);
 }
 
+// One sample of a section's in-block prefix scan: the 2x2 map P and the
+// offset Q advance by the sample's negated denominators a = -a1, b = -a2
+// and its numerator terms c1 = b1m x, c2 = b2m x. The map's two columns
+// and the offset are three independent recurrences (step_p twice, step_q),
+// which a kernel may give to different threads.
+__device__ __forceinline__ void step_p(float a, float b, float& P1,
+                                       float& P2) {
+  float n1 = __fmaf_rn(a, P1, P2);
+  float n2 = b * P1;
+  P1 = n1; P2 = n2;
+}
+
+__device__ __forceinline__ void step_q(float a, float b, float c1, float c2,
+                                       float& Q1, float& Q2) {
+  float r1 = __fmaf_rn(a, Q1, Q2) + c1;
+  float r2 = __fmaf_rn(b, Q1, c2);
+  Q1 = r1; Q2 = r2;
+}
+
+__device__ __forceinline__ void step(float a, float b, float c1, float c2,
+                                     float& P11, float& P12, float& P21,
+                                     float& P22, float& Q1, float& Q2) {
+  step_p(a, b, P11, P21);
+  step_p(a, b, P12, P22);
+  step_q(a, b, c1, c2, Q1, Q2);
+}
+
+// One sample of the correction's r-only scan (numerator (1, 0, 0) on the
+// defect dj; the maps are the solve's).
+__device__ __forceinline__ void corr_step(float a, float b, float dj,
+                                          float& R1, float& R2) {
+  float r1 = __fmaf_rn(a, R1, R2) + a * dj;
+  float r2 = __fmaf_rn(b, R1, b * dj);
+  R1 = r1; R2 = r2;
+}
+
+// Defect of the solve y0 against the shifted-coefficient TDF2 recurrence of
+// a (1, 2, 1) section, epsilon-regrouped (ops/iir.py
+// biquad_blockrate_refined in the reference):
+//   d = (z + 2 z1 + z2) - ((y0 - y1) - (y1 - y2)) - e1 y1 - e2 y2,
+//   e1 = 2 - na1[(i-1) >> 6], e2 = -na2[(i-2) >> 6] - 1.
+// z1, z2, y1, y2: the section input and the solve at lags 1 and 2; a1s,
+// a2s: the negated denominators at those shifted positions.
+__device__ __forceinline__ float lp24_defect(float z0, float z1, float z2,
+                                             float y00, float y1, float y2,
+                                             float a1s, float a2s) {
+  float e1 = 2.0f - a1s;
+  float e2 = -a2s - 1.0f;
+  float second = (y00 - y1) - (y1 - y2);
+  return (z0 + 2.0f * z1 + z2) - second - e1 * y1 - e2 * y2;
+}
+
 namespace {
 
 // Phase 1 of one section. z, p11, p12, q1: [B, npad]; m: [B, nb, 4]
@@ -93,13 +152,7 @@ __global__ void phase1_kernel(const float* __restrict__ z, Coef na1, Coef na2,
     float xj = z[i];
     float c1 = (kLp24 ? 2.0f + a : at<M>(b1m, l, row, k)) * xj;
     float c2 = (kLp24 ? 1.0f + b : at<M>(b2m, l, row, k)) * xj;
-    float n11 = __fmaf_rn(a, P11, P21);
-    float n12 = __fmaf_rn(a, P12, P22);
-    float n21 = b * P11;
-    float n22 = b * P12;
-    float r1 = __fmaf_rn(a, Q1, Q2) + c1;
-    float r2 = __fmaf_rn(b, Q1, c2);
-    P11 = n11; P12 = n12; P21 = n21; P22 = n22; Q1 = r1; Q2 = r2;
+    step(a, b, c1, c2, P11, P12, P21, P22, Q1, Q2);
   }
   m[t * 4 + 0] = P11;
   m[t * 4 + 1] = P12;
@@ -111,8 +164,9 @@ __global__ void phase1_kernel(const float* __restrict__ z, Coef na1, Coef na2,
 
 }  // namespace
 
-// A chain's state carried across calls (the stateful stream kernels K7 and
-// K8): the pair entering block 0 is read from in[row * stride + {0, 1}]
+// A chain's state carried across calls (the earlier, multi-launch route of
+// the stateful cascades, kept beside lp24_stream.cu's kernel as its
+// yardstick): the pair entering block 0 is read from in[row * stride + {0, 1}]
 // (zeros when in is null) and the pair leaving the last block is written
 // to out[row * stride + {0, 1}] (skipped when out is null).
 struct Carry {

@@ -37,6 +37,9 @@ _F = ctypes.c_float
 SIGNATURES = {
     "lp24_cascade": ([_I, _I] + [_P] * 5 + [_F] * 4 + [_I64] * 3 + [_P] * 12
                      + [_I, _I64, _I64, _I, _P]),
+    "lp24_stream_init": [_I, _I],
+    "lp24_stream": [_I] + [_P] * 5 + [_I64] * 8 + [_P] * 3 + [_I, _I64, _P],
+    "launch_floor": [_P],
     "biquad_scan": ([_I] + [_P] * 6 + [_F] * 5 + [_I64] * 3 + [_P] * 7
                     + [_I, _I64, _I64, _I, _P]),
     "biquad_serial_scan": ([_I] + [_P] * 6 + [_F] * 5 + [_I64] * 3 + [_P]
@@ -111,14 +114,22 @@ def build() -> dict:
 
 
 def library() -> ctypes.CDLL:
-    """The loaded kernel library (built on first use)."""
+    """The loaded kernel library (built on first use). Loading it allows
+    the stream kernels their dynamic shared memory, once, so that no call
+    has to (csrc/lp24_stream.cu lp24_stream_init)."""
     global _lib
     if _lib is None:
+        from groove_tpu_torch.ops.iir_kernels import stream_smem_bytes
+
         lib = ctypes.CDLL(build()["path"])
         for name, argtypes in SIGNATURES.items():
             fn = getattr(lib, name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
+        err = lib.lp24_stream_init(stream_smem_bytes(False),
+                                   stream_smem_bytes(True))
+        if err:
+            raise RuntimeError(f"lp24_stream_init failed: CUDA error {err}")
         _lib = lib
     return _lib
 

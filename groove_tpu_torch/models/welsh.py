@@ -708,19 +708,16 @@ def render_notes_slice_pre(
 def cascade_slices(y, secs_b, fstate: dict, fidelity, cblock: int = 64):
     """The sliced cascade stage over a row batch [n, S] on the stream
     kernels: 'p20' state -> K8 (refined), 'p4' -> K7 (the key set decides,
-    per slice_state_init). Returns (y, new_state)."""
-    n, S = y.shape
-    nb_seg = S // cblock
-    secs_full = tuple(
-        tuple(_f32(c, y.device).expand(n, nb_seg) for c in sec)
-        for sec in secs_b)
+    per slice_state_init). secs_b goes to the wrappers as it is:
+    render_notes_slice_pre made it float32 [n, S / 64] on y's device, and
+    the wrappers cast or expand only what is not. Returns (y, new_state)."""
     new_state = dict(fstate)
     if "p20" in fstate:
         y, new_state["p20"] = iir_kernels.lp24_refined_blockrate_stream(
-            y, secs_full, fstate["p20"])
+            y, secs_b, fstate["p20"])
     elif "p4" in fstate:
         y, new_state["p4"] = iir_kernels.lp24_blockrate_stream(
-            y, secs_full, fstate["p4"])
+            y, secs_b, fstate["p4"])
     else:
         raise ValueError(f"unknown sliced cascade state {sorted(fstate)}")
     return y, new_state

@@ -3,7 +3,9 @@ groove_tpu/ops/pallas_iir.py), and the pieces every TDF2 kernel twin
 shares (ops/biquad_kernels.py uses them too). K7 and K8 are K3 and K2
 with their state carried from call to call (STATE_ROWS): ln is pinned to
 64 and n must be a multiple of 64, so that chained calls are bitwise one
-long call.
+long call. On a card each is one launch of csrc/lp24_stream.cu, which
+walks a row in shared-memory tiles (chained calls that never leave the
+SM); their wrappers check, allocate the two outputs and launch.
 
 The cascade is two TDF2 sections with numerators (1, 2, 1). K3 and K2
 hold the denominators for each 64-frame control block; K6 reads them per
@@ -24,7 +26,8 @@ form, and an r-only correction scan that reuses the solve's p11/p12.
 
 Each kernel has its plain torch twin here, written in the same operation
 order: the CPU runs the twin, a CUDA tensor runs the kernel
-(csrc/lp24.cu, csrc/tdf2.cuh), and LAUNCHES counts kernel launches. Every
+(csrc/lp24.cu, csrc/lp24_stream.cu, csrc/tdf2.cuh), and LAUNCHES counts
+kernel launches. Every
 multiply and add rounds separately except the in-block scans'
 recurrences, which use one correctly rounded fused multiply-add per map
 entry (fma32 here, __fmaf_rn in the kernel): near z = 1 the unfused
@@ -147,8 +150,18 @@ def ptr(t) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr() if t is not None else 0)
 
 
+def raw_stream(device: torch.device) -> int:
+    """The handle of `device`'s current CUDA stream, without building a
+    torch.cuda.Stream object around it (a stream kernel's call is a few
+    tens of microseconds of host work in all)."""
+    index = device.index
+    if index is None:
+        index = torch.cuda.current_device()
+    return torch._C._cuda_getCurrentRawStream(index)
+
+
 def stream_of(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+    return ctypes.c_void_p(raw_stream(t.device))
 
 
 def check_input(x2: torch.Tensor, what: str) -> None:
@@ -318,28 +331,96 @@ def _launch(refined: bool, x2: torch.Tensor, st: Streams, ln: int,
 # state moves between the packages unchanged.
 STATE_ROWS = {"lp24_stream": 4, "lp24_refined_stream": 20}
 
+# csrc/lp24_stream.cu walks a row in tiles of STREAM_TILE frames that live
+# in shared memory, each stored with one pad word per control block.
+STREAM_TILE = 4096
 
-def _prepare_stream(x: torch.Tensor, sections_b, state, rows: int):
+
+def stream_smem_bytes(refined: bool) -> int:
+    """Dynamic shared memory of one block of the stream kernel: 5 padded
+    tiles for K7 (two x buffers, p11, p12, q1), 7 for K8 (y0 and d too),
+    then a tile's block maps (M 4, C 2, S 2 words per control block), two
+    buffers of the four denominators, and 32 words for the state. The
+    loader hands these numbers to the library, which refuses any other."""
+    blocks = STREAM_TILE // CBLOCK
+    words = ((7 if refined else 5) * (STREAM_TILE + blocks) + 8 * blocks
+             + 2 * 4 * blocks + 32)
+    return 4 * words
+
+
+def stream_args(x: torch.Tensor, sections_b, state, rows: int):
+    """What a stream kernel call needs, from what the wrappers are given:
+    x as contiguous [B, n], the POSITIVE denominators (a1a, a2a, a1b, a2b)
+    as float32 [B, n / 64] views of whatever strides (the kernel reads
+    each through its own; a row broadcast stays stride 0), and the state
+    as contiguous float32 [B, rows]. Device-independent, and free for the
+    arguments the sliced render passes (contiguous float32 tensors of
+    those shapes on x's device): every torch operation here is behind a
+    check that found it necessary."""
+    f32, dev = torch.float32, x.device
+    if x.dtype != f32:
+        raise TypeError(f"lp24 kernels take float32, got {x.dtype}")
     n = x.shape[-1]
     if n % CBLOCK or n == 0:
         raise ValueError(
             f"stateful stream kernel needs n % {CBLOCK} == 0, got {n} "
             "(exported state would include padded samples)")
-    x2, den = _prepare(x, sections_b, CBLOCK)
-    st = torch.as_tensor(state).to(device=x.device, dtype=torch.float32)
-    st = st.reshape(x2.shape[0], rows).contiguous()
+    x2 = x if x.dim() == 2 else x.reshape(-1, n)
+    if not x2.is_contiguous():
+        x2 = x2.contiguous()
+    want = (x2.shape[0], n // CBLOCK)
+    den = []
+    for sec in sections_b:
+        for c in (sec[3], sec[4]):
+            if not (isinstance(c, torch.Tensor) and c.dtype == f32
+                    and c.device == dev):
+                c = as_f32(c, dev)
+            if c.shape != want:
+                c = c.expand(x.shape[:-1] + want[1:]).reshape(want)
+            den.append(c)
+    st = state
+    if not (isinstance(st, torch.Tensor) and st.dtype == f32
+            and st.device == dev):
+        st = torch.as_tensor(st).to(device=dev, dtype=f32)
+    if st.shape != (want[0], rows):
+        st = st.reshape(want[0], rows)
+    if not st.is_contiguous():
+        st = st.contiguous()
     return x2, den, st
+
+
+def _launch_stream(refined: bool, x2, den, st):
+    """One launch of csrc/lp24_stream.cu on prepared CUDA arguments: two
+    allocations (y and the exported state), no copy, no synchronisation,
+    so a call can be captured in a CUDA graph. Raises on a refused
+    launch."""
+    from groove_tpu_torch.kernels.build import library
+
+    y = torch.empty_like(x2)
+    st2 = torch.empty_like(st)
+    a1a, a2a, a1b, a2b = den
+    err = library().lp24_stream(
+        refined, x2.data_ptr(), a1a.data_ptr(), a2a.data_ptr(),
+        a1b.data_ptr(), a2b.data_ptr(), *a1a.stride(), *a2a.stride(),
+        *a1b.stride(), *a2b.stride(), st.data_ptr(), st2.data_ptr(),
+        y.data_ptr(), x2.shape[0], x2.shape[1], raw_stream(x2.device))
+    if err:
+        raise RuntimeError(
+            f"lp24 stream kernel launch failed: CUDA error {err}")
+    return y, st2
 
 
 def _stream(refined: bool, key: str, x, sections_b, state):
     rows = STATE_ROWS[key]
-    x2, den, st = _prepare_stream(x, sections_b, state, rows)
+    x2, den, st = stream_args(x, sections_b, state, rows)
     y, st2 = dispatch(
-        x2, lambda: _stream_plain(refined, x2, den, st),
-        lambda: _launch(refined, x2, Streams(BLOCK, list(den),
-                                             den[0].shape[1]), CBLOCK, st),
+        x2, lambda: _stream_plain(refined, x2, [-d for d in den], st),
+        lambda: _launch_stream(refined, x2, den, st),
         key, LAUNCHES, "lp24 stream kernel")
-    return y.reshape(x.shape), st2.reshape(x.shape[:-1] + (rows,))
+    if x.dim() != 2:
+        y = y.reshape(x.shape)
+        st2 = st2.reshape(x.shape[:-1] + (rows,))
+    return y, st2
 
 
 def lp24_blockrate_stream(x: torch.Tensor, sections_b,
@@ -359,6 +440,29 @@ def lp24_refined_blockrate_stream(x: torch.Tensor, sections_b,
     lp24_refined_blockrate_stream_pallas; zeros to start). Returns
     (y, state')."""
     return _stream(True, "lp24_refined_stream", x, sections_b, state)
+
+
+def _stream_earlier(refined: bool, x: torch.Tensor, sections_b, state):
+    """The stream cascades' earlier route on a card: csrc/lp24.cu's
+    multi-launch lp24_cascade with state_in/state_out, its negated
+    contiguous denominators and its scratch buffers. On no render path
+    and not counted: the yardstick csrc/lp24_stream.cu is timed and
+    compared against. Returns (y, state') as [B, n] and [B, rows]."""
+    x2, den, st = stream_args(x, sections_b, state, 20 if refined else 4)
+    neg = [(-d).contiguous() for d in den]
+    return _launch(refined, x2, Streams(BLOCK, neg, neg[0].shape[1]), CBLOCK,
+                   st)
+
+
+def launch_floor(device) -> None:
+    """Launch csrc/lp24_stream.cu's empty kernel on `device`'s current
+    stream, as the wrappers launch theirs: the floor under a one-launch
+    call's time."""
+    from groove_tpu_torch.kernels.build import library
+
+    err = library().launch_floor(raw_stream(torch.device(device)))
+    if err:
+        raise RuntimeError(f"empty kernel launch failed: CUDA error {err}")
 
 
 def _stream_plain(refined: bool, x2, den, state):

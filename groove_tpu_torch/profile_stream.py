@@ -7,17 +7,21 @@ measures at 120 bpm, sliced voices, 4096-frame segments, int16 fetch),
 skips the first `--skip` segments (warm-up: kernel build, allocator), and
 traces the next `--segments` with torch.profiler. Prints one JSON line:
 the traced wall time, the card's busy time (the union of its kernel and
-copy intervals), the idle share, the segments per second, and the device
-time by kernel name (top 12). Needs a CUDA device; exits non-zero without
-one.
+copy intervals), the idle share, the segments per second, the device
+time by kernel name (top 12), and the device time and launch count of
+this package's own kernels (csrc/, by name, whether or not they reach the
+top 12). Needs a CUDA device; exits non-zero without one.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import re
 import sys
 import time
+
+OWN_KERNEL = re.compile(r"(\w+_kernel(?:<[^()]*>)?)\(")
 
 
 def _union_us(intervals) -> float:
@@ -79,6 +83,14 @@ def main(argv=None) -> int:
         by_name[e.name] = by_name.get(e.name, 0.0) + (
             e.time_range.end - e.time_range.start)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
+    own = {}
+    for e in device_events:
+        found = None if "at::" in e.name else OWN_KERNEL.search(e.name)
+        if found:  # csrc/ kernels: tdf2:: or an anonymous namespace
+            ms, count = own.get(found.group(1), (0.0, 0))
+            own[found.group(1)] = (
+                ms + (e.time_range.end - e.time_range.start) / 1e3,
+                count + 1)
     print(json.dumps({
         "segments": a.segments, "segment_frames": r.S,
         "device": torch.cuda.get_device_name(0),
@@ -87,7 +99,8 @@ def main(argv=None) -> int:
         "idle_share": 1.0 - busy_us / (wall_s * 1e6),
         "segments_per_s": a.segments / wall_s,
         "device_events": len(device_events),
-        "top_kernels_ms": {k: v / 1e3 for k, v in top}}))
+        "top_kernels_ms": {k: v / 1e3 for k, v in top},
+        "own_kernels_ms_and_launches": own}))
     return 0 if device_events else 1
 
 

@@ -2,8 +2,11 @@
 a card, bit for bit: K1 (drums), K3 (lp24), K2 (refined lp24), K6 (lp24
 with per-sample or static denominators), K4/K5/K9 (one biquad section with
 block-rate, static or per-sample coefficients), the serial scan and the
-stream kernels K7/K8 (K3/K2 with carried state; chained calls equal one
-call), plus short renders of the slices and of a streamed Welsh song on
+stream kernels K7/K8 (K3/K2 with carried state, one launch of
+csrc/lp24_stream.cu per call: chained calls equal one call, many tiles
+with a short last one, strided coefficient views, the earlier multi-launch
+route, two allocations per call, a captured CUDA graph's replay), plus
+short renders of the slices and of a streamed Welsh song on
 the card against the same renders on the CPU.
 
 These tests need an NVIDIA GPU (marker `cuda`; they skip without one) and
@@ -241,6 +244,90 @@ def test_stream_kernel_matches_twin_and_chains(cuda_device, refined, rows, n,
     ya, sa = fn(*part(n, h, cuda_device), st0.to(cuda_device))
     yb, sb = fn(*part(h, 2 * n, cuda_device), sa)
     assert torch.equal(torch.cat([ya, yb], 1), y) and torch.equal(sb, st)
+
+
+def _stream_case(refined: bool, rows: int, n: int, low: float, device):
+    """(wrapper, key, x, sections, carried state) on `device`: the second
+    half of a 2n sweep with the state its first half leaves (CPU twins)."""
+    x, secs = _sweep(rows, low, 2 * n, seed=6)
+    fn = (iir_kernels.lp24_refined_blockrate_stream if refined
+          else iir_kernels.lp24_blockrate_stream)
+    key = "lp24_refined_stream" if refined else "lp24_stream"
+    cut = lambda a, b: [tuple(c[:, a // 64:b // 64].contiguous()  # noqa: E731
+                              for c in s) for s in secs]
+    _, st = fn(x[:, :n].contiguous(), cut(0, n),
+               torch.zeros(rows, iir_kernels.STATE_ROWS[key]))
+    assert float(st.abs().max()) > 0.0
+    return (fn, key, x[:, n:].contiguous().to(device),
+            [tuple(c.to(device) for c in s) for s in cut(n, 2 * n)],
+            st.to(device))
+
+
+TILE = iir_kernels.STREAM_TILE
+
+
+@pytest.mark.parametrize("refined", [False, True], ids=["K7", "K8"])
+@pytest.mark.parametrize("rows,n", [(12, 2 * TILE + 192), (5, 64),
+                                    (8, TILE), (3, 7 * TILE + 64)])
+def test_stream_kernel_tiles_match_twin_and_earlier_route(cuda_device,
+                                                          refined, rows, n):
+    """One launch walks the row in shared-memory tiles, the last one
+    short: equal to the CPU twin and to the earlier multi-launch route, y
+    and state, from a carried state."""
+    fn, key, x, secs, st = _stream_case(refined, rows, n, 40.0, cuda_device)
+    before = iir_kernels.LAUNCHES[key]
+    y, st2 = fn(x, secs, st)
+    torch.cuda.synchronize()
+    assert iir_kernels.LAUNCHES[key] == before + 1
+    y_cpu, st_cpu = fn(x.cpu(), [tuple(c.cpu() for c in s) for s in secs],
+                       st.cpu())
+    assert torch.equal(y.cpu(), y_cpu) and torch.equal(st2.cpu(), st_cpu)
+    y_old, st_old = iir_kernels._stream_earlier(refined, x, secs, st)
+    assert torch.equal(y, y_old) and torch.equal(st2, st_old)
+    assert iir_kernels.LAUNCHES[key] == before + 1
+
+
+@pytest.mark.parametrize("refined", [False, True], ids=["K7", "K8"])
+def test_stream_kernel_reads_strided_coefficients(cuda_device, refined):
+    """Row-broadcast (stride 0) and column-sliced coefficient views give
+    the bits of their contiguous copies; no copy is made for them."""
+    fn, _, x, secs, st = _stream_case(refined, 6, TILE + 128, 60.0,
+                                      cuda_device)
+    shared = [tuple(c[0] for c in s) for s in secs]  # one row for all
+    y, st2 = fn(x, [tuple(c.expand(6, -1) for c in s) for s in shared], st)
+    y_c, st_c = fn(x, [tuple(c.expand(6, -1).contiguous() for c in s)
+                       for s in shared], st)
+    assert torch.equal(y, y_c) and torch.equal(st2, st_c)
+    wide = [tuple(torch.cat([c, c], 1) for c in s) for s in secs]
+    nb = secs[0][0].shape[1]
+    y_s, st_s = fn(x, [tuple(c[:, nb:] for c in s) for s in wide], st)
+    y_w, st_w = fn(x, secs, st)
+    assert torch.equal(y_s, y_w) and torch.equal(st_s, st_w)
+
+
+@pytest.mark.parametrize("refined", [False, True], ids=["K7", "K8"])
+def test_stream_kernel_call_allocates_twice_and_replays(cuda_device,
+                                                        refined):
+    """A call on the render's kind of arguments makes two allocations (y
+    and the exported state) and can be captured in a CUDA graph: the
+    replay on new input bits equals the eager call."""
+    fn, _, x, secs, st = _stream_case(refined, 12, TILE, 120.0, cuda_device)
+    fn(x, secs, st)  # the library is loaded
+    torch.cuda.synchronize()
+    count = "allocation.all.allocated"
+    before = torch.cuda.memory_stats(cuda_device)[count]
+    y, st2 = fn(x, secs, st)
+    assert torch.cuda.memory_stats(cuda_device)[count] == before + 2
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        y_g, st_g = fn(x, secs, st)
+    x.mul_(0.5)
+    st.copy_(st2)
+    graph.replay()
+    torch.cuda.synchronize()
+    y_e, st_e = fn(x, secs, st)
+    assert torch.equal(y_g, y_e) and torch.equal(st_g, st_e)
+    assert not torch.equal(y_e, y)
 
 
 def test_welsh_stream_on_card_equals_cpu(cuda_device):
