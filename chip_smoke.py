@@ -29,7 +29,16 @@ Phases, one JSON line each:
      empty kernel launched the same way (launch_floor_ms) and the
      kernel's device time (device_ms: a captured CUDA graph of 20 calls,
      replayed); a captured graph of one call must replay to the eager
-     call's bits;
+     call's bits. K4 and K2 (csrc/tiled.cuh's shared-memory tiles) are held
+     bit for bit to their twins and to their earlier multi-launch routes
+     at the 10-second shape, at [64, 65536] and at [5, 32589] (n a
+     multiple neither of the in-block length nor of a tile, coefficients
+     broadcast through a zero stride), and timed in turns with the
+     earlier routes there and at the 3-minute size
+     (kernel_vs_earlier_route: ms, earlier_ms, device_ms), a captured
+     graph's replay equal to the eager call; the chain walker's cycles
+     per step come from an instrumented build
+     (groove_tpu_torch/kernels/stage_cycles.py) at the 3-minute size;
   4. the main path through the CLI (groove_tpu_torch.cli.main --wav
      --perf), each run with the launch counts set to 0 just before it and
      read just after: the 3-minute north-star analogue (K1 + K2), the same
@@ -198,7 +207,11 @@ def iir_work(kind: str, rows: int, n: int, coef_bytes: float,
     combine); per ln-block 8 in phase 2. A section's chain is 2 dependent
     operations per in-block step and 3 per phase-2 step; the serial
     scan's is 4 per sample (9 operations). K7 and K8 are K3 and K2 with
-    ln pinned to 64."""
+    ln pinned to 64. The other cascades count their sections' chains one
+    after the other; K2's four chains run as a wavefront along time
+    (chain j needs its predecessor only up to the block it has reached),
+    so its dependency chain is one chain of nb steps and the four
+    passes' in-block scans."""
     from groove_tpu_torch.ops.iir_kernels import CBLOCK, geometry
 
     io = 2.0 * rows * n * 4 + coef_bytes + 2.0 * rows * state_rows * 4
@@ -213,7 +226,8 @@ def iir_work(kind: str, rows: int, n: int, coef_bytes: float,
     passes = (2 if kind in ("K2", "K3", "K6", "K7", "K8") else 1) \
         * (2 if kind in ("K2", "K8") else 1)
     flops = rows * (per_sample * n + 8 * nb * passes)
-    return io, float(flops), float((2 * ln + 3 * nb) * passes)
+    chain = 2 * ln * passes + 3 * nb * (1 if kind == "K2" else passes)
+    return io, float(flops), float(chain)
 
 
 def coef_bytes(coefs) -> float:
@@ -342,6 +356,47 @@ def stream_kernel_check(key: str, x, sections, state) -> dict:
             "graph_replay_equals_eager": bool(
                 torch.equal(y_g, new[0]) and torch.equal(st_g, new[1])),
             **bounds(*iir_call_work(key, x, sections))}
+
+
+TILED = {"biquad_blockrate": "K4", "lp24_refined": "K2"}
+ODD = (5, 2 * 127 * 128 + 77)  # rows, n: no multiple of 128 nor of a tile
+
+
+def tiled_kernel_check(name: str, x, coefs) -> dict:
+    """K4 or K2 beside its earlier multi-launch route on the same inputs:
+    both timed in turns as whole wrapper calls, equal bit for bit; a
+    captured CUDA graph of one call, replayed on a changed input, equal to
+    the eager call; the kernels' device time from a captured graph of
+    GRAPH_CALLS calls."""
+    import torch
+    from groove_tpu_torch.ops import biquad_kernels as bk
+    from groove_tpu_torch.ops import iir_kernels
+
+    kern, earlier = {
+        "biquad_blockrate": (bk.biquad_blockrate, bk._blockrate_earlier),
+        "lp24_refined": (iir_kernels.lp24_refined_blockrate,
+                         iir_kernels._refined_earlier)}[name]
+    ms, earlier_ms, new, old = in_turns(lambda: kern(x, coefs),
+                                        lambda: earlier(x, coefs), 10)
+    xg = x.clone()
+    one = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(one):
+        y_g = kern(xg, coefs)
+    xg.mul_(0.5)
+    one.replay()
+    torch.cuda.synchronize()
+    y_half = kern(xg, coefs)
+    many = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(many):
+        for _ in range(GRAPH_CALLS):
+            kern(x, coefs)
+    graph_ms, _ = cuda_ms(many.replay, 5)
+    return {"name": name, "shape": list(x.shape), "ms": ms,
+            "earlier_ms": earlier_ms, "device_ms": graph_ms / GRAPH_CALLS,
+            "equals_earlier_route": bool(torch.equal(new, old)),
+            "graph_replay_equals_eager": bool(
+                torch.equal(y_g, y_half) and not torch.equal(y_half, new)),
+            **bounds(*iir_call_work(name, x, coefs))}
 
 
 def chains(key: str, x, sections, state) -> bool:
@@ -527,6 +582,10 @@ def main() -> int:
         "biquad_blockrate", lambda: bk.biquad_blockrate(bus_b, held),
         lambda: bk.biquad_blockrate_plain(bus_b, held), bus_b.abs().max(),
         iir_call_work("biquad_blockrate", bus_b, held)))
+    tiled_checks = [
+        tiled_kernel_check("lp24_refined", x, secs),
+        tiled_kernel_check("biquad_blockrate", bus_b, bank_calls(
+            rb, bus_b)["biquad_blockrate"][3])]
     del r, rb, hits, bus, bus_b, x, secs, x2, den, held
 
     # [64, 65536]: many rows through sweeps that rest near 25 Hz
@@ -561,6 +620,29 @@ def main() -> int:
         results.append(compare(name, lambda k=kern, c=co: k(xw, c),
                                lambda p=plain, c=co: p(xw, c),
                                xw.abs().max(), iir_call_work(name, xw, co)))
+    # K4 and K2 beside their earlier routes at [64, 65536], and at ODD with
+    # the row-broadcast (stride 0) coefficient views
+    orows, on = ODD
+    xo = xg[:orows, :on].contiguous()
+    so = [tuple(c[:orows, :-(-on // 64)] for c in sec) for sec in sw]
+    co = tuple(c[:orows, :-(-on // 64)] for c in wide[0][3])
+    require(so[0][3].stride(0) == 0 and co[0].stride(0) == 0,
+            "the odd shape's coefficients are not broadcast views")
+    xo2, deno = iir_kernels._prepare(xo, so, 64)
+    results.append(compare(
+        "lp24_refined", lambda: iir_kernels.lp24_refined_blockrate(xo, so),
+        lambda: iir_kernels.lp24_refined_blockrate_plain(xo2, *deno),
+        xo.abs().max(), iir_call_work("lp24_refined", xo, so)))
+    results.append(compare(
+        "biquad_blockrate", lambda: bk.biquad_blockrate(xo, co),
+        lambda: bk.biquad_blockrate_plain(xo, co), xo.abs().max(),
+        iir_call_work("biquad_blockrate", xo, co)))
+    tiled_checks += [
+        tiled_kernel_check("lp24_refined", xg, sw),
+        tiled_kernel_check("biquad_blockrate", xw, wide[0][3]),
+        tiled_kernel_check("lp24_refined", xo, so),
+        tiled_kernel_check("biquad_blockrate", xo, co)]
+    del xo, so, co, xo2, deno
     # K7 and K8 at [64, 65536] from the state a first call carries out
     # and at [12, 2 tiles + 192]: many shared-memory tiles, the last one
     # short, the coefficients still the row-broadcast (stride 0) views
@@ -641,7 +723,29 @@ def main() -> int:
     for name, fn, wk in alone:
         ms, _ = cuda_ms(fn, 5)
         emit("kernel_at_song_size", name=name, frames=n, ms=ms, **bounds(*wk))
+    tiled_checks += [
+        tiled_kernel_check("lp24_refined", x, secs),
+        tiled_kernel_check("biquad_blockrate", bus_b, bank_calls(
+            rb, bus_b)["biquad_blockrate"][3])]
     del r, rb, hits, bus, bus_b, x, secs, alone
+    for res in tiled_checks:
+        emit("kernel_vs_earlier_route", kind=TILED[res["name"]], **res)
+        require(res["equals_earlier_route"], f"{res['name']} differs from "
+                f"its earlier route at {res['shape']}")
+        require(res["graph_replay_equals_eager"], f"{res['name']}: a "
+                f"captured graph's replay differs at {res['shape']}")
+    # the chain walker's cycles per step and a tile's cycles by stage, from
+    # an instrumented build, at the 3-minute size
+    from groove_tpu_torch.kernels import stage_cycles
+    prof_dir = build.BUILD_DIR / "stage_cycles"
+    prof_dir.mkdir(parents=True, exist_ok=True)
+    prof = stage_cycles.build_tiled_profile(prof_dir)
+    for kind in ("K4", "K2"):
+        res = stage_cycles.tiled_cycles(prof, kind, 2, n)
+        emit("chain_cycles", **res)
+        per_step = res["cycles_per_chain_step"]["chain"]
+        require(0.0 < per_step < 64.0, f"{kind}: the chain takes {per_step} "
+                "cycles a step (the earlier walker took about 64)")
 
     # ---- 4. the main path through the CLI --------------------------------
     projects = {"north-star": synth.north_star_project,

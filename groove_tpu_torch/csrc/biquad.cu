@@ -1,4 +1,4 @@
-// Single-section TDF2 biquad kernel for Hopper (sm_90a), one template with
+// Single-section TDF2 biquad kernels for Hopper (sm_90a), one template with
 // three coefficient modes (tdf2::Mode):
 //   K5  kScalar  static coefficients, by value   (_make_kernel_scalar,
 //                pallas_call in _biquad_scalar_2d)
@@ -9,23 +9,38 @@
 // all in groove_tpu/ops/pallas_iir.py. The caller prepares the five
 // coefficient streams as the reference does, in f32: na1 = -a1,
 // na2 = -a2, b1m = b1 - a1 b0, b2m = b2 - a2 b0 (each rounded once), b0.
-//
-// Per call: phase 1 (tdf2::phase1_kernel, a thread per (row, ln-block),
-// numerator terms b1m x and b2m x), phase 2 (tdf2::phase2_kernel, a thread
-// block per row walking the serial cross-block chain), and the combine
-//   y = b0 x + ((p11 S1 + p12 S2) + q1).
 // The in-block length ln is the caller's: block_for(n, 128) for K5 and K9,
 // max(block_for(n, 128), 64) for K4, as in the reference. The TPU's
 // [G, ln, R, cb] fold and its SMEM/VMEM staging are not ported.
 //
-// What bounds it on the H100: as for lp24.cu, the phase-2 chain (n / ln
-// dependent steps per row) makes a few-row call latency-bound; phase 1 and
-// the combine are memory-bound passes over [B, n]. Built with -fmad=false;
-// the in-block recurrence's explicit __fmaf_rn is mirrored by fma32 in the
-// plain twins (ops/biquad_kernels.py), so kernel and twin agree bit for
-// bit.
+// Two routes, the same arithmetic (tdf2.cuh's device functions; built with
+// -fmad=false, the in-block recurrence's explicit __fmaf_rn mirrored by
+// fma32 in the plain twins of ops/biquad_kernels.py, so every route and
+// the twin agree bit for bit):
+//   biquad_tiled  K4. Three launches: tiled::maps_kernel (phase 1 on
+//                 shared-memory tiles, writes only the block maps),
+//                 tdf2::chain, tiled::combine_kernel (re-scans the tile
+//                 beside the entry states and writes y). x is read twice
+//                 and y written once; the scratch is the block maps and
+//                 entry states, 32 bytes per ln-block. It takes b0, b1, b2,
+//                 a1, a2 as the caller holds them, each through its own
+//                 strides, and prepares the streams in registers. See
+//                 tiled.cuh.
+//   biquad_scan   K5 and K9, and K4's earlier route (kept callable as the
+//                 yardstick biquad_tiled is timed against, on no render
+//                 path): tdf2::phase1_kernel, a thread per (row, ln-block)
+//                 walking device memory and storing the prefix rows p11,
+//                 p12, q1; tdf2::chain; an elementwise combine
+//                 y = b0 x + ((p11 S1 + p12 S2) + q1).
+//
+// What bounds it on the H100: the chain (n / ln dependent steps per row,
+// see tdf2.cuh) for a few long rows; the bytes of x and y otherwise. The
+// tiled route's scans run from shared memory at the card's width and do
+// not store prefix rows; biquad_scan's phase 1 is latency-bound on its
+// strided walk of device memory and moves eight [B, n] arrays.
 
 #include "tdf2.cuh"
+#include "tiled.cuh"
 
 namespace {
 
@@ -65,10 +80,37 @@ void scan(const float* x, const Coef* co, Layout l, float* y, float* p11,
                                   stream>>>(x, co[0], co[1], co[2], co[3], l,
                                             p11, p12, q1, m, c, B, npad, nb,
                                             ln);
-  tdf2::phase2_kernel<<<B, kThreads, 0, stream>>>(m, c, s, nb,
-                                                  tdf2::kNoCarry);
+  tdf2::chain(m, c, s, nb, B, tdf2::kNoCarry, stream);
   combine_kernel<M><<<grid_for((int64_t)B * npad), kThreads, 0, stream>>>(
       x, co[4], l, p11, p12, q1, s, y, B, n, npad, nb, ln);
+}
+
+// K4 on shared-memory tiles: phase 1, chain, combine.
+template <int kLn>
+int tiled_scan(const float* x, const tiled::Biquad& sec, float* y, float* m,
+               float* c, float* s, int B, int64_t n, cudaStream_t stream) {
+  constexpr int M = tdf2::kBlock;
+  constexpr int kBytes = tiled::smem_bytes(kLn);
+  static bool allowed[tiled::kMaxDevices] = {};
+  int err = 0;
+  const int dev = tiled::device_index(err);
+  if (err != 0) return err;
+  if (!allowed[dev]) {
+    err = tiled::allow(tiled::maps_kernel<M, kLn, tiled::Biquad>, kBytes);
+    if (err != 0) return err;
+    err = tiled::allow(tiled::combine_kernel<M, kLn, tiled::Biquad>, kBytes);
+    if (err != 0) return err;
+    allowed[dev] = true;
+  }
+  const int nb = (int)((n + kLn - 1) / kLn);
+  const tiled::Span all = {0, tiled::tiles_of(nb, 0)};
+  const unsigned g = (unsigned)B * all.tiles;
+  tiled::maps_kernel<M, kLn, tiled::Biquad>
+      <<<g, tiled::kSlots, kBytes, stream>>>(x, sec, m, c, n, nb, all);
+  tdf2::chain(m, c, s, nb, B, tdf2::kNoCarry, stream);
+  tiled::combine_kernel<M, kLn, tiled::Biquad>
+      <<<g, tiled::kSlots, kBytes, stream>>>(x, sec, s, y, n, nb, all);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -109,4 +151,30 @@ extern "C" int biquad_scan(int mode, const float* x, const float* na1,
       return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
+}
+
+// K4 over [B, n] rows on shared-memory tiles (tiled.cuh). x and y are
+// contiguous [B, n]: nothing is padded. The block-rate coefficients b0, b1,
+// b2, a1, a2 are [B, count] arrays as the caller holds them, each read
+// through its own strides (strides[2 i] the row stride and strides[2 i + 1]
+// the entry stride of stream i, in elements; 0 broadcasts): the kernels
+// derive -a1, -a2, b1 - a1 b0 and b2 - a2 b0 themselves. ln is 64 or 128,
+// with nb = ceil(n / ln). Scratch, allocated by the caller: m [B, nb, 4]
+// (16-byte aligned), c and s [B, nb, 2]. Three launches on `stream`; never
+// synchronises; returns cudaGetLastError().
+extern "C" int biquad_tiled(const float* x, const float* b0, const float* b1,
+                            const float* b2, const float* a1, const float* a2,
+                            const int64_t* strides, int64_t count, float* y,
+                            float* m, float* c, float* s, int B, int64_t n,
+                            int ln, void* stream_handle) {
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_handle);
+  if (B <= 0 || n <= 0) return (int)cudaErrorInvalidValue;
+  const float* p[5] = {b0, b1, b2, a1, a2};
+  tiled::Stream st[5];
+  for (int i = 0; i < 5; ++i)
+    st[i] = {{p[i], 0.0f}, {strides[2 * i], strides[2 * i + 1], count}};
+  const tiled::Biquad sec = {st[0], st[1], st[2], st[3], st[4]};
+  if (ln == 64) return tiled_scan<64>(x, sec, y, m, c, s, B, n, stream);
+  if (ln == 128) return tiled_scan<128>(x, sec, y, m, c, s, B, n, stream);
+  return (int)cudaErrorInvalidValue;
 }

@@ -3,49 +3,65 @@
 // defect-correction ("refine") pass; K6, the single-pass cascade with
 // per-sample (or static, by-value) denominators. The stream kernels K7 and
 // K8 (K3 and K2 with their state carried from call to call) live in
-// lp24_stream.cu, one launch per call; their earlier route through this
-// file's kernels (state_in/state_out below) stays callable as the yardstick
-// that the new kernel is timed and compared against, on no render path.
+// lp24_stream.cu, one launch per call.
 //
 // Replaces groove_tpu/ops/pallas_iir.py:
 //   K3  _make_kernel_lp24_blk (pallas_call in _lp24_blk_2d)
 //   K2  _make_kernel_lp24_refined_blk, state_io=False (pallas_call in
 //       _lp24_refined_blk_2d)
 //   K6  _make_kernel_lp24 (pallas_call in _lp24_2d)
-// The earlier stateful route is K3 and K2 with ln pinned to 64 (so that
-// chained calls are bitwise one long call) and a State: each phase-2 chain
-// starts from the carried pair and exports its exit (tdf2::Carry), and the
-// refined cascade's defect reads the previous call's z, y0 and coefficient
-// edges before sample 0 (History) and exports its own (edges_kernel). n is
-// a multiple of 64, so there is no padded block and the exit is the last
-// real block's.
-// K6 is K3 with the denominators read per sample (tdf2::kSample, through
-// strides, so the static cascade's broadcast scalars are never
-// materialised) or passed by value (tdf2::kScalar), and its in-block
-// length is the caller's ln = block_for(n, 128) instead of
-// max(block_for(n, 128), 64). The algorithm and its operation order are
-// the reference's; the TPU layout ([G, ln, R, cb] folding, row packing,
-// VMEM caps, lane-roll sweeps) is not. Per section:
-//   phase 1   one thread per (row, ln-block), tdf2::phase1_kernel;
-//   phase 2   one thread block per row walking the chain,
-//             tdf2::phase2_kernel;
-//   combine   elementwise y = x + ((p11 S1 + p12 S2) + q1).
-// K2 adds an elementwise defect pass, an r-only correction scan that reuses
-// p11/p12, a second phase 2 and a second combine.
+// The algorithm and its operation order are the reference's; the TPU layout
+// ([G, ln, R, cb] folding, row packing, VMEM caps, lane-roll sweeps) is
+// not. Two routes share tdf2.cuh's device functions, so they and the plain
+// twins (ops/iir_kernels.py) agree bit for bit; the build is -fmad=false,
+// every multiply and add separately rounded, except the explicit __fmaf_rn
+// of the in-block recurrences (fma32 in the twins): near z = 1 the unfused
+// prefix products lose about 12 dB against an f64 reference.
 //
-// What bounds it on the H100: phase 2 is a dependent chain of n / ln steps
-// per row (62k steps for a 3-minute song at ln = 128), so with the two rows
-// of a stereo bus it is latency-bound, not bandwidth-bound; the design
-// keeps each step's loads off the chain by staging tiles of block maps in
-// shared memory, cooperatively loaded, while one thread walks the chain.
-// Phases 1 and combine are memory-bound passes over [B, n]. Building with
-// -fmad=false keeps every multiply and add separately rounded, as in the
-// plain twins (ops/iir_kernels.py), except the explicit __fmaf_rn of the
-// in-block scans' recurrences: near z = 1 the unfused prefix products lose
-// ~12 dB against an f64 reference, and the twins use the same correctly
-// rounded fused multiply-add (fma32).
+//   lp24_refined_tiled  K2, on shared-memory tiles (tiled.cuh), 9 launches:
+//       section A   maps (phase 1) -> chain -> defect + correction scan
+//                   -> chain -> second combine, writing the section's output
+//                   ya and, in the same loop, section B's block maps;
+//       section B   chain -> defect + correction scan -> chain -> second
+//                   combine, writing y.
+//     Every scan re-runs the solve from the staged tile and the entry
+//     states, so no prefix row, solve or defect array reaches device
+//     memory: the scratch is ya [B, n] and 48 bytes per ln-block (the maps
+//     M, C, the entry states S, the correction's offsets R and entry
+//     states Sc). The defect's history across tiles is recomputed from a
+//     halo block (tiled.cuh), not exported. A long row is cut into up to 8
+//     segments of whole tiles and the four chains run as a wavefront along
+//     time, each on a stream of its own with its scan behind it: chain j
+//     needs chain j - 1 and its scan only up to the block it has reached
+//     (see Wave below). The streams fork from the caller's and join it
+//     before the call returns.
+//   lp24_cascade  K3 and K6; K2's earlier route (14 launches over six
+//     [B, npad] scratch arrays), kept callable as the yardstick
+//     lp24_refined_tiled is timed against; and the earlier stateful route
+//     of the stream cascades, the yardstick of lp24_stream.cu: K3 and K2
+//     with ln pinned to 64 and a State, each chain starting from the
+//     carried pair and exporting its exit (tdf2::Carry), the refined
+//     cascade's defect reading the previous call's z, y0 and coefficient
+//     edges (History) and exporting its own (edges_kernel). None of the
+//     yardsticks is on a render path. Per section: tdf2::phase1_kernel (a
+//     thread per (row, ln-block) walking device memory), tdf2::chain, an
+//     elementwise combine; refined adds an elementwise defect pass, an
+//     r-only correction scan that reuses p11/p12, a second chain and a
+//     second combine. K6 is K3 with the denominators read per sample
+//     (tdf2::kSample, through strides) or passed by value (tdf2::kScalar),
+//     with the caller's ln = block_for(n, 128).
+//
+// What bounds it on the H100: the chains (see tdf2.cuh), four per refined
+// call and two per single pass, each n / ln dependent steps per row; with
+// the two rows of a stereo bus nothing else is serial. One after the other
+// the four chains are four times one chain's latency; as a wavefront they
+// cost one chain and the pipeline's fill, which is what the tiled route
+// does. Its scans run at the card's width from shared memory;
+// lp24_cascade's phase 1 and correction scan are latency-bound on their
+// strided walks of device memory.
 
 #include "tdf2.cuh"
+#include "tiled.cuh"
 
 namespace {
 
@@ -199,8 +215,7 @@ void cascade(bool refined, const float* x, const Coef* na1s,
     tdf2::phase1_kernel<M, true><<<g_blk, kThreads, 0, stream>>>(
         z, na1s[sec], na2s[sec], none, none, l, p11, p12, q1, m, c, B, npad,
         nb, ln);
-    tdf2::phase2_kernel<<<B, kThreads, 0, stream>>>(m, c, s, nb,
-                                                    carry(base));
+    tdf2::chain(m, c, s, nb, B, carry(base), stream);
     if (!refined) {
       combine_kernel<<<g_all, kThreads, 0, stream>>>(
           z, nullptr, p11, p12, q1, s, out, B, npad, nb, ln, out_stride,
@@ -220,11 +235,141 @@ void cascade(bool refined, const float* x, const Coef* na1s,
     }
     corr_phase1_kernel<<<g_blk, kThreads, 0, stream>>>(
         d, na1s[sec], na2s[sec], l, q1, c, B, npad, nb, ln);
-    tdf2::phase2_kernel<<<B, kThreads, 0, stream>>>(m, c, s, nb,
-                                                    carry(base + 2));
+    tdf2::chain(m, c, s, nb, B, carry(base + 2), stream);
     combine_kernel<<<g_all, kThreads, 0, stream>>>(
         y0, d, p11, p12, q1, s, out, B, npad, nb, ln, out_stride, out_len);
   }
+}
+
+// K2's four chains (solve and correction of sections A and B) each wait
+// for the scan before them, but only up to the block they have reached: a
+// long row is cut into segments of whole tiles, every chain gets a lane (a
+// stream), and lane j works on segment i while lane j - 1 works on segment
+// i + 1. A segment must outlast its launches by far, so short rows stay in
+// one segment on the caller's stream.
+constexpr int kLanes = 4;
+constexpr int kMaxSegments = 8;
+constexpr int kMinSegmentTiles = 32;  // about 4,000 chain steps
+
+// The side streams and events of the wavefront, made once per device.
+struct Wave {
+  bool ready;
+  cudaStream_t lane[kLanes];  // lane[0] is the caller's stream
+  cudaEvent_t fork;
+  cudaEvent_t done[kLanes][kMaxSegments];
+};
+
+int wave_of(int dev, Wave*& w) {
+  static Wave waves[tiled::kMaxDevices] = {};
+  w = &waves[dev];
+  if (w->ready) return 0;
+  cudaError_t err = cudaEventCreateWithFlags(&w->fork, cudaEventDisableTiming);
+  for (int j = 0; j < kLanes && err == cudaSuccess; ++j) {
+    if (j > 0)
+      err = cudaStreamCreateWithFlags(&w->lane[j], cudaStreamNonBlocking);
+    for (int i = 0; i < kMaxSegments && err == cudaSuccess; ++i)
+      err = cudaEventCreateWithFlags(&w->done[j][i], cudaEventDisableTiming);
+  }
+  w->ready = err == cudaSuccess;
+  return (int)err;
+}
+
+// K2 on shared-memory tiles: section A's phase 1, then per segment and
+// section chain, defect + correction scan, chain, second combine (section
+// A's also runs section B's phase 1). 9 launches for one segment.
+// carries: [4][B][2], the state each chain hands from segment to segment.
+template <int kLn>
+int refined_tiled(const float* x, const tiled::Lp24* secs, float* y,
+                  float* ya, float* m, float* c, float* sa, float* sb,
+                  float* r, float* sc, float* carries, int B, int64_t n,
+                  cudaStream_t stream) {
+  constexpr int M = kBlock;
+  constexpr int kBytes = tiled::smem_bytes(kLn);
+  constexpr int kPer = tiled::kSlots - 1;  // blocks a tile with a halo covers
+  static bool allowed[tiled::kMaxDevices] = {};
+  int err = 0;
+  const int dev = tiled::device_index(err);
+  if (err != 0) return err;
+  if (!allowed[dev]) {
+    err = tiled::allow(tiled::maps_kernel<M, kLn, tiled::Lp24>, kBytes);
+    if (err != 0) return err;
+    err = tiled::allow(tiled::defect_scan_kernel<M, kLn>, kBytes);
+    if (err != 0) return err;
+    err = tiled::allow(tiled::refine_kernel<M, kLn, true>, kBytes);
+    if (err != 0) return err;
+    err = tiled::allow(tiled::refine_kernel<M, kLn, false>, kBytes);
+    if (err != 0) return err;
+    allowed[dev] = true;
+  }
+  const int nb = (int)((n + kLn - 1) / kLn);
+  const int tiles = tiled::tiles_of(nb, 1);
+  int segments = tiles / kMinSegmentTiles;
+  segments = segments < 1 ? 1 : (segments > kMaxSegments ? kMaxSegments
+                                                          : segments);
+  const int seg_tiles = (tiles + segments - 1) / segments;
+  segments = (tiles + seg_tiles - 1) / seg_tiles;
+  const bool wave = segments > 1;
+  Wave* w = nullptr;
+  if (wave && (err = wave_of(dev, w)) != 0) return err;
+  cudaStream_t lane[kLanes];
+  for (int j = 0; j < kLanes; ++j)
+    lane[j] = wave && j > 0 ? w->lane[j] : stream;
+
+  const tiled::Span all = {0, tiled::tiles_of(nb, 0)};
+  tiled::maps_kernel<M, kLn, tiled::Lp24>
+      <<<(unsigned)B * all.tiles, tiled::kSlots, kBytes, stream>>>(
+          x, secs[0], m, c, n, nb, all);
+  if (wave) {
+    cudaEventRecord(w->fork, stream);
+    for (int j = 1; j < kLanes; ++j) cudaStreamWaitEvent(lane[j], w->fork, 0);
+  }
+  for (int i = 0; i < segments; ++i) {
+    const int left = tiles - i * seg_tiles;
+    const tiled::Span sp = {i * seg_tiles,
+                            left < seg_tiles ? left : seg_tiles};
+    const unsigned g = (unsigned)B * sp.tiles;
+    const int k0 = sp.tile0 * kPer;
+    const int steps = nb - k0 < sp.tiles * kPer ? nb - k0 : sp.tiles * kPer;
+    auto carry = [&](int j) {
+      float* p = carries + (size_t)j * 2 * B;
+      return tdf2::Carry{i == 0 ? nullptr : p, wave ? p : nullptr, 2};
+    };
+    auto handed = [&](int j) {  // lane j's segment is done: lane j + 1 may go
+      if (!wave) return;
+      cudaEventRecord(w->done[j][i], lane[j]);
+      if (j + 1 < kLanes) cudaStreamWaitEvent(lane[j + 1], w->done[j][i], 0);
+    };
+    // lane 0: section A's solve chain, then its defect and correction scan
+    tdf2::chain(m, c, sa, nb, B, carry(0), lane[0], k0, steps);
+    tiled::defect_scan_kernel<M, kLn>
+        <<<g, tiled::kSlots, kBytes, lane[0]>>>(x, secs[0], sa, r, n, nb, sp);
+    handed(0);
+    // lane 1: its correction chain, then its second combine, which writes
+    // ya and puts section B's maps where section A's were (spent here)
+    tdf2::chain(m, r, sc, nb, B, carry(1), lane[1], k0, steps);
+    tiled::refine_kernel<M, kLn, true><<<g, tiled::kSlots, kBytes, lane[1]>>>(
+        x, secs[0], secs[1], sa, sc, ya, m, c, n, nb, sp);
+    handed(1);
+    // lanes 2 and 3: the same for section B, from ya to y. Its solve's
+    // entry states have their own array: a later segment's halo still
+    // reads section A's.
+    tdf2::chain(m, c, sb, nb, B, carry(2), lane[2], k0, steps);
+    tiled::defect_scan_kernel<M, kLn>
+        <<<g, tiled::kSlots, kBytes, lane[2]>>>(ya, secs[1], sb, r, n, nb,
+                                                sp);
+    handed(2);
+    tdf2::chain(m, r, sc, nb, B, carry(3), lane[3], k0, steps);
+    tiled::refine_kernel<M, kLn, false>
+        <<<g, tiled::kSlots, kBytes, lane[3]>>>(ya, secs[1], secs[1], sb, sc,
+                                                y, nullptr, nullptr, n, nb,
+                                                sp);
+    handed(3);
+  }
+  if (wave) {  // every lane joins the caller's stream
+    for (int j = 1; j < kLanes; ++j)
+      cudaStreamWaitEvent(stream, w->done[j][segments - 1], 0);
+  }
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -279,4 +424,40 @@ extern "C" int lp24_cascade(int refined, int mode, const float* x,
       return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
+}
+
+// K2 over [B, n] rows on shared-memory tiles (tiled.cuh). x and y are
+// contiguous [B, n]: nothing is padded. The POSITIVE block-rate
+// denominators a1a, a2a, a1b, a2b are [B, count] arrays as the caller holds
+// them, each read through its own strides (strides[2 i] the row stride and
+// strides[2 i + 1] the entry stride of stream i, in elements; 0
+// broadcasts) and negated in registers. ln is 64 or 128, with
+// nb = ceil(n / ln). Scratch, allocated by the caller: ya [B, n];
+// m [B, nb, 4] (16-byte aligned); c, sa, sb, r, sc [B, nb, 2];
+// carries [4, B, 2]. Nine launches per segment (one segment below some
+// 8,000 ln-blocks a row, up to 8 above), issued on `stream` and, for
+// several segments, on three streams of the library's that fork from it
+// and join it again before the call returns; never synchronises; returns
+// cudaGetLastError().
+extern "C" int lp24_refined_tiled(const float* x, const float* a1a,
+                                  const float* a2a, const float* a1b,
+                                  const float* a2b, const int64_t* strides,
+                                  int64_t count, float* y, float* ya,
+                                  float* m, float* c, float* sa, float* sb,
+                                  float* r, float* sc, float* carries, int B,
+                                  int64_t n, int ln, void* stream_handle) {
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_handle);
+  if (B <= 0 || n <= 0) return (int)cudaErrorInvalidValue;
+  const float* p[4] = {a1a, a2a, a1b, a2b};
+  tiled::Stream st[4];
+  for (int i = 0; i < 4; ++i)
+    st[i] = {{p[i], 0.0f}, {strides[2 * i], strides[2 * i + 1], count}};
+  const tiled::Lp24 secs[2] = {{st[0], st[1]}, {st[2], st[3]}};
+  if (ln == 64)
+    return refined_tiled<64>(x, secs, y, ya, m, c, sa, sb, r, sc, carries, B,
+                             n, stream);
+  if (ln == 128)
+    return refined_tiled<128>(x, secs, y, ya, m, c, sa, sb, r, sc, carries, B,
+                              n, stream);
+  return (int)cudaErrorInvalidValue;
 }

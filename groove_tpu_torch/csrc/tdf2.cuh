@@ -12,9 +12,25 @@
 // explicit __fmaf_rn per map entry, mirrored by fma32 in the plain twins of
 // ops/iir_kernels.py), the refined cascades' defect (`lp24_defect`), the
 // phase-1 kernel and the phase-2 chain. The device functions are the only
-// copy of that arithmetic: the multi-launch kernels here and in lp24.cu and
-// the one-launch stream kernel of lp24_stream.cu all call them, so they
-// cannot drift apart.
+// copy of that arithmetic: the multi-launch kernels here and in lp24.cu, the
+// tiled kernels of tiled.cuh (K4, K2) and the one-launch stream kernel of
+// lp24_stream.cu all call them, so they cannot drift apart.
+//
+// What bounds it on the H100. The chain is the one serial part of every
+// kernel that uses this header: n / ln dependent steps per row, each a
+// multiply, an add and an add deep (2x2 map times state plus offset, every
+// operation rounded separately), so a few-row call waits on one thread's
+// arithmetic latency and on nothing else. phase2_kernel therefore gives
+// that thread nothing else to do: a second warp of its block moves the
+// block maps into shared memory ahead of it and the entry states out
+// behind it, through a ring of stages handed over with mbarriers, and the
+// walker reads a step's map as one 16-byte and one 8-byte shared load,
+// issued a batch of steps ahead of the arithmetic that consumes them, and
+// stores one state in eight (the movers re-run the rest). On an H100 a
+// step's arithmetic alone takes 14 cycles from one thread (three dependent
+// operations of 4 cycles, and the in-order issue of the step's two rows).
+// kernels/stage_cycles.py stamps the walker with clock64 and prints its
+// cycles per step.
 //
 // Coefficients come in three modes, the reference's three kernel families:
 //   kScalar  one value per call, passed by value (_biquad_scalar_2d's SMEM
@@ -35,8 +51,19 @@
 namespace tdf2 {
 
 constexpr int kCBlockShift = 6;   // 64-frame control blocks
-constexpr int kChainTile = 1024;  // blocks staged per phase-2 tile
 constexpr int kThreads = 256;
+// The phase-2 chain: a ring of kChainStages stages of kChainTile block maps
+// in shared memory; warp 0 holds the walker (its lane 0), warp 1 moves
+// data; the walker keeps the maps of kChainBatch steps in registers.
+// (On an H100 768 x 2 read 17.0 cycles a step, 512 x 2 19.5, 256 x 4 17.3,
+// 896 x 2 17.0, 640 x 3 17.5: kernels/stage_cycles.py with these constants
+// edited. 768 x 2 is 39,936 bytes of static shared memory.)
+constexpr int kChainTile = 768;
+constexpr int kChainStages = 2;
+constexpr int kChainThreads = 64;
+constexpr int kChainMovers = kChainThreads - 32;
+constexpr int kChainBatch = 8;
+static_assert(kChainTile % (2 * kChainBatch) == 0, "whole batch pairs");
 
 enum Mode : int { kScalar = 0, kBlock = 1, kSample = 2 };
 
@@ -179,54 +206,255 @@ constexpr Carry kNoCarry = {nullptr, nullptr, 0};
 
 namespace {
 
-// Phase 2: one thread block per row. Tiles of block maps are staged in
-// shared memory by all threads; thread 0 walks the chain
-// S[k+1] = M[k] S[k] + C[k]; all threads write the entry states back.
-// s: [B, nb, 2], the state ENTERING block k. The TPU's lane-roll sweeps
-// and chunk carries compute exactly this chain; the 2x2 maps are never
-// composed associatively (that diverges in f32 near z = 1). `carry` seeds
-// the chain and exports its exit (kNoCarry: zero entry, no export).
-__global__ void phase2_kernel(const float* __restrict__ m,
-                              const float* __restrict__ c,
-                              float* __restrict__ s, int nb, Carry carry) {
-  __shared__ float sm[kChainTile * 4];
-  __shared__ float sc[kChainTile * 2];
-  __shared__ float ss[kChainTile * 2];
-  int64_t row = blockIdx.x;
-  const float* mr = m + row * nb * 4;
-  const float* cr = c + row * nb * 2;
-  float* sr = s + row * nb * 2;
-  float s1 = 0.0f, s2 = 0.0f;  // carried by thread 0
-  if (carry.in != nullptr) {
-    s1 = carry.in[row * carry.stride];
-    s2 = carry.in[row * carry.stride + 1];
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+// cp.async of 16 bytes of which the first `bytes` come from src and the
+// rest are zeros, of 8 bytes, and of 4 bytes.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int bytes = 16) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async8(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// mbarriers in shared memory: `count` arrivals complete a phase; wait(p)
+// returns once the phase of parity p has completed (phases count from 0).
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_addr(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_addr(bar))
+               : "memory");
+}
+
+__device__ __forceinline__ bool mbar_try(uint64_t* bar, unsigned parity) {
+  unsigned done;
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n"
+      "}\n"
+      : "=r"(done)
+      : "r"(smem_addr(bar)), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+
+// kSleep: between tries the thread sleeps, so that a warp that waits long
+// (a mover, a whole tile's walk) leaves the shared-memory pipe to the
+// walker.
+template <bool kSleep>
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  while (!mbar_try(bar, parity)) {
+    if (kSleep) __nanosleep(100);
   }
-  for (int base = 0; base < nb; base += kChainTile) {
-    int cnt = min(kChainTile, nb - base);
-    for (int i = threadIdx.x; i < cnt * 4; i += blockDim.x)
-      sm[i] = mr[(int64_t)base * 4 + i];
-    for (int i = threadIdx.x; i < cnt * 2; i += blockDim.x)
-      sc[i] = cr[(int64_t)base * 2 + i];
-    __syncthreads();
-    if (threadIdx.x == 0) {
-      for (int k = 0; k < cnt; ++k) {
-        ss[2 * k] = s1;
-        ss[2 * k + 1] = s2;
-        float n1 = sm[4 * k] * s1 + sm[4 * k + 1] * s2 + sc[2 * k];
-        float n2 = sm[4 * k + 2] * s1 + sm[4 * k + 3] * s2 + sc[2 * k + 1];
-        s1 = n1;
-        s2 = n2;
+}
+
+// One stage of the chain's ring: kChainTile block maps (M as float4, C as
+// float2) and, from the walker, the state entering each batch of
+// kChainBatch steps. Stores are the dearest instructions the walker
+// issues, so it keeps one state in kChainBatch and the movers re-run each
+// batch from its kept state (chain_step again: the same bits) when they
+// write the entry states out.
+struct __align__(16) ChainStage {
+  float4 m[kChainTile];
+  float2 c[kChainTile];
+  float2 keep[kChainTile / kChainBatch];
+};
+
+struct ChainBatch {
+  float4 m[kChainBatch];      // one map per step
+  float4 c[kChainBatch / 2];  // two steps' offsets each
+};
+
+__device__ __forceinline__ void chain_load(const ChainStage& st, int k,
+                                           ChainBatch& b) {
+  const float4* c4 = reinterpret_cast<const float4*>(st.c);
+#pragma unroll
+  for (int u = 0; u < kChainBatch; ++u) b.m[u] = st.m[k + u];
+#pragma unroll
+  for (int u = 0; u < kChainBatch / 2; ++u) b.c[u] = c4[k / 2 + u];
+}
+
+// One step S' = M S + C, every multiply and add rounded by itself.
+__device__ __forceinline__ void chain_step(float4 mk, float c1, float c2,
+                                           float& s1, float& s2) {
+  float n1 = mk.x * s1 + mk.y * s2 + c1;
+  float n2 = mk.z * s1 + mk.w * s2 + c2;
+  s1 = n1;
+  s2 = n2;
+}
+
+// kChainBatch steps from registers.
+__device__ __forceinline__ void chain_run(const ChainBatch& b, float& s1,
+                                          float& s2) {
+#pragma unroll
+  for (int u = 0; u < kChainBatch / 2; ++u) {
+    chain_step(b.m[2 * u], b.c[u].x, b.c[u].y, s1, s2);
+    chain_step(b.m[2 * u + 1], b.c[u].z, b.c[u].w, s1, s2);
+  }
+}
+
+// The walker's part of one stage: `cnt` steps from (s1, s2), keeping the
+// state that enters each batch. Two register batches take turns, each
+// loaded while the other runs, so that no step waits for a shared-memory
+// load, and a pair's two kept states go out as one 16-byte store. A load
+// past cnt stays inside the stage and its values are never used.
+__device__ __forceinline__ void chain_walk(ChainStage& st, int cnt, float& s1,
+                                           float& s2) {
+  constexpr int kPair = 2 * kChainBatch;
+  float4* keep4 = reinterpret_cast<float4*>(st.keep);
+  ChainBatch a, b;
+  chain_load(st, 0, a);
+  int k = 0;
+  for (; k + kPair <= cnt; k += kPair) {
+    chain_load(st, k + kChainBatch, b);
+    float4 kept;
+    kept.x = s1;
+    kept.y = s2;
+    chain_run(a, s1, s2);
+    kept.z = s1;
+    kept.w = s2;
+    // stored here, in the middle: at the loop's end the store would have to
+    // read the carried pair's registers before the last step may write them
+    keep4[k / kPair] = kept;
+    chain_load(st, min(k + kPair, kChainTile - kChainBatch), a);
+    chain_run(b, s1, s2);
+  }
+  if (k + kChainBatch <= cnt) {
+    st.keep[k / kChainBatch] = make_float2(s1, s2);
+    chain_run(a, s1, s2);
+    k += kChainBatch;
+  }
+  if (k < cnt) st.keep[k / kChainBatch] = make_float2(s1, s2);
+  for (; k < cnt; ++k) chain_step(st.m[k], st.c[k].x, st.c[k].y, s1, s2);
+}
+
+// A mover's part of a walked stage: the entry states of batches p,
+// p + kChainMovers, ... of its `cnt` steps, re-run from the kept states
+// and written to sr.
+__device__ __forceinline__ void chain_expand(const ChainStage& st, int cnt,
+                                             int p, float2* __restrict__ sr) {
+  for (int g = p; g * kChainBatch < cnt; g += kChainMovers) {
+    float2 s = st.keep[g];
+    const int end = min((g + 1) * kChainBatch, cnt);
+    for (int k = g * kChainBatch; k < end; ++k) {
+      sr[k] = s;
+      chain_step(st.m[k], st.c[k].x, st.c[k].y, s.x, s.y);
+    }
+  }
+}
+
+// Phase 2: one thread block per row walks the chain
+// S[k+1] = M[k] S[k] + C[k]. m: [B, nb, 4] (16-byte aligned), c: [B, nb, 2],
+// s: [B, nb, 2], the state ENTERING block k. The TPU's lane-roll sweeps and
+// chunk carries compute exactly this chain; the 2x2 maps are never composed
+// associatively (that diverges in f32 near z = 1). The kernel walks blocks
+// k0 .. k0 + steps - 1 of every row; `carry` seeds the chain (in null: zero
+// entry) and exports its exit (out null: no export).
+//
+// Thread 0 walks. The movers (warp 1) fill stage t % kChainStages with
+// tile t's maps by cp.async and arrive on full[stage]; the walker waits
+// there, walks, and arrives on empty[stage]; the movers wait there, write
+// the tile's entry states to s (chain_expand) and refill the stage with
+// tile t + kChainStages (a named barrier of the movers alone sits between
+// the two). There is no __syncthreads() after the barriers' set-up.
+__global__ void __launch_bounds__(kChainThreads)
+    phase2_kernel(const float* __restrict__ m, const float* __restrict__ c,
+                  float* __restrict__ s, int nb, int k0, int steps,
+                  Carry carry) {
+  __shared__ ChainStage stage[kChainStages];
+  __shared__ __align__(8) uint64_t full[kChainStages];
+  __shared__ __align__(8) uint64_t empty[kChainStages];
+  const int64_t row = blockIdx.x;
+  const int ntiles = (steps + kChainTile - 1) / kChainTile;
+  if (threadIdx.x == 0) {
+    for (int b = 0; b < kChainStages; ++b) {
+      mbar_init(&full[b], kChainMovers);
+      mbar_init(&empty[b], 1);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (threadIdx.x >= 32) {
+    const int p = threadIdx.x - 32;
+    const float4* mr = reinterpret_cast<const float4*>(m) + row * nb + k0;
+    const float2* cr = reinterpret_cast<const float2*>(c) + row * nb + k0;
+    float2* sr = reinterpret_cast<float2*>(s) + row * nb + k0;
+    for (int t = 0; t < ntiles + kChainStages; ++t) {
+      const int b = t % kChainStages, use = t / kChainStages;
+      if (t >= kChainStages) {  // the tile this stage held has been walked
+        mbar_wait<true>(&empty[b], (use - 1) & 1);
+        const int base = (t - kChainStages) * kChainTile;
+        chain_expand(stage[b], min(kChainTile, steps - base), p, sr + base);
+        // every mover is done with the stage's maps before any refills it
+        asm volatile("bar.sync 1, %0;\n" ::"n"(kChainMovers) : "memory");
+      }
+      if (t < ntiles) {
+        const int base = t * kChainTile;
+        const int cnt = min(kChainTile, steps - base);
+        for (int i = p; i < cnt; i += kChainMovers) {
+          cp_async16(&stage[b].m[i], mr + base + i);
+          cp_async8(&stage[b].c[i], cr + base + i);
+        }
+        cp_async_wait_all();
+        mbar_arrive(&full[b]);
       }
     }
-    __syncthreads();
-    for (int i = threadIdx.x; i < cnt * 2; i += blockDim.x)
-      sr[(int64_t)base * 2 + i] = ss[i];
-    __syncthreads();
+  } else if (threadIdx.x == 0) {
+    float s1 = 0.0f, s2 = 0.0f;
+    if (carry.in != nullptr) {
+      s1 = carry.in[row * carry.stride];
+      s2 = carry.in[row * carry.stride + 1];
+    }
+    for (int t = 0; t < ntiles; ++t) {
+      const int b = t % kChainStages, use = t / kChainStages;
+      mbar_wait<false>(&full[b], use & 1);
+      chain_walk(stage[b], min(kChainTile, steps - t * kChainTile), s1, s2);
+      mbar_arrive(&empty[b]);
+    }
+    if (carry.out != nullptr) {
+      carry.out[row * carry.stride] = s1;
+      carry.out[row * carry.stride + 1] = s2;
+    }
   }
-  if (threadIdx.x == 0 && carry.out != nullptr) {
-    carry.out[row * carry.stride] = s1;
-    carry.out[row * carry.stride + 1] = s2;
-  }
+}
+
+// Launch the chains of B rows of nb block maps on `stream`: all of each
+// row, or its blocks k0 .. k0 + steps - 1 (a segment of a longer chain,
+// which `carry` then joins to its neighbours).
+inline void chain(const float* m, const float* c, float* s, int nb, int B,
+                  Carry carry, cudaStream_t stream, int k0 = 0,
+                  int steps = -1) {
+  phase2_kernel<<<B, kChainThreads, 0, stream>>>(
+      m, c, s, nb, k0, steps < 0 ? nb - k0 : steps, carry);
 }
 
 }  // namespace

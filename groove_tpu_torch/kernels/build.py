@@ -37,11 +37,14 @@ _F = ctypes.c_float
 SIGNATURES = {
     "lp24_cascade": ([_I, _I] + [_P] * 5 + [_F] * 4 + [_I64] * 3 + [_P] * 12
                      + [_I, _I64, _I64, _I, _P]),
+    "lp24_refined_tiled": ([_P] * 6 + [_I64] + [_P] * 9
+                           + [_I, _I64, _I, _P]),
     "lp24_stream_init": [_I, _I],
     "lp24_stream": [_I] + [_P] * 5 + [_I64] * 8 + [_P] * 3 + [_I, _I64, _P],
     "launch_floor": [_P],
     "biquad_scan": ([_I] + [_P] * 6 + [_F] * 5 + [_I64] * 3 + [_P] * 7
                     + [_I, _I64, _I64, _I, _P]),
+    "biquad_tiled": [_P] * 7 + [_I64] + [_P] * 4 + [_I, _I64, _I, _P],
     "biquad_serial_scan": ([_I] + [_P] * 6 + [_F] * 5 + [_I64] * 3 + [_P]
                            + [_I, _I64, _I64, _P]),
     "drums_accumulate": [_P, _I] + [_P] * 6 + [_I, _I, _I, _P, _I64, _P],

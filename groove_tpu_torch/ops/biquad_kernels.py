@@ -9,8 +9,11 @@ One TDF2 section, a0 == 1:
 
 K4, K5 and K9 run the reference's two-level scheme (phase 1 in-block
 prefix maps, phase 2 the serial cross-block chain, combine
-y = b0 x + ((p11 S1 + p12 S2) + q1); see ops/iir_kernels.py) on one CUDA
-template (csrc/biquad.cu) with three coefficient modes:
+y = b0 x + ((p11 S1 + p12 S2) + q1); see ops/iir_kernels.py) in
+csrc/biquad.cu with three coefficient modes. On a card K4 runs on
+shared-memory tiles (biquad_tiled, csrc/tiled.cuh: three launches, x read
+twice and y written once, from a wrapper that checks, allocates y and one
+scratch buffer, and launches); K5 and K9 run biquad_scan:
 
   K4  biquad_blockrate   one coefficient set per 64-frame control block,
                          ln = max(block_for(n, 128), 64) (_biquad_blk_2d);
@@ -36,11 +39,13 @@ from __future__ import annotations
 import torch
 
 from groove_tpu_torch.ops.iir_kernels import (BLOCK, CBLOCK, SAMPLE, SCALAR,
-                                              Streams, as_f32, check_input,
-                                              dispatch, fma32, fold_back,
+                                              Streams, as_f32, block_views,
+                                              check_input, dispatch, fma32,
+                                              fold_back,
                                               geometry, is_scalar, phase1,
-                                              phase2, ptr, rows_view,
-                                              scalar32, stream_of)
+                                              phase2, ptr, raw_stream,
+                                              rows_view, scalar32, stream_of,
+                                              strides_of, tiled_buffers)
 
 # kernel launches per wrapper (one per call of the C entry point)
 LAUNCHES = {"biquad_blockrate": 0, "biquad_scalar": 0,
@@ -100,10 +105,17 @@ def biquad_blockrate(x: torch.Tensor, coefs_b,
                      cblock: int = CBLOCK) -> torch.Tensor:
     """K4: one section over [..., n] with block-rate coefficients, each
     broadcast against x.shape[:-1] + (ceil(n / 64),) (the reference's
-    biquad_blockrate_pallas)."""
+    biquad_blockrate_pallas). On a card the kernels read b0, b1, b2, a1,
+    a2 as they are given (block_views) and prepare the streams of _prep
+    in registers, so the call makes no torch operation on x or the
+    coefficients."""
     if cblock != CBLOCK:
         raise ValueError(f"biquad kernels take cblock {CBLOCK}, got {cblock}")
-    return _run(x, coefs_b, BLOCK)
+    x2, views = block_views(x, coefs_b, "biquad kernels")
+    y = dispatch(x2, lambda: _plain(*_prepare(x, coefs_b, BLOCK)),
+                 lambda: _launch_tiled(x2, views), "biquad_blockrate",
+                 LAUNCHES, "biquad kernel")
+    return y.reshape(x.shape)
 
 
 def biquad_blockrate_plain(x: torch.Tensor, coefs_b) -> torch.Tensor:
@@ -138,6 +150,35 @@ def biquad_pallas(x: torch.Tensor, coefs) -> torch.Tensor:
     if all(is_scalar(c) for c in coefs):
         return biquad_scalar(x, coefs)
     return biquad_per_sample(x, coefs)
+
+
+def _blockrate_earlier(x: torch.Tensor, coefs_b) -> torch.Tensor:
+    """K4's earlier route on a card: csrc/biquad.cu's biquad_scan with its
+    padded copy of x and its prefix rows in device memory. On no render
+    path and not counted: the yardstick the tiled kernels are timed and
+    compared against."""
+    x2, st, ln = _prepare(x, coefs_b, BLOCK)
+    return _launch(x2, st, ln).reshape(x.shape)
+
+
+def _launch_tiled(x2: torch.Tensor, views) -> torch.Tensor:
+    """Run csrc/biquad.cu's biquad_tiled (K4) on [B, n] CUDA inputs and the
+    five coefficients (b0, b1, b2, a1, a2) as [B, ceil(n / 64)] views: two
+    allocations, no copy, no synchronisation, so a call can be captured
+    in a CUDA graph. Raises on a refused launch."""
+    from groove_tpu_torch.kernels.build import library
+
+    check_input(x2, "biquad kernel")
+    B, n = x2.shape
+    ln = geometry(n)[0]
+    (y,), _scratch, ptrs = tiled_buffers(x2, ln, outputs=1, pairs=2)
+    err = library().biquad_tiled(
+        x2.data_ptr(), *(v.data_ptr() for v in views), strides_of(views),
+        views[0].shape[1], y.data_ptr(), *ptrs, B, n, ln,
+        raw_stream(x2.device))
+    if err:
+        raise RuntimeError(f"biquad kernel launch failed: CUDA error {err}")
+    return y
 
 
 def _launch(x2: torch.Tensor, st: Streams, ln: int) -> torch.Tensor:

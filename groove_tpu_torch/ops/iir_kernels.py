@@ -24,10 +24,17 @@ K2 (the refined cascade) adds, per section, the defect of the solve
 against the shifted-coefficient TDF2 recurrence in its epsilon-regrouped
 form, and an r-only correction scan that reuses the solve's p11/p12.
 
+On a card K2 runs on shared-memory tiles (csrc/tiled.cuh through
+csrc/lp24.cu's lp24_refined_tiled): nine launches (per segment of a long
+row, whose four chains then run as a wavefront along time) that keep no
+prefix row, solve or defect array in device memory, from a wrapper that
+checks, allocates y, the first section's output and one scratch buffer,
+and launches. K3 and K6 run csrc/lp24.cu's lp24_cascade.
+
 Each kernel has its plain torch twin here, written in the same operation
 order: the CPU runs the twin, a CUDA tensor runs the kernel
-(csrc/lp24.cu, csrc/lp24_stream.cu, csrc/tdf2.cuh), and LAUNCHES counts
-kernel launches. Every
+(csrc/lp24.cu, csrc/lp24_stream.cu, csrc/tiled.cuh, csrc/tdf2.cuh), and
+LAUNCHES counts kernel launches. Every
 multiply and add rounds separately except the in-block scans'
 recurrences, which use one correctly rounded fused multiply-add per map
 entry (fma32 here, __fmaf_rn in the kernel): near z = 1 the unfused
@@ -229,14 +236,121 @@ def lp24_refined_blockrate(x: torch.Tensor, sections_b,
                            cblock: int = CBLOCK) -> torch.Tensor:
     """K2: fused refined lp24 cascade (solve + defect + correction per
     section) over [..., n] (the reference's
-    lp24_refined_blockrate_pallas)."""
-    x2, den = _prepare(x, sections_b, cblock)
-    y = dispatch(x2, lambda: lp24_refined_blockrate_plain(x2, *den),
-                 lambda: _launch(True, x2, Streams(BLOCK, list(den),
-                                                   den[0].shape[1]),
-                                 geometry(x2.shape[1])[0]),
+    lp24_refined_blockrate_pallas). On a card the kernels read the
+    sections' denominators as they are given (block_views), so the call
+    makes no torch operation on x or the coefficients."""
+    if cblock != CBLOCK:
+        raise ValueError(f"lp24 kernels take cblock {CBLOCK}, got {cblock}")
+    x2, den = block_views(x, [sec[i] for sec in sections_b for i in (3, 4)],
+                          "lp24 kernels")
+    y = dispatch(x2, lambda: _refined_twin(x, sections_b),
+                 lambda: _launch_refined_tiled(x2, den),
                  "lp24_refined", LAUNCHES, "lp24 kernel")
     return y.reshape(x.shape)
+
+
+def _refined_twin(x: torch.Tensor, sections_b) -> torch.Tensor:
+    x2, den = _prepare(x, sections_b, CBLOCK)
+    return lp24_refined_blockrate_plain(x2, *den)
+
+
+def _refined_earlier(x: torch.Tensor, sections_b) -> torch.Tensor:
+    """K2's earlier route on a card: csrc/lp24.cu's multi-launch
+    lp24_cascade with its padded copy of x and its six [B, npad] scratch
+    arrays. On no render path and not counted: the yardstick the tiled
+    kernels are timed and compared against."""
+    x2, den = _prepare(x, sections_b, CBLOCK)
+    y = _launch(True, x2, Streams(BLOCK, list(den), den[0].shape[1]),
+                geometry(x2.shape[1])[0])
+    return y.reshape(x.shape)
+
+
+# csrc/tiled.cuh stages TILED_SLOTS consecutive ln-blocks of a row per
+# thread block, one thread per ln-block.
+TILED_SLOTS = 128
+
+
+def tiled_smem_bytes(ln: int) -> int:
+    """Dynamic shared memory of one block of a tiled kernel: the tile
+    (TILED_SLOTS blocks of ln floats) and one float4 of edges per slot."""
+    return 4 * (TILED_SLOTS * ln + 4 * TILED_SLOTS)
+
+
+def tiled_buffers(x2: torch.Tensor, ln: int, outputs: int, pairs: int,
+                  carries: int = 0):
+    """What a tiled kernel call allocates, and nothing else touches a
+    tensor: `outputs` arrays like x2 [B, n] (y; K2's first section's
+    output too) and ONE scratch buffer of 16 + 8 * pairs bytes per
+    ln-block, carved into the block maps m [B, nb, 4] (first, so 16-byte
+    aligned) and `pairs` arrays [B, nb, 2] (c, s; K2's second s, r and
+    sc), then `carries` arrays [B, 2] (the states K2's chains hand from
+    segment to segment). Returns (outputs, scratch, pointers into it).
+    Device-independent."""
+    B, n = x2.shape
+    blocks = B * -(-n // ln)
+    outs = [torch.empty_like(x2) for _ in range(outputs)]
+    scratch = torch.empty((4 + 2 * pairs) * blocks + 2 * B * carries,
+                          dtype=torch.float32, device=x2.device)
+    base = scratch.data_ptr()
+    ptrs = [base] + [base + (16 + 8 * i) * blocks for i in range(pairs)]
+    if carries:
+        ptrs.append(base + (16 + 8 * pairs) * blocks)
+    return outs, scratch, ptrs
+
+
+def block_views(x: torch.Tensor, coefs, what: str):
+    """What a tiled or stream kernel call needs of its arguments: x as
+    contiguous [B, n], and each block-rate coefficient as a float32
+    [B, ceil(n / 64)] view of whatever strides on x's device (the kernels
+    read every stream through its own; a broadcast stays stride 0).
+    Device-independent, and free for contiguous or expanded float32
+    tensors of those shapes on x's device: every torch operation here is
+    behind a check that found it necessary."""
+    f32, dev = torch.float32, x.device
+    if x.dtype != f32:
+        raise TypeError(f"{what} take float32, got {x.dtype}")
+    n = x.shape[-1]
+    x2 = x if x.dim() == 2 else x.reshape(-1, n)
+    if not x2.is_contiguous():
+        x2 = x2.contiguous()
+    want = (x2.shape[0], -(-n // CBLOCK))
+    views = []
+    for c in coefs:
+        if not (isinstance(c, torch.Tensor) and c.dtype == f32
+                and c.device == dev):
+            c = as_f32(c, dev)
+        if c.shape != want:
+            c = c.expand(x.shape[:-1] + want[1:]).reshape(want)
+        views.append(c)
+    return x2, views
+
+
+def strides_of(views) -> ctypes.Array:
+    """(row stride, entry stride) of every view, in elements, as the C
+    entry points of the tiled kernels take them."""
+    flat = [s for v in views for s in v.stride()]
+    return (ctypes.c_int64 * len(flat))(*flat)
+
+
+def _launch_refined_tiled(x2: torch.Tensor, den) -> torch.Tensor:
+    """Run csrc/lp24.cu's lp24_refined_tiled on [B, n] CUDA inputs and the
+    four positive denominators [B, ceil(n / 64)]: three allocations, no
+    copy, no synchronisation, so a call can be captured in a CUDA graph.
+    Raises on a refused launch."""
+    from groove_tpu_torch.kernels.build import library
+
+    check_input(x2, "lp24 kernel")
+    B, n = x2.shape
+    ln = geometry(n)[0]
+    (y, ya), _scratch, ptrs = tiled_buffers(x2, ln, outputs=2, pairs=5,
+                                            carries=4)
+    err = library().lp24_refined_tiled(
+        x2.data_ptr(), *(d.data_ptr() for d in den), strides_of(den),
+        den[0].shape[1], y.data_ptr(), ya.data_ptr(), *ptrs, B, n, ln,
+        raw_stream(x2.device))
+    if err:
+        raise RuntimeError(f"lp24 kernel launch failed: CUDA error {err}")
+    return y
 
 
 # --------------------------------------------------------------------------
@@ -358,26 +472,14 @@ def stream_args(x: torch.Tensor, sections_b, state, rows: int):
     those shapes on x's device): every torch operation here is behind a
     check that found it necessary."""
     f32, dev = torch.float32, x.device
-    if x.dtype != f32:
-        raise TypeError(f"lp24 kernels take float32, got {x.dtype}")
     n = x.shape[-1]
     if n % CBLOCK or n == 0:
         raise ValueError(
             f"stateful stream kernel needs n % {CBLOCK} == 0, got {n} "
             "(exported state would include padded samples)")
-    x2 = x if x.dim() == 2 else x.reshape(-1, n)
-    if not x2.is_contiguous():
-        x2 = x2.contiguous()
+    x2, den = block_views(x, [sec[i] for sec in sections_b for i in (3, 4)],
+                          "lp24 kernels")
     want = (x2.shape[0], n // CBLOCK)
-    den = []
-    for sec in sections_b:
-        for c in (sec[3], sec[4]):
-            if not (isinstance(c, torch.Tensor) and c.dtype == f32
-                    and c.device == dev):
-                c = as_f32(c, dev)
-            if c.shape != want:
-                c = c.expand(x.shape[:-1] + want[1:]).reshape(want)
-            den.append(c)
     st = state
     if not (isinstance(st, torch.Tensor) and st.dtype == f32
             and st.device == dev):

@@ -34,7 +34,7 @@ def test_sources_are_the_packaged_kernels():
     names = [p.name for p in build.sources()]
     assert names == ["biquad.cu", "drums.cu", "lp24.cu", "lp24_stream.cu",
                      "serial.cu"]
-    assert [p.name for p in build.headers()] == ["tdf2.cuh"]
+    assert [p.name for p in build.headers()] == ["tdf2.cuh", "tiled.cuh"]
     for p in build.sources():
         text = p.read_text()
         assert 'extern "C"' in text and "cudaGetLastError" in text

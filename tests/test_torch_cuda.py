@@ -5,7 +5,10 @@ block-rate, static or per-sample coefficients), the serial scan and the
 stream kernels K7/K8 (K3/K2 with carried state, one launch of
 csrc/lp24_stream.cu per call: chained calls equal one call, many tiles
 with a short last one, strided coefficient views, the earlier multi-launch
-route, two allocations per call, a captured CUDA graph's replay), plus
+route, two allocations per call, a captured CUDA graph's replay), K4 and
+K2 on their shared-memory tiles (csrc/tiled.cuh) against their twins and
+their earlier multi-launch routes over block, tile and alignment edges,
+zero-stride coefficients, a non-default stream and a captured graph, plus
 short renders of the slices and of a streamed Welsh song on
 the card against the same renders on the CPU.
 
@@ -328,6 +331,143 @@ def test_stream_kernel_call_allocates_twice_and_replays(cuda_device,
     y_e, st_e = fn(x, secs, st)
     assert torch.equal(y_g, y_e) and torch.equal(st_g, st_e)
     assert not torch.equal(y_e, y)
+
+
+def _tiled_case(name: str, rows: int, n: int, kind: str):
+    """(wrapper, earlier route, counter, key, x, coefficients) on the CPU;
+    kind: 'full' a curve per row, 'row' one curve for all rows (stride 0
+    along rows), 'time' one value per row held for all time (stride 0
+    along time)."""
+    nb = -(-n // 64)
+    if name == "K4":
+        x = _noise((rows, n), 7)
+        coefs = _lowpass(nb, 25.0, 8000.0, q=2.0)
+        args = (biquad_kernels.biquad_blockrate,
+                biquad_kernels._blockrate_earlier, biquad_kernels.LAUNCHES,
+                "biquad_blockrate")
+    else:
+        x, secs = _sweep(1, 25.0, n, seed=8)
+        x = x.expand(rows, n) * torch.linspace(0.5, 1.0, rows)[:, None]
+        coefs = [tuple(c[0] for c in s) for s in secs]
+        args = (iir_kernels.lp24_refined_blockrate,
+                iir_kernels._refined_earlier, iir_kernels.LAUNCHES,
+                "lp24_refined")
+
+    def view(c):
+        # every row reads whole coefficient sets of the one curve, so each
+        # stays a stable filter
+        if kind == "row":
+            return c.expand(rows, nb)
+        if kind == "time":
+            held = c[(nb // 2 + torch.arange(rows)) % nb]
+            return held.reshape(rows, 1).expand(rows, nb)
+        return torch.stack([torch.roll(c, 3 * r) for r in range(rows)])
+
+    if name == "K4":
+        coefs = tuple(view(c) for c in coefs)
+    else:
+        coefs = [tuple(view(c) for c in s) for s in coefs]
+    return (*args, x.contiguous(), coefs)
+
+
+def _to(coefs, device):
+    if isinstance(coefs, tuple):
+        return tuple(_moved(c, device) for c in coefs)
+    return [tuple(_moved(c, device) for c in s) for s in coefs]
+
+
+def _moved(c: torch.Tensor, device) -> torch.Tensor:
+    """c on `device` with its strides kept (a broadcast stays stride 0)."""
+    base = torch.empty_strided(c.shape, c.stride(), dtype=c.dtype,
+                               device=device)
+    if 0 in c.stride():
+        small = c[tuple(slice(0, 1) if s == 0 else slice(None)
+                        for s in c.stride())]
+        return small.to(device).expand(c.shape)
+    return base.copy_(c)
+
+
+TILED_SHAPES = [(2, 441024, "row"), (64, 65536, "row"), (5, 32589, "row"),
+                (5, 32589, "time"), (3, 1, "full"), (2, 4096, "full"),
+                (2, 4097, "full"), (3, 127 * 128 + 1, "full"),
+                (2, 128 * 128 - 1, "time"),
+                # long enough for K2 to cut its chains into two segments
+                (2, 1100003, "row")]
+
+
+@pytest.mark.parametrize("name", ["K4", "K2"])
+@pytest.mark.parametrize("rows,n,kind", TILED_SHAPES)
+def test_tiled_kernel_matches_twin_and_earlier_route(cuda_device, name, rows,
+                                                     n, kind):
+    """One counted launch of the tiled kernels equals the CPU twin and the
+    earlier multi-launch route bit for bit: the 10-second and the wide
+    shape, n off the in-block length, off a tile and off 16-byte row
+    alignment, both in-block lengths, zero-stride coefficients."""
+    fn, earlier, counts, key, x, coefs = _tiled_case(name, rows, n, kind)
+    xd, cd = x.to(cuda_device), _to(coefs, cuda_device)
+    before = counts[key]
+    y = fn(xd, cd)
+    torch.cuda.synchronize()
+    assert counts[key] == before + 1
+    assert torch.equal(y.cpu(), fn(x, coefs))
+    y_old = earlier(xd, cd)
+    torch.cuda.synchronize()
+    assert torch.equal(y, y_old)
+    assert counts[key] == before + 1
+
+
+@pytest.mark.parametrize("name", ["K4", "K2"])
+def test_tiled_kernel_reads_strided_coefficients(cuda_device, name):
+    """Zero-stride views along rows or time, and column slices of a wider
+    array, give the bits of their contiguous copies."""
+    for kind in ("row", "time"):
+        fn, _, _, _, x, coefs = _tiled_case(name, 6, 20000, kind)
+        xd, cd = x.to(cuda_device), _to(coefs, cuda_device)
+        flat = cd if name == "K4" else [c for s in cd for c in s]
+        assert all(0 in c.stride() for c in flat)
+        dense = (tuple(c.contiguous() for c in cd) if name == "K4"
+                 else [tuple(c.contiguous() for c in s) for s in cd])
+        assert torch.equal(fn(xd, cd), fn(xd, dense))
+    fn, _, _, _, x, coefs = _tiled_case(name, 3, 20000, "full")
+    xd, cd = x.to(cuda_device), _to(coefs, cuda_device)
+    nb = -(-20000 // 64)
+    wide = lambda c: torch.cat([c, c], 1)[:, nb:]  # noqa: E731
+    sliced = (tuple(wide(c) for c in cd) if name == "K4"
+              else [tuple(wide(c) for c in s) for s in cd])
+    assert not (sliced[0] if name == "K4" else sliced[0][3]).is_contiguous()
+    assert torch.equal(fn(xd, sliced), fn(xd, cd))
+
+
+@pytest.mark.parametrize("n", [50000, 2200000], ids=["short", "long"])
+@pytest.mark.parametrize("name,allocations", [("K4", 2), ("K2", 3)])
+def test_tiled_kernel_on_another_stream_and_in_a_graph(cuda_device, name,
+                                                       allocations, n):
+    """A call launches on the current stream, whichever it is (a long K2
+    call forks its chains onto streams of the library's and joins them
+    again); it allocates its outputs and one scratch buffer and nothing
+    else; captured in a CUDA graph, its replay on new input bits equals
+    the eager call."""
+    fn, _, _, _, x, coefs = _tiled_case(name, 4 if n < 10**6 else 2, n, "row")
+    xd, cd = x.to(cuda_device), _to(coefs, cuda_device)
+    y = fn(xd, cd)
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side):
+        y_side = fn(xd, cd)
+    side.synchronize()
+    assert torch.equal(y_side, y)
+    count = "allocation.all.allocated"
+    before = torch.cuda.memory_stats(cuda_device)[count]
+    fn(xd, cd)
+    assert torch.cuda.memory_stats(cuda_device)[count] == before + allocations
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        y_g = fn(xd, cd)
+    xd.mul_(0.5)
+    graph.replay()
+    torch.cuda.synchronize()
+    y_e = fn(xd, cd)
+    assert torch.equal(y_g, y_e) and not torch.equal(y_e, y)
 
 
 def test_welsh_stream_on_card_equals_cpu(cuda_device):
