@@ -29,15 +29,16 @@ Phases, one JSON line each:
      empty kernel launched the same way (launch_floor_ms) and the
      kernel's device time (device_ms: a captured CUDA graph of 20 calls,
      replayed); a captured graph of one call must replay to the eager
-     call's bits. K4 and K2 (csrc/tiled.cuh's shared-memory tiles) are held
-     bit for bit to their twins and to their earlier multi-launch routes
-     at the 10-second shape, at [64, 65536] and at [5, 32589] (n a
-     multiple neither of the in-block length nor of a tile, coefficients
-     broadcast through a zero stride), and timed in turns with the
-     earlier routes there and at the 3-minute size
-     (kernel_vs_earlier_route: ms, earlier_ms, device_ms), a captured
-     graph's replay equal to the eager call; the chain walker's cycles
-     per step come from an instrumented build
+     call's bits. K4, K2, K3 and K6 with static denominators
+     (csrc/tiled.cuh's shared-memory tiles) are held bit for bit to their
+     twins and to their earlier multi-launch routes at the 10-second
+     shape, at [64, 65536] and at [5, 32589] (n a multiple neither of the
+     in-block length nor of a tile, coefficients broadcast through a zero
+     stride), and timed in turns with the earlier routes there and at the
+     3-minute size (kernel_vs_earlier_route: ms, earlier_ms, and the card
+     alone, device_ms and earlier_device_ms), a
+     captured graph's replay equal to the eager call; the chain walker's
+     cycles per step come from an instrumented build
      (groove_tpu_torch/kernels/stage_cycles.py) at the 3-minute size;
   4. the main path through the CLI (groove_tpu_torch.cli.main --wav
      --perf), each run with the launch counts set to 0 just before it and
@@ -207,11 +208,11 @@ def iir_work(kind: str, rows: int, n: int, coef_bytes: float,
     combine); per ln-block 8 in phase 2. A section's chain is 2 dependent
     operations per in-block step and 3 per phase-2 step; the serial
     scan's is 4 per sample (9 operations). K7 and K8 are K3 and K2 with
-    ln pinned to 64. The other cascades count their sections' chains one
-    after the other; K2's four chains run as a wavefront along time
+    ln pinned to 64. A cascade's chains can run as a wavefront along time
     (chain j needs its predecessor only up to the block it has reached),
-    so its dependency chain is one chain of nb steps and the four
-    passes' in-block scans."""
+    so the function's dependency chain is one chain of nb steps and every
+    pass's in-block scans, whatever the row's length and however a
+    kernel cuts it."""
     from groove_tpu_torch.ops.iir_kernels import CBLOCK, geometry
 
     io = 2.0 * rows * n * 4 + coef_bytes + 2.0 * rows * state_rows * 4
@@ -226,7 +227,7 @@ def iir_work(kind: str, rows: int, n: int, coef_bytes: float,
     passes = (2 if kind in ("K2", "K3", "K6", "K7", "K8") else 1) \
         * (2 if kind in ("K2", "K8") else 1)
     flops = rows * (per_sample * n + 8 * nb * passes)
-    chain = 2 * ln * passes + 3 * nb * (1 if kind == "K2" else passes)
+    chain = 2 * ln * passes + 3 * nb
     return io, float(flops), float(chain)
 
 
@@ -358,16 +359,17 @@ def stream_kernel_check(key: str, x, sections, state) -> dict:
             **bounds(*iir_call_work(key, x, sections))}
 
 
-TILED = {"biquad_blockrate": "K4", "lp24_refined": "K2"}
+TILED = {"biquad_blockrate": "K4", "lp24_refined": "K2", "lp24": "K3",
+         "lp24_cascade": "K6"}
 ODD = (5, 2 * 127 * 128 + 77)  # rows, n: no multiple of 128 nor of a tile
 
 
 def tiled_kernel_check(name: str, x, coefs) -> dict:
-    """K4 or K2 beside its earlier multi-launch route on the same inputs:
-    both timed in turns as whole wrapper calls, equal bit for bit; a
-    captured CUDA graph of one call, replayed on a changed input, equal to
-    the eager call; the kernels' device time from a captured graph of
-    GRAPH_CALLS calls."""
+    """K4, K2, K3 or static K6 beside its earlier multi-launch route on the
+    same inputs: both timed in turns as whole wrapper calls, equal bit for
+    bit; a captured CUDA graph of one call, replayed on a changed input,
+    equal to the eager call; the device time of each route from a
+    captured graph of GRAPH_CALLS calls (device_ms, earlier_device_ms)."""
     import torch
     from groove_tpu_torch.ops import biquad_kernels as bk
     from groove_tpu_torch.ops import iir_kernels
@@ -375,7 +377,13 @@ def tiled_kernel_check(name: str, x, coefs) -> dict:
     kern, earlier = {
         "biquad_blockrate": (bk.biquad_blockrate, bk._blockrate_earlier),
         "lp24_refined": (iir_kernels.lp24_refined_blockrate,
-                         iir_kernels._refined_earlier)}[name]
+                         iir_kernels._refined_earlier),
+        "lp24": (iir_kernels.lp24_blockrate,
+                 lambda a, c: iir_kernels._cascade_earlier(a, c, True)),
+        "lp24_cascade": (iir_kernels.lp24_cascade,
+                         lambda a, c: iir_kernels._cascade_earlier(a, c,
+                                                                   False))
+    }[name]
     ms, earlier_ms, new, old = in_turns(lambda: kern(x, coefs),
                                         lambda: earlier(x, coefs), 10)
     xg = x.clone()
@@ -386,13 +394,17 @@ def tiled_kernel_check(name: str, x, coefs) -> dict:
     one.replay()
     torch.cuda.synchronize()
     y_half = kern(xg, coefs)
-    many = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(many):
-        for _ in range(GRAPH_CALLS):
-            kern(x, coefs)
-    graph_ms, _ = cuda_ms(many.replay, 5)
+    device = []
+    for fn in (kern, earlier):
+        many = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(many):
+            for _ in range(GRAPH_CALLS):
+                fn(x, coefs)
+        device.append(cuda_ms(many.replay, 5)[0] / GRAPH_CALLS)
+        del many
     return {"name": name, "shape": list(x.shape), "ms": ms,
-            "earlier_ms": earlier_ms, "device_ms": graph_ms / GRAPH_CALLS,
+            "earlier_ms": earlier_ms, "device_ms": device[0],
+            "earlier_device_ms": device[1],
             "equals_earlier_route": bool(torch.equal(new, old)),
             "graph_replay_equals_eager": bool(
                 torch.equal(y_g, y_half) and not torch.equal(y_half, new)),
@@ -582,11 +594,14 @@ def main() -> int:
         "biquad_blockrate", lambda: bk.biquad_blockrate(bus_b, held),
         lambda: bk.biquad_blockrate_plain(bus_b, held), bus_b.abs().max(),
         iir_call_work("biquad_blockrate", bus_b, held)))
+    bank = bank_calls(rb, bus_b)
     tiled_checks = [
         tiled_kernel_check("lp24_refined", x, secs),
-        tiled_kernel_check("biquad_blockrate", bus_b, bank_calls(
-            rb, bus_b)["biquad_blockrate"][3])]
-    del r, rb, hits, bus, bus_b, x, secs, x2, den, held
+        tiled_kernel_check("biquad_blockrate", bus_b,
+                           bank["biquad_blockrate"][3]),
+        tiled_kernel_check("lp24", x, secs),
+        tiled_kernel_check("lp24_cascade", *bank["lp24_cascade"][2:])]
+    del r, rb, hits, bus, bus_b, x, secs, x2, den, held, bank
 
     # [64, 65536]: many rows through sweeps that rest near 25 Hz
     g = torch.Generator().manual_seed(0)
@@ -637,11 +652,23 @@ def main() -> int:
         "biquad_blockrate", lambda: bk.biquad_blockrate(xo, co),
         lambda: bk.biquad_blockrate_plain(xo, co), xo.abs().max(),
         iir_call_work("biquad_blockrate", xo, co)))
+    results.append(compare(
+        "lp24", lambda: iir_kernels.lp24_blockrate(xo, so),
+        lambda: iir_kernels.lp24_blockrate_plain(xo2, *deno),
+        xo.abs().max(), iir_call_work("lp24", xo, so)))
+    results.append(compare(
+        "lp24_cascade", lambda: iir_kernels.lp24_cascade(xo, lp8k),
+        lambda: iir_kernels.lp24_cascade_plain(xo, lp8k), xo.abs().max(),
+        iir_call_work("lp24_cascade", xo, lp8k)))
     tiled_checks += [
         tiled_kernel_check("lp24_refined", xg, sw),
         tiled_kernel_check("biquad_blockrate", xw, wide[0][3]),
+        tiled_kernel_check("lp24", xg, sw),
+        tiled_kernel_check("lp24_cascade", xw, lp8k),
         tiled_kernel_check("lp24_refined", xo, so),
-        tiled_kernel_check("biquad_blockrate", xo, co)]
+        tiled_kernel_check("biquad_blockrate", xo, co),
+        tiled_kernel_check("lp24", xo, so),
+        tiled_kernel_check("lp24_cascade", xo, lp8k)]
     del xo, so, co, xo2, deno
     # K7 and K8 at [64, 65536] from the state a first call carries out
     # and at [12, 2 tiles + 192]: many shared-memory tiles, the last one
@@ -723,11 +750,14 @@ def main() -> int:
     for name, fn, wk in alone:
         ms, _ = cuda_ms(fn, 5)
         emit("kernel_at_song_size", name=name, frames=n, ms=ms, **bounds(*wk))
+    bank = bank_calls(rb, bus_b)
     tiled_checks += [
         tiled_kernel_check("lp24_refined", x, secs),
-        tiled_kernel_check("biquad_blockrate", bus_b, bank_calls(
-            rb, bus_b)["biquad_blockrate"][3])]
-    del r, rb, hits, bus, bus_b, x, secs, alone
+        tiled_kernel_check("biquad_blockrate", bus_b,
+                           bank["biquad_blockrate"][3]),
+        tiled_kernel_check("lp24", x, secs),
+        tiled_kernel_check("lp24_cascade", *bank["lp24_cascade"][2:])]
+    del r, rb, hits, bus, bus_b, x, secs, alone, bank
     for res in tiled_checks:
         emit("kernel_vs_earlier_route", kind=TILED[res["name"]], **res)
         require(res["equals_earlier_route"], f"{res['name']} differs from "
@@ -740,7 +770,7 @@ def main() -> int:
     prof_dir = build.BUILD_DIR / "stage_cycles"
     prof_dir.mkdir(parents=True, exist_ok=True)
     prof = stage_cycles.build_tiled_profile(prof_dir)
-    for kind in ("K4", "K2"):
+    for kind in ("K4", "K2", "K3", "K6"):
         res = stage_cycles.tiled_cycles(prof, kind, 2, n)
         emit("chain_cycles", **res)
         per_step = res["cycles_per_chain_step"]["chain"]

@@ -98,7 +98,8 @@ int tiled_scan(const float* x, const tiled::Biquad& sec, float* y, float* m,
   if (!allowed[dev]) {
     err = tiled::allow(tiled::maps_kernel<M, kLn, tiled::Biquad>, kBytes);
     if (err != 0) return err;
-    err = tiled::allow(tiled::combine_kernel<M, kLn, tiled::Biquad>, kBytes);
+    err = tiled::allow(tiled::combine_kernel<M, kLn, tiled::Biquad, false>,
+                       kBytes);
     if (err != 0) return err;
     allowed[dev] = true;
   }
@@ -108,8 +109,9 @@ int tiled_scan(const float* x, const tiled::Biquad& sec, float* y, float* m,
   tiled::maps_kernel<M, kLn, tiled::Biquad>
       <<<g, tiled::kSlots, kBytes, stream>>>(x, sec, m, c, n, nb, all);
   tdf2::chain(m, c, s, nb, B, tdf2::kNoCarry, stream);
-  tiled::combine_kernel<M, kLn, tiled::Biquad>
-      <<<g, tiled::kSlots, kBytes, stream>>>(x, sec, s, y, n, nb, all);
+  tiled::combine_kernel<M, kLn, tiled::Biquad, false>
+      <<<g, tiled::kSlots, kBytes, stream>>>(x, sec, sec, s, y, nullptr,
+                                             nullptr, n, nb, all);
   return (int)cudaGetLastError();
 }
 

@@ -29,34 +29,40 @@
 //     memory: the scratch is ya [B, n] and 48 bytes per ln-block (the maps
 //     M, C, the entry states S, the correction's offsets R and entry
 //     states Sc). The defect's history across tiles is recomputed from a
-//     halo block (tiled.cuh), not exported. A long row is cut into up to 8
-//     segments of whole tiles and the four chains run as a wavefront along
-//     time, each on a stream of its own with its scan behind it: chain j
-//     needs chain j - 1 and its scan only up to the block it has reached
-//     (see Wave below). The streams fork from the caller's and join it
-//     before the call returns.
-//   lp24_cascade  K3 and K6; K2's earlier route (14 launches over six
-//     [B, npad] scratch arrays), kept callable as the yardstick
-//     lp24_refined_tiled is timed against; and the earlier stateful route
-//     of the stream cascades, the yardstick of lp24_stream.cu: K3 and K2
-//     with ln pinned to 64 and a State, each chain starting from the
-//     carried pair and exporting its exit (tdf2::Carry), the refined
-//     cascade's defect reading the previous call's z, y0 and coefficient
-//     edges (History) and exporting its own (edges_kernel). None of the
-//     yardsticks is on a render path. Per section: tdf2::phase1_kernel (a
-//     thread per (row, ln-block) walking device memory), tdf2::chain, an
-//     elementwise combine; refined adds an elementwise defect pass, an
-//     r-only correction scan that reuses p11/p12, a second chain and a
-//     second combine. K6 is K3 with the denominators read per sample
-//     (tdf2::kSample, through strides) or passed by value (tdf2::kScalar),
-//     with the caller's ln = block_for(n, 128).
+//     halo block (tiled.cuh), not exported.
+//   lp24_tiled  K3 (kBlock) and K6 with static denominators (kScalar), on
+//     the same tiles, 5 launches: section A's maps -> chain -> combine,
+//     writing ya and, in the same loop, section B's block maps -> chain ->
+//     section B's combine, writing y. The scratch is ya and 32 bytes per
+//     ln-block (M, C, S). K6 takes every ln that block_for gives a static
+//     section (16 to 128); K3 takes 64 and 128.
+//   Both cut a long row into up to 8 segments of whole tiles and run their
+//     chains as a wavefront along time, each stage on a stream of its own:
+//     a chain needs the stage before it only up to the block it has
+//     reached (see Lanes below). The streams fork from the caller's and
+//     join it before the call returns.
+//   lp24_cascade  K6 with per-sample denominators (tdf2::kSample, read
+//     through strides; a staged per-sample coefficient tile for tiled.cuh
+//     is still to come), and the earlier routes kept callable as the
+//     yardsticks the tiled kernels are timed against: K2's (14 launches
+//     over six [B, npad] scratch arrays), K3's and static K6's, and the
+//     earlier stateful route of the stream cascades, the yardstick of
+//     lp24_stream.cu: K3 and K2 with ln pinned to 64 and a State, each
+//     chain starting from the carried pair and exporting its exit
+//     (tdf2::Carry), the refined cascade's defect reading the previous
+//     call's z, y0 and coefficient edges (History) and exporting its own
+//     (edges_kernel). None of the yardsticks is on a render path. Per
+//     section: tdf2::phase1_kernel (a thread per (row, ln-block) walking
+//     device memory), tdf2::chain, an elementwise combine; refined adds an
+//     elementwise defect pass, an r-only correction scan that reuses
+//     p11/p12, a second chain and a second combine.
 //
 // What bounds it on the H100: the chains (see tdf2.cuh), four per refined
 // call and two per single pass, each n / ln dependent steps per row; with
 // the two rows of a stereo bus nothing else is serial. One after the other
-// the four chains are four times one chain's latency; as a wavefront they
-// cost one chain and the pipeline's fill, which is what the tiled route
-// does. Its scans run at the card's width from shared memory;
+// the chains are two or four times one chain's latency; as a wavefront
+// they cost one chain and the pipeline's fill, which is what the tiled
+// routes do. Their scans run at the card's width from shared memory;
 // lp24_cascade's phase 1 and correction scan are latency-bound on their
 // strided walks of device memory.
 
@@ -241,12 +247,14 @@ void cascade(bool refined, const float* x, const Coef* na1s,
   }
 }
 
-// K2's four chains (solve and correction of sections A and B) each wait
-// for the scan before them, but only up to the block they have reached: a
-// long row is cut into segments of whole tiles, every chain gets a lane (a
+// The wavefront of the tiled cascades. Each chain, and the scan after it,
+// waits for the stage before it only up to the block it has reached: a long
+// row is cut into segments of whole tiles, every stage gets a lane (a
 // stream), and lane j works on segment i while lane j - 1 works on segment
 // i + 1. A segment must outlast its launches by far, so short rows stay in
-// one segment on the caller's stream.
+// one segment on the caller's stream. K2 gives each of its four chains a
+// lane with its scan behind it; K3 and K6 give their two chains and two
+// combines a lane each, so that neither chain waits for a combine.
 constexpr int kLanes = 4;
 constexpr int kMaxSegments = 8;
 constexpr int kMinSegmentTiles = 32;  // about 4,000 chain steps
@@ -274,6 +282,66 @@ int wave_of(int dev, Wave*& w) {
   return (int)err;
 }
 
+// One call's lanes over a row of `tiles` tiles of `per` blocks each: the
+// segments it is cut into and, for more than one, the library's side
+// streams, which fork from the caller's (lane 0) after what was issued there
+// first and join it before the call returns.
+struct Lanes {
+  int segments = 1, seg_tiles = 0, per = 0;
+  Wave* w = nullptr;
+  cudaStream_t lane[kLanes];
+
+  int plan(int dev, int tiles, int blocks_per_tile, cudaStream_t stream) {
+    per = blocks_per_tile;
+    segments = tiles / kMinSegmentTiles;
+    segments = segments < 1 ? 1 : (segments > kMaxSegments ? kMaxSegments
+                                                            : segments);
+    seg_tiles = (tiles + segments - 1) / segments;
+    segments = (tiles + seg_tiles - 1) / seg_tiles;
+    for (int j = 0; j < kLanes; ++j) lane[j] = stream;
+    if (!wave()) return 0;
+    const int err = wave_of(dev, w);
+    for (int j = 1; j < kLanes && err == 0; ++j) lane[j] = w->lane[j];
+    return err;
+  }
+
+  bool wave() const { return segments > 1; }
+
+  void fork() const {
+    if (!wave()) return;
+    cudaEventRecord(w->fork, lane[0]);
+    for (int j = 1; j < kLanes; ++j) cudaStreamWaitEvent(lane[j], w->fork, 0);
+  }
+
+  // The tiles of segment i, and its first block k0 and block count steps.
+  tiled::Span span(int i, int tiles, int nb, int& k0, int& steps) const {
+    const int left = tiles - i * seg_tiles;
+    const tiled::Span sp = {i * seg_tiles, left < seg_tiles ? left : seg_tiles};
+    k0 = sp.tile0 * per;
+    steps = nb - k0 < sp.tiles * per ? nb - k0 : sp.tiles * per;
+    return sp;
+  }
+
+  // The state chain j hands from segment to segment in carries [.., B, 2].
+  tdf2::Carry carry(float* carries, int B, int j, int i) const {
+    float* p = carries + (size_t)j * 2 * B;
+    return tdf2::Carry{i == 0 ? nullptr : p, wave() ? p : nullptr, 2};
+  }
+
+  // Lane j's segment i is done: lane j + 1 may go.
+  void handed(int j, int i) const {
+    if (!wave()) return;
+    cudaEventRecord(w->done[j][i], lane[j]);
+    if (j + 1 < kLanes) cudaStreamWaitEvent(lane[j + 1], w->done[j][i], 0);
+  }
+
+  void join() const {
+    if (!wave()) return;
+    for (int j = 1; j < kLanes; ++j)
+      cudaStreamWaitEvent(lane[0], w->done[j][segments - 1], 0);
+  }
+};
+
 // K2 on shared-memory tiles: section A's phase 1, then per segment and
 // section chain, defect + correction scan, chain, second combine (section
 // A's also runs section B's phase 1). 9 launches for one segment.
@@ -285,7 +353,6 @@ int refined_tiled(const float* x, const tiled::Lp24* secs, float* y,
                   cudaStream_t stream) {
   constexpr int M = kBlock;
   constexpr int kBytes = tiled::smem_bytes(kLn);
-  constexpr int kPer = tiled::kSlots - 1;  // blocks a tile with a halo covers
   static bool allowed[tiled::kMaxDevices] = {};
   int err = 0;
   const int dev = tiled::device_index(err);
@@ -303,72 +370,109 @@ int refined_tiled(const float* x, const tiled::Lp24* secs, float* y,
   }
   const int nb = (int)((n + kLn - 1) / kLn);
   const int tiles = tiled::tiles_of(nb, 1);
-  int segments = tiles / kMinSegmentTiles;
-  segments = segments < 1 ? 1 : (segments > kMaxSegments ? kMaxSegments
-                                                          : segments);
-  const int seg_tiles = (tiles + segments - 1) / segments;
-  segments = (tiles + seg_tiles - 1) / seg_tiles;
-  const bool wave = segments > 1;
-  Wave* w = nullptr;
-  if (wave && (err = wave_of(dev, w)) != 0) return err;
-  cudaStream_t lane[kLanes];
-  for (int j = 0; j < kLanes; ++j)
-    lane[j] = wave && j > 0 ? w->lane[j] : stream;
-
+  Lanes wave;  // a tile with a halo covers kSlots - 1 blocks
+  if ((err = wave.plan(dev, tiles, tiled::kSlots - 1, stream)) != 0)
+    return err;
   const tiled::Span all = {0, tiled::tiles_of(nb, 0)};
   tiled::maps_kernel<M, kLn, tiled::Lp24>
       <<<(unsigned)B * all.tiles, tiled::kSlots, kBytes, stream>>>(
           x, secs[0], m, c, n, nb, all);
-  if (wave) {
-    cudaEventRecord(w->fork, stream);
-    for (int j = 1; j < kLanes; ++j) cudaStreamWaitEvent(lane[j], w->fork, 0);
-  }
-  for (int i = 0; i < segments; ++i) {
-    const int left = tiles - i * seg_tiles;
-    const tiled::Span sp = {i * seg_tiles,
-                            left < seg_tiles ? left : seg_tiles};
+  wave.fork();
+  const cudaStream_t* lane = wave.lane;
+  for (int i = 0; i < wave.segments; ++i) {
+    int k0, steps;
+    const tiled::Span sp = wave.span(i, tiles, nb, k0, steps);
     const unsigned g = (unsigned)B * sp.tiles;
-    const int k0 = sp.tile0 * kPer;
-    const int steps = nb - k0 < sp.tiles * kPer ? nb - k0 : sp.tiles * kPer;
-    auto carry = [&](int j) {
-      float* p = carries + (size_t)j * 2 * B;
-      return tdf2::Carry{i == 0 ? nullptr : p, wave ? p : nullptr, 2};
-    };
-    auto handed = [&](int j) {  // lane j's segment is done: lane j + 1 may go
-      if (!wave) return;
-      cudaEventRecord(w->done[j][i], lane[j]);
-      if (j + 1 < kLanes) cudaStreamWaitEvent(lane[j + 1], w->done[j][i], 0);
-    };
     // lane 0: section A's solve chain, then its defect and correction scan
-    tdf2::chain(m, c, sa, nb, B, carry(0), lane[0], k0, steps);
+    tdf2::chain(m, c, sa, nb, B, wave.carry(carries, B, 0, i), lane[0], k0,
+                steps);
     tiled::defect_scan_kernel<M, kLn>
         <<<g, tiled::kSlots, kBytes, lane[0]>>>(x, secs[0], sa, r, n, nb, sp);
-    handed(0);
+    wave.handed(0, i);
     // lane 1: its correction chain, then its second combine, which writes
     // ya and puts section B's maps where section A's were (spent here)
-    tdf2::chain(m, r, sc, nb, B, carry(1), lane[1], k0, steps);
+    tdf2::chain(m, r, sc, nb, B, wave.carry(carries, B, 1, i), lane[1], k0,
+                steps);
     tiled::refine_kernel<M, kLn, true><<<g, tiled::kSlots, kBytes, lane[1]>>>(
         x, secs[0], secs[1], sa, sc, ya, m, c, n, nb, sp);
-    handed(1);
+    wave.handed(1, i);
     // lanes 2 and 3: the same for section B, from ya to y. Its solve's
     // entry states have their own array: a later segment's halo still
     // reads section A's.
-    tdf2::chain(m, c, sb, nb, B, carry(2), lane[2], k0, steps);
+    tdf2::chain(m, c, sb, nb, B, wave.carry(carries, B, 2, i), lane[2], k0,
+                steps);
     tiled::defect_scan_kernel<M, kLn>
         <<<g, tiled::kSlots, kBytes, lane[2]>>>(ya, secs[1], sb, r, n, nb,
                                                 sp);
-    handed(2);
-    tdf2::chain(m, r, sc, nb, B, carry(3), lane[3], k0, steps);
+    wave.handed(2, i);
+    tdf2::chain(m, r, sc, nb, B, wave.carry(carries, B, 3, i), lane[3], k0,
+                steps);
     tiled::refine_kernel<M, kLn, false>
         <<<g, tiled::kSlots, kBytes, lane[3]>>>(ya, secs[1], secs[1], sb, sc,
                                                 y, nullptr, nullptr, n, nb,
                                                 sp);
-    handed(3);
+    wave.handed(3, i);
   }
-  if (wave) {  // every lane joins the caller's stream
-    for (int j = 1; j < kLanes; ++j)
-      cudaStreamWaitEvent(stream, w->done[j][segments - 1], 0);
+  wave.join();
+  return (int)cudaGetLastError();
+}
+
+// K3 and K6 (kBlock, kScalar) on shared-memory tiles: section A's phase 1,
+// then per segment section A's chain, section A's combine (which writes ya
+// and, in the same loop, section B's block maps over section A's, spent
+// here), section B's chain and section B's combine into y: 5 launches for
+// one segment. One array of entry states s serves both chains: section B's
+// chain writes a segment's only after section A's combine has read them.
+// carries: [2][B][2], the state each chain hands from segment to segment.
+template <int M, int kLn>
+int single_tiled(const float* x, const tiled::Lp24* secs, float* y,
+                 float* ya, float* m, float* c, float* s, float* carries,
+                 int B, int64_t n, cudaStream_t stream) {
+  constexpr int kBytes = tiled::smem_bytes(kLn);
+  static bool allowed[tiled::kMaxDevices] = {};
+  int err = 0;
+  const int dev = tiled::device_index(err);
+  if (err != 0) return err;
+  if (!allowed[dev]) {
+    err = tiled::allow(tiled::maps_kernel<M, kLn, tiled::Lp24>, kBytes);
+    if (err != 0) return err;
+    err = tiled::allow(tiled::combine_kernel<M, kLn, tiled::Lp24, true>,
+                       kBytes);
+    if (err != 0) return err;
+    err = tiled::allow(tiled::combine_kernel<M, kLn, tiled::Lp24, false>,
+                       kBytes);
+    if (err != 0) return err;
+    allowed[dev] = true;
   }
+  const int nb = (int)((n + kLn - 1) / kLn);
+  const int tiles = tiled::tiles_of(nb, 0);
+  Lanes wave;
+  if ((err = wave.plan(dev, tiles, tiled::kSlots, stream)) != 0) return err;
+  tiled::maps_kernel<M, kLn, tiled::Lp24>
+      <<<(unsigned)B * tiles, tiled::kSlots, kBytes, stream>>>(
+          x, secs[0], m, c, n, nb, tiled::Span{0, tiles});
+  wave.fork();
+  const cudaStream_t* lane = wave.lane;
+  for (int i = 0; i < wave.segments; ++i) {
+    int k0, steps;
+    const tiled::Span sp = wave.span(i, tiles, nb, k0, steps);
+    const unsigned g = (unsigned)B * sp.tiles;
+    tdf2::chain(m, c, s, nb, B, wave.carry(carries, B, 0, i), lane[0], k0,
+                steps);
+    wave.handed(0, i);
+    tiled::combine_kernel<M, kLn, tiled::Lp24, true>
+        <<<g, tiled::kSlots, kBytes, lane[1]>>>(x, secs[0], secs[1], s, ya,
+                                                m, c, n, nb, sp);
+    wave.handed(1, i);
+    tdf2::chain(m, c, s, nb, B, wave.carry(carries, B, 1, i), lane[2], k0,
+                steps);
+    wave.handed(2, i);
+    tiled::combine_kernel<M, kLn, tiled::Lp24, false>
+        <<<g, tiled::kSlots, kBytes, lane[3]>>>(ya, secs[1], secs[1], s, y,
+                                                nullptr, nullptr, n, nb, sp);
+    wave.handed(3, i);
+  }
+  wave.join();
   return (int)cudaGetLastError();
 }
 
@@ -379,9 +483,10 @@ int refined_tiled(const float* x, const tiled::Lp24* secs, float* y,
 // read in `mode` (tdf2::Mode): kScalar takes the values v1a, v2a, v1b, v2b;
 // kBlock and kSample take the arrays, all four indexed by one layout (row
 // stride rs, entry stride ts, count entries per row). refined (K2, K8)
-// needs kBlock. state_in/state_out: null for K2, K3 and K6; for the
-// earlier route of the stream cascades (refined = 0 or 1) the carried
-// state [B, 4] or [B, 20] entering and leaving the call (distinct buffers;
+// needs kBlock. state_in/state_out: null for K6 and the earlier routes of
+// K2, K3 and static K6; for the earlier route of the stream cascades
+// (refined = 0 or 1) the carried state [B, 4] or [B, 20] entering and
+// leaving the call (distinct buffers;
 // the caller pins ln = 64 and n = npad, a multiple of 64, so the exit is
 // the last real block's). Scratch, all allocated by the caller: p11, p12,
 // q1, ya (and y0, d when refined): [B, npad]; m: [B, nb, 4]; c, s:
@@ -460,4 +565,62 @@ extern "C" int lp24_refined_tiled(const float* x, const float* a1a,
     return refined_tiled<128>(x, secs, y, ya, m, c, sa, sb, r, sc, carries, B,
                               n, stream);
   return (int)cudaErrorInvalidValue;
+}
+
+// K3 (mode kBlock) and K6 with static denominators (mode kScalar) over
+// [B, n] rows on shared-memory tiles (tiled.cuh). x and y are contiguous
+// [B, n]: nothing is padded. kBlock: the POSITIVE block-rate denominators
+// a1a, a2a, a1b, a2b are [B, count] arrays as the caller holds them, each
+// read through its own strides (strides[2 i] the row stride and
+// strides[2 i + 1] the entry stride of stream i, in elements; 0
+// broadcasts), with ln 64 or 128. kScalar: the positive values v1a, v2a,
+// v1b, v2b (the arrays, strides and count are not read), with ln 16, 32,
+// 64 or 128. Either way they are negated in registers, and nb =
+// ceil(n / ln). Scratch, allocated by the caller: ya [B, n];
+// m [B, nb, 4] (16-byte aligned); c, s [B, nb, 2]; carries [2, B, 2]. Five
+// launches per segment (one segment below some 8,000 ln-blocks a row, up
+// to 8 above), issued on `stream` and, for several segments, on three
+// streams of the library's that fork from it and join it again before the
+// call returns; never synchronises; returns cudaGetLastError().
+extern "C" int lp24_tiled(int mode, const float* x, const float* a1a,
+                          const float* a2a, const float* a1b,
+                          const float* a2b, const int64_t* strides,
+                          int64_t count, float v1a, float v2a, float v1b,
+                          float v2b, float* y, float* ya, float* m, float* c,
+                          float* s, float* carries, int B, int64_t n, int ln,
+                          void* stream_handle) {
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_handle);
+  if (B <= 0 || n <= 0) return (int)cudaErrorInvalidValue;
+  const float* p[4] = {a1a, a2a, a1b, a2b};
+  const float v[4] = {v1a, v2a, v1b, v2b};
+  tiled::Stream st[4];
+  for (int i = 0; i < 4; ++i) {
+    st[i] = {{p[i], v[i]}, {0, 0, 1}};
+    if (mode == kBlock)
+      st[i].l = {strides[2 * i], strides[2 * i + 1], count};
+  }
+  const tiled::Lp24 secs[2] = {{st[0], st[1]}, {st[2], st[3]}};
+  if (mode == kBlock && ln == 64)
+    return single_tiled<kBlock, 64>(x, secs, y, ya, m, c, s, carries, B, n,
+                                    stream);
+  if (mode == kBlock && ln == 128)
+    return single_tiled<kBlock, 128>(x, secs, y, ya, m, c, s, carries, B, n,
+                                     stream);
+  if (mode != tdf2::kScalar) return (int)cudaErrorInvalidValue;
+  switch (ln) {
+    case 16:
+      return single_tiled<tdf2::kScalar, 16>(x, secs, y, ya, m, c, s,
+                                             carries, B, n, stream);
+    case 32:
+      return single_tiled<tdf2::kScalar, 32>(x, secs, y, ya, m, c, s,
+                                             carries, B, n, stream);
+    case 64:
+      return single_tiled<tdf2::kScalar, 64>(x, secs, y, ya, m, c, s,
+                                             carries, B, n, stream);
+    case 128:
+      return single_tiled<tdf2::kScalar, 128>(x, secs, y, ya, m, c, s,
+                                              carries, B, n, stream);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }

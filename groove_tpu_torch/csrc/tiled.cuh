@@ -1,8 +1,9 @@
 // Tiled in-block scans for Hopper (sm_90a): the phase 1, the combines and
 // the refined cascade's defect and correction scan of the two-level TDF2
 // scheme (tdf2.cuh), on tiles of a row that live in shared memory. biquad.cu
-// runs K4 on them (biquad_tiled) and lp24.cu runs K2 (lp24_refined_tiled);
-// the chain between the scans is tdf2::chain.
+// runs K4 on them (biquad_tiled) and lp24.cu runs K2 (lp24_refined_tiled),
+// K3 and K6's static form (lp24_tiled); the chain between the scans is
+// tdf2::chain.
 //
 // What bounds it on the H100. An in-block scan is ln dependent steps per
 // ln-block and there are rows * n / ln blocks, so the scans are as parallel
@@ -11,18 +12,21 @@
 // apart: a sector per lane and a load's latency per step) or keep prefix
 // rows in device memory between launches. So:
 //   tile      a thread block stages kSlots = 128 consecutive ln-blocks of
-//             one row (64 KB at ln = 128, 32 KB at ln = 64; three blocks fit
-//             an SM) with coalesced 16-byte cp.async copies, zero-filling
+//             one row (64 KB at ln = 128, 32 KB at ln = 64, 16 and 8 KB at
+//             the static lp24's ln = 32 and 16; three blocks fit an SM)
+//             with coalesced 16-byte cp.async copies, zero-filling
 //             past n itself, so the caller pads nothing. A row whose start
 //             is not 16-byte aligned (n % 4 != 0) is copied 4 bytes at a
 //             time.
 //   layout    slot t holds ln-block t as ln / 4 chunks of 16 bytes; chunk j
-//             of slot t lives at chunk position j ^ (t & 7) of the slot.
-//             Thread t scans slot t chunk by chunk as float4: at every step
-//             the 8 lanes of a quarter warp touch 8 different 16-byte bank
-//             groups (unswizzled they would all touch one), and the
-//             coalesced fills and drains touch consecutive chunks of one
-//             slot, a permutation within each group of 8.
+//             of slot t lives at chunk position j ^ (t & 7) of the slot
+//             (j ^ ((t >> 1) & 3) at ln = 16, whose slot is 4 chunks: two
+//             neighbouring slots share the 8 bank groups). Thread t scans
+//             slot t chunk by chunk as float4: at every step the 8 lanes of
+//             a quarter warp touch 8 different 16-byte bank groups
+//             (unswizzled they would touch one or two), and the coalesced
+//             fills and drains touch consecutive chunks of one or two
+//             slots, a permutation within each group of 8.
 //   scans     one thread per ln-block keeps the whole recurrence in
 //             registers (tdf2::step, tdf2::corr_step, tdf2::lp24_defect: the
 //             bits of the multi-launch kernels and of the plain twins) and
@@ -32,7 +36,9 @@
 //             (M, C); a combine stages the tile again and re-runs the same
 //             scan beside the entry state S, writes its output over the
 //             tile in place and drains it to device memory coalesced. K4
-//             reads x twice and writes y once.
+//             reads x twice and writes y once. A cascade's first combine
+//             also runs the next section's phase 1 on its output in the
+//             same loop (kNext), so the section between them is read once.
 //   the refined cascade's defect reads the section input z and the solve y0
 //             at lags 1 and 2. Inside an ln-block they are the scanning
 //             thread's own registers; across ln-blocks they are the
@@ -55,7 +61,8 @@
 // The templates take tdf2::Mode and hold a coefficient for 64 frames at a
 // time, which serves kScalar and kBlock; a per-sample stream (kSample)
 // needs its own staged tile and is refused at compile time until a kernel
-// brings it.
+// brings it. An ln-block of 16 or 32 samples (a static section's short
+// rows: ln = block_for(n, 128)) holds one set for the whole block.
 
 #pragma once
 
@@ -71,8 +78,12 @@ constexpr int kCB = 1 << tdf2::kCBlockShift;
 constexpr int kMaxDevices = 64;
 // a tile, then one float4 of edges per slot
 constexpr int smem_bytes(int ln) { return (kSlots * ln + 4 * kSlots) * 4; }
+constexpr int kSmemBytes16 = 10240;
+constexpr int kSmemBytes32 = 18432;
 constexpr int kSmemBytes64 = 34816;
 constexpr int kSmemBytes128 = 67584;
+static_assert(smem_bytes(16) == kSmemBytes16, "ln = 16 shared memory");
+static_assert(smem_bytes(32) == kSmemBytes32, "ln = 32 shared memory");
 static_assert(smem_bytes(64) == kSmemBytes64, "ln = 64 shared memory");
 static_assert(smem_bytes(128) == kSmemBytes128, "ln = 128 shared memory");
 static_assert(3 * kSmemBytes128 <= 232448, "three blocks to an SM");
@@ -106,11 +117,31 @@ __device__ __forceinline__ Where where(Span sp) {
   return {(int64_t)(blockIdx.x / sp.tiles), tile * (kSlots - kHalo) - kHalo};
 }
 
+// The samples of an ln-block that share one coefficient set: the 64-frame
+// control block, or the whole ln-block when ln < 64.
+template <int kLn>
+struct CoefSet {
+  static constexpr int len = kLn < kCB ? kLn : kCB;
+};
+
+// The pattern chunk j of slot `slot` is XORed with (see the layout above).
+template <int kLn>
+__device__ __forceinline__ int swizzle(int slot) {
+  constexpr int kRow = kLn / 4;
+  static_assert(kRow == 4 || kRow % 8 == 0, "ln is 16, 32, 64 or 128");
+  if constexpr (kRow >= 8) {
+    return slot & 7;
+  } else {
+    return (slot >> 1) & 3;
+  }
+}
+
 template <int kLn>
 __device__ __forceinline__ float4* chunk_of(float* tile, int g) {
   constexpr int kRow = kLn / 4;
   const int slot = g / kRow, j = g % kRow;
-  return reinterpret_cast<float4*>(tile) + slot * kRow + (j ^ (slot & 7));
+  return reinterpret_cast<float4*>(tile) + slot * kRow +
+         (j ^ swizzle<kLn>(slot));
 }
 
 // Stage ln-blocks first .. first + kSlots - 1 of the row at xr (n samples)
@@ -170,24 +201,25 @@ __device__ __forceinline__ void drain(float* tile, float* yr, int64_t n,
 }
 
 // Walk the kLn samples of slot `slot` as float4 chunks through the swizzle:
-// enter(cb) at the start of each 64-frame control block cb of the ln-block
-// (a compile-time constant after unrolling), then sample(jl, v) for each of
-// its samples, jl = 0..63, which may change v; kStore writes the chunk
-// back. The next chunk is read before this one is worked on and stored, so
-// no step waits for its own load.
+// enter(cb) at the start of each coefficient set cb of the ln-block
+// (CoefSet; a compile-time constant after unrolling), then sample(jl, v) for
+// each of its samples, jl = 0 .. CoefSet<kLn>::len - 1, which may change v;
+// kStore writes the chunk back. The next chunk is read before this one is
+// worked on and stored, so no step waits for its own load.
 template <int kLn, bool kStore, class Enter, class Sample>
 __device__ __forceinline__ void walk(float* tile, int slot, Enter enter,
                                      Sample sample) {
   constexpr int kRow = kLn / 4;
+  constexpr int kSeg = CoefSet<kLn>::len;
   float4* r = reinterpret_cast<float4*>(tile) + slot * kRow;
-  const int sw = slot & 7;
+  const int sw = swizzle<kLn>(slot);
   float4 cur = r[sw];
 #pragma unroll
-  for (int cb = 0; cb < kLn / kCB; ++cb) {
+  for (int cb = 0; cb < kLn / kSeg; ++cb) {
     enter(cb);
 #pragma unroll 4
-    for (int i = 0; i < kCB / 4; ++i) {
-      const int j = cb * (kCB / 4) + i;
+    for (int i = 0; i < kSeg / 4; ++i) {
+      const int j = cb * (kSeg / 4) + i;
       const float4 nxt = r[min(j + 1, kRow - 1) ^ sw];
       sample(4 * i, cur.x);
       sample(4 * i + 1, cur.y);
@@ -249,19 +281,20 @@ struct Lp24 {
   }
 };
 
-// A section's terms over an ln-block, a set per control block.
+// A section's terms over an ln-block, one set per CoefSet.
 template <int M, int kLn>
 struct Held {
   static_assert(M != tdf2::kSample,
                 "a per-sample stream needs a staged coefficient tile");
-  Terms t[kLn / kCB];
+  static constexpr int kSeg = CoefSet<kLn>::len;
+  Terms t[kLn / kSeg];
 
   template <class Sec>
   __device__ __forceinline__ void load(const Sec& sec, int64_t row,
                                        int64_t k0) {
 #pragma unroll
-    for (int i = 0; i < kLn / kCB; ++i)
-      t[i] = sec.template terms<M>(row, k0 + i * kCB);
+    for (int i = 0; i < kLn / kSeg; ++i)
+      t[i] = sec.template terms<M>(row, k0 + i * kSeg);
   }
 };
 
@@ -315,11 +348,16 @@ __global__ void __launch_bounds__(kSlots, 3)
 
 // One section's combine: y = b0 x + ((p11 S1 + p12 S2) + q1) over the rows
 // x [B, n], from the entry states s [B, nb, 2]; the prefix rows are
-// re-scanned from the staged tile.
-template <int M, int kLn, class Sec>
+// re-scanned from the staged tile. With kNext the section `next` runs its
+// phase 1 on y in the same loop and m_next [B, nb, 4], c_next [B, nb, 2]
+// receive its block maps. The samples of the last block past n (which y
+// does not keep) are the combine's continuation of the zeros staged there,
+// as in the twins' padded section output; they reach only that block's map.
+template <int M, int kLn, class Sec, bool kNext>
 __global__ void __launch_bounds__(kSlots, 3)
-    combine_kernel(const float* __restrict__ x, Sec sec,
+    combine_kernel(const float* __restrict__ x, Sec sec, Sec next,
                    const float* __restrict__ s, float* __restrict__ y,
+                   float* __restrict__ m_next, float* __restrict__ c_next,
                    int64_t n, int nb, Span sp) {
   extern __shared__ __align__(16) float tile[];
   const Where w = where<0>(sp);
@@ -327,18 +365,26 @@ __global__ void __launch_bounds__(kSlots, 3)
   __syncthreads();
   const int blk = w.first + threadIdx.x;
   if (blk < nb) {
-    Held<M, kLn> co;
-    co.load(sec, w.row, (int64_t)blk * kLn);
-    const float2 S = pair_at(s, w.row * nb + blk);
-    Solve v;
-    Terms t;
+    const int64_t k0 = (int64_t)blk * kLn, i = w.row * nb + blk;
+    Held<M, kLn> co, cn;
+    co.load(sec, w.row, k0);
+    if (kNext) cn.load(next, w.row, k0);
+    const float2 S = pair_at(s, i);
+    Solve v, vn;
+    Terms t, tn;
     walk<kLn, true>(
-        tile, threadIdx.x, [&](int cb) { t = co.t[cb]; },
+        tile, threadIdx.x,
+        [&](int cb) {
+          t = co.t[cb];
+          if (kNext) tn = cn.t[cb];
+        },
         [&](int, float& z) {
           const float out = t.g0 * z + v.from_entry(S);
           v.step(t.a, t.b, t.g1, t.g2, z);
+          if (kNext) vn.step(tn.a, tn.b, tn.g1, tn.g2, out);
           z = out;
         });
+    if (kNext) vn.store(m_next, c_next, i);
   }
   __syncthreads();
   drain<kLn>(tile, y + w.row * n, n, w.first, 0);
@@ -359,6 +405,7 @@ __device__ __forceinline__ void solve_edges(float* tile, float4* edge,
   Held<M, kLn> co;
   co.load(sec, w.row, (int64_t)blk * kLn);
   const float2 S = pair_at(s, w.row * nb + blk);
+  constexpr int kSeg = CoefSet<kLn>::len;
   Solve v;
   Terms t;
   float z1 = 0.0f, z2 = 0.0f, y1 = 0.0f, y2 = 0.0f;
@@ -367,10 +414,10 @@ __device__ __forceinline__ void solve_edges(float* tile, float4* edge,
       tile, slot,
       [&](int cb) {
         t = co.t[cb];
-        last = cb == kLn / kCB - 1;
+        last = cb == kLn / kSeg - 1;
       },
       [&](int jl, float& z) {
-        if (last && jl >= kCB - 2) {
+        if (last && jl >= kSeg - 2) {
           z2 = z1; y2 = y1;
           z1 = z; y1 = z + v.from_entry(S);
         }

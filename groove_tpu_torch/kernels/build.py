@@ -39,6 +39,8 @@ SIGNATURES = {
                      + [_I, _I64, _I64, _I, _P]),
     "lp24_refined_tiled": ([_P] * 6 + [_I64] + [_P] * 9
                            + [_I, _I64, _I, _P]),
+    "lp24_tiled": ([_I] + [_P] * 6 + [_I64] + [_F] * 4 + [_P] * 6
+                   + [_I, _I64, _I, _P]),
     "lp24_stream_init": [_I, _I],
     "lp24_stream": [_I] + [_P] * 5 + [_I64] * 8 + [_P] * 3 + [_I, _I64, _P],
     "launch_floor": [_P],

@@ -1,6 +1,6 @@
 """Where the cycles go inside the kernels that run from shared memory: the
 stream kernel (csrc/lp24_stream.cu), the chain walker (csrc/tdf2.cuh) and
-the tiled scans of K4 and K2 (csrc/tiled.cuh).
+the tiled scans of K4, K2, K3 and static K6 (csrc/tiled.cuh).
 
     python -m groove_tpu_torch.kernels.stage_cycles
 
@@ -17,8 +17,9 @@ per case.
     and walking a stage resident in shared memory with nobody else about.
   Chain walker: stamps around the walker's wait for a stage, its walk and
     its hand-back; cycles per chain step (walking, waiting, whole chain)
-    of row 0, summed over the chains of one K4 call (one chain) and one K2
-    call (four) at [2, 441024], [2, 7938048] and [64, 65536].
+    of row 0, summed over the chains of one K4 call (one chain), one K2
+    call (four) and one K3 or K6 call (two) at [2, 441024], [2, 7938048]
+    and [64, 65536].
   Tiled scans: a stamp after every __syncthreads() and at the end of each
     kernel; the cycles of tile 0's stages (fill, scans, drain) in the same
     calls.
@@ -118,9 +119,12 @@ TILED_STAGES = (
     "refine_next.fill", "refine_next.edges", "refine_next.scan",
     "refine_next.drain",
     "refine_last.fill", "refine_last.edges", "refine_last.scan",
-    "refine_last.drain")
+    "refine_last.drain",
+    # K3 and K6: section A's combine with section B's phase 1
+    "combine_next.fill", "combine_next.scan", "combine_next.drain")
 # first slot of each tiled kernel, and how many barriers its body holds
-_TILED_KERNELS = (("maps_kernel", "0", 1), ("combine_kernel", "2", 2),
+_TILED_KERNELS = (("maps_kernel", "0", 1),
+                  ("combine_kernel", "(kNext ? 16 : 2)", 2),
                   ("defect_scan_kernel", "5", 2),
                   ("refine_kernel", "(kNext ? 8 : 12)", 3))
 TILED_CASES = ((2, 441024), (2, 7938048), (64, 65536))
@@ -136,26 +140,26 @@ static __device__ unsigned long long g_chain[4];
     }                                    \\
   } while (0)
 """
-_TILED_DECL = """
-static __device__ long long g_tile[16];
+_TILED_DECL = f"""
+static __device__ long long g_tile[{len(TILED_STAGES)}];
 #define TSTAMP(k)                                     \\
-  do {                                                \\
-    if (threadIdx.x == 0 && blockIdx.x == 0) {        \\
+  do {{                                                \\
+    if (threadIdx.x == 0 && blockIdx.x == 0) {{        \\
       long long now = clock64();                      \\
       g_tile[k] += now - last;                        \\
       last = now;                                     \\
-    }                                                 \\
-  } while (0)
+    }}                                                 \\
+  }} while (0)
 """
 _TILED_READ = """
 extern "C" int NAME(long long* chain, long long* tile, int reset) {
   cudaDeviceSynchronize();
   cudaMemcpyFromSymbol(chain, tdf2::g_chain, sizeof(long long) * 4);
-  cudaMemcpyFromSymbol(tile, tiled::g_tile, sizeof(long long) * 16);
+  cudaMemcpyFromSymbol(tile, tiled::g_tile, sizeof(tiled::g_tile));
   if (reset) {
-    long long zero[16] = {};
+    long long zero[32] = {};
     cudaMemcpyToSymbol(tdf2::g_chain, zero, sizeof(long long) * 4);
-    cudaMemcpyToSymbol(tiled::g_tile, zero, sizeof(zero));
+    cudaMemcpyToSymbol(tiled::g_tile, zero, sizeof(tiled::g_tile));
   }
   return (int)cudaGetLastError();
 }
@@ -235,7 +239,7 @@ def build_tiled_profile(out):
          str(out / "tiled_prof.so"), str(out / "biquad.cu"),
          str(out / "lp24.cu")], check=True, capture_output=True, text=True)
     lib = ctypes.CDLL(str(out / "tiled_prof.so"))
-    for name in ("biquad_tiled", "lp24_refined_tiled"):
+    for name in ("biquad_tiled", "lp24_refined_tiled", "lp24_tiled"):
         getattr(lib, name).argtypes = build.SIGNATURES[name]
     for name in ("prof_read_biquad", "prof_read_lp24"):
         getattr(lib, name).argtypes = [ctypes.c_void_p, ctypes.c_void_p,
@@ -244,8 +248,9 @@ def build_tiled_profile(out):
 
 
 def tiled_cycles(lib, kernel: str, rows: int, n: int) -> dict:
-    """One instrumented K4 or K2 call at [rows, n] (the last of three):
-    the walker's cycles per chain step and tile 0's cycles by stage."""
+    """One instrumented K4, K2, K3 or static K6 call at [rows, n] (the
+    last of three): the walker's cycles per chain step and tile 0's cycles
+    by stage."""
     import torch
 
     from groove_tpu_torch.ops import iir_kernels
@@ -253,19 +258,30 @@ def tiled_cycles(lib, kernel: str, rows: int, n: int) -> dict:
     dev = torch.device("cuda", 0)
     gen = torch.Generator().manual_seed(0)
     x = (torch.randn(rows, n, generator=gen) * 0.1).to(dev)
-    ln = iir_kernels.geometry(n)[0]
+    ln = iir_kernels.geometry(n, blockrate=kernel != "K6")[0]
     count = -(-n // 64)
+    lp24 = (-1.9, 0.95, -1.8, 0.9)  # a1a, a2a, a1b, a2b
     if kernel == "K4":  # b0, b1, b2, a1, a2
         values, outputs, pairs, carries = (0.3, 0.6, 0.3, -1.9, 0.95), 1, 2, 0
         entry, read, chains = lib.biquad_tiled, lib.prof_read_biquad, 1
-    else:  # a1a, a2a, a1b, a2b
-        values, outputs, pairs, carries = (-1.9, 0.95, -1.8, 0.9), 2, 5, 4
+    elif kernel == "K2":
+        values, outputs, pairs, carries = lp24, 2, 5, 4
         entry, read, chains = (lib.lp24_refined_tiled, lib.prof_read_lp24, 4)
+    else:  # K3 (block mode) and K6 (static, by value): lp24_tiled
+        values, outputs, pairs, carries = lp24, 2, 2, 2
+        read, chains = lib.prof_read_lp24, 2
+        if kernel == "K3":
+            entry = lambda x, *a: lib.lp24_tiled(  # noqa: E731
+                iir_kernels.BLOCK, x, *a[:6], 0.0, 0.0, 0.0, 0.0, *a[6:])
+        else:
+            entry = lambda x, *a: lib.lp24_tiled(  # noqa: E731
+                iir_kernels.SCALAR, x, None, None, None, None, None, 1,
+                *lp24, *a[6:])
     co = [torch.full((rows, count), v, device=dev) for v in values]
     outs, _scratch, ptrs = iir_kernels.tiled_buffers(x, ln, outputs, pairs,
                                                     carries)
     chain = (ctypes.c_longlong * 4)()
-    tile = (ctypes.c_longlong * 16)()
+    tile = (ctypes.c_longlong * len(TILED_STAGES))()
     for _ in range(3):
         read(chain, tile, 1)
         err = entry(x.data_ptr(), *(c.data_ptr() for c in co),
@@ -376,7 +392,7 @@ def main() -> int:
     out.mkdir(parents=True, exist_ok=True)
     print(json.dumps(chain_floor(out)), flush=True)
     tiled = build_tiled_profile(out)
-    for kernel in ("K4", "K2"):
+    for kernel in ("K4", "K2", "K3", "K6"):
         for rows, n in TILED_CASES:
             print(json.dumps(tiled_cycles(tiled, kernel, rows, n)),
                   flush=True)

@@ -24,12 +24,15 @@ K2 (the refined cascade) adds, per section, the defect of the solve
 against the shifted-coefficient TDF2 recurrence in its epsilon-regrouped
 form, and an r-only correction scan that reuses the solve's p11/p12.
 
-On a card K2 runs on shared-memory tiles (csrc/tiled.cuh through
-csrc/lp24.cu's lp24_refined_tiled): nine launches (per segment of a long
-row, whose four chains then run as a wavefront along time) that keep no
-prefix row, solve or defect array in device memory, from a wrapper that
-checks, allocates y, the first section's output and one scratch buffer,
-and launches. K3 and K6 run csrc/lp24.cu's lp24_cascade.
+On a card K2, K3 and K6 with static denominators run on shared-memory
+tiles (csrc/tiled.cuh through csrc/lp24.cu's lp24_refined_tiled and
+lp24_tiled): nine launches for K2 and five for K3 and K6 (per segment of
+a long row, whose chains then run as a wavefront along time) that keep
+no prefix row, solve or defect array in device memory, from a wrapper
+that checks, allocates y, the first section's output and one scratch
+buffer, and launches. K6 with per-sample denominators still runs
+csrc/lp24.cu's multi-launch lp24_cascade: it needs a staged per-sample
+coefficient tile, which tiled.cuh does not have yet.
 
 Each kernel has its plain torch twin here, written in the same operation
 order: the CPU runs the twin, a CUDA tensor runs the kernel
@@ -222,12 +225,17 @@ def _prepare(x: torch.Tensor, sections_b, cblock: int):
 def lp24_blockrate(x: torch.Tensor, sections_b,
                    cblock: int = CBLOCK) -> torch.Tensor:
     """K3: fused single-pass lp24 cascade over [..., n] with block-rate
-    sections (the reference's lp24_blockrate_pallas)."""
-    x2, den = _prepare(x, sections_b, cblock)
-    y = dispatch(x2, lambda: lp24_blockrate_plain(x2, *den),
-                 lambda: _launch(False, x2, Streams(BLOCK, list(den),
-                                                    den[0].shape[1]),
-                                 geometry(x2.shape[1])[0]),
+    sections (the reference's lp24_blockrate_pallas). On a card the
+    kernels read the sections' denominators as they are given
+    (block_views), so the call makes no torch operation on x or the
+    coefficients."""
+    if cblock != CBLOCK:
+        raise ValueError(f"lp24 kernels take cblock {CBLOCK}, got {cblock}")
+    x2, den = block_views(x, [sec[i] for sec in sections_b for i in (3, 4)],
+                          "lp24 kernels")
+    y = dispatch(x2, lambda: _twin(x, sections_b, refined=False),
+                 lambda: _launch_lp24_tiled(x2, geometry(x2.shape[1])[0],
+                                            den=den),
                  "lp24", LAUNCHES, "lp24 kernel")
     return y.reshape(x.shape)
 
@@ -243,15 +251,15 @@ def lp24_refined_blockrate(x: torch.Tensor, sections_b,
         raise ValueError(f"lp24 kernels take cblock {CBLOCK}, got {cblock}")
     x2, den = block_views(x, [sec[i] for sec in sections_b for i in (3, 4)],
                           "lp24 kernels")
-    y = dispatch(x2, lambda: _refined_twin(x, sections_b),
+    y = dispatch(x2, lambda: _twin(x, sections_b, refined=True),
                  lambda: _launch_refined_tiled(x2, den),
                  "lp24_refined", LAUNCHES, "lp24 kernel")
     return y.reshape(x.shape)
 
 
-def _refined_twin(x: torch.Tensor, sections_b) -> torch.Tensor:
+def _twin(x: torch.Tensor, sections_b, refined: bool) -> torch.Tensor:
     x2, den = _prepare(x, sections_b, CBLOCK)
-    return lp24_refined_blockrate_plain(x2, *den)
+    return _blockrate_plain(x2, den, refined)
 
 
 def _refined_earlier(x: torch.Tensor, sections_b) -> torch.Tensor:
@@ -262,6 +270,22 @@ def _refined_earlier(x: torch.Tensor, sections_b) -> torch.Tensor:
     x2, den = _prepare(x, sections_b, CBLOCK)
     y = _launch(True, x2, Streams(BLOCK, list(den), den[0].shape[1]),
                 geometry(x2.shape[1])[0])
+    return y.reshape(x.shape)
+
+
+def _cascade_earlier(x: torch.Tensor, sections,
+                     blockrate: bool) -> torch.Tensor:
+    """K3's (blockrate) or K6's earlier route on a card: csrc/lp24.cu's
+    multi-launch lp24_cascade with its negated denominators, its padded
+    copy of x and its four [B, npad] scratch arrays. On no render path and
+    not counted: the yardstick lp24_tiled is timed and compared
+    against."""
+    if blockrate:
+        x2, den = _prepare(x, sections, CBLOCK)
+        st = Streams(BLOCK, list(den), den[0].shape[1])
+    else:
+        x2, st = _prepare_cascade(x, sections)
+    y = _launch(False, x2, st, geometry(x2.shape[1], blockrate)[0])
     return y.reshape(x.shape)
 
 
@@ -298,6 +322,15 @@ def tiled_buffers(x2: torch.Tensor, ln: int, outputs: int, pairs: int,
     return outs, scratch, ptrs
 
 
+def rows_of(x: torch.Tensor, what: str) -> torch.Tensor:
+    """x as contiguous float32 [B, n] rows; free (x itself) for a
+    contiguous 2-D float32 tensor."""
+    if x.dtype != torch.float32:
+        raise TypeError(f"{what} take float32, got {x.dtype}")
+    x2 = x if x.dim() == 2 else x.reshape(-1, x.shape[-1])
+    return x2 if x2.is_contiguous() else x2.contiguous()
+
+
 def block_views(x: torch.Tensor, coefs, what: str):
     """What a tiled or stream kernel call needs of its arguments: x as
     contiguous [B, n], and each block-rate coefficient as a float32
@@ -307,12 +340,8 @@ def block_views(x: torch.Tensor, coefs, what: str):
     tensors of those shapes on x's device: every torch operation here is
     behind a check that found it necessary."""
     f32, dev = torch.float32, x.device
-    if x.dtype != f32:
-        raise TypeError(f"{what} take float32, got {x.dtype}")
-    n = x.shape[-1]
-    x2 = x if x.dim() == 2 else x.reshape(-1, n)
-    if not x2.is_contiguous():
-        x2 = x2.contiguous()
+    x2 = rows_of(x, what)
+    n = x2.shape[1]
     want = (x2.shape[0], -(-n // CBLOCK))
     views = []
     for c in coefs:
@@ -353,6 +382,34 @@ def _launch_refined_tiled(x2: torch.Tensor, den) -> torch.Tensor:
     return y
 
 
+def _launch_lp24_tiled(x2: torch.Tensor, ln: int, den=None,
+                       values=None) -> torch.Tensor:
+    """Run csrc/lp24.cu's lp24_tiled on [B, n] CUDA inputs: K3 with the
+    four positive block-rate denominators `den` [B, ceil(n / 64)], or K6
+    with the four positive static denominators `values`. Three
+    allocations, no copy, no synchronisation, so a call can be captured in
+    a CUDA graph. Raises on a refused launch."""
+    from groove_tpu_torch.kernels.build import library
+
+    check_input(x2, "lp24 kernel")
+    B, n = x2.shape
+    (y, ya), _scratch, ptrs = tiled_buffers(x2, ln, outputs=2, pairs=2,
+                                            carries=2)
+    if den is None:
+        mode, arrays, strides, count = SCALAR, [None] * 4, None, 1
+    else:
+        mode, arrays, strides, count = (BLOCK, den, strides_of(den),
+                                        den[0].shape[1])
+        values = [0.0] * 4
+    err = library().lp24_tiled(
+        mode, x2.data_ptr(), *(ptr(a) for a in arrays), strides, count,
+        *values, y.data_ptr(), ya.data_ptr(), *ptrs, B, n, ln,
+        raw_stream(x2.device))
+    if err:
+        raise RuntimeError(f"lp24 kernel launch failed: CUDA error {err}")
+    return y
+
+
 # --------------------------------------------------------------------------
 # K6: per-sample (or static) denominators
 
@@ -360,28 +417,37 @@ def _launch_refined_tiled(x2: torch.Tensor, den) -> torch.Tensor:
 def _prepare_cascade(x: torch.Tensor, sections):
     """x2 [B, n] and the negated denominators of both sections as Streams
     (SCALAR when all four are static, else SAMPLE views of x's shape)."""
-    if x.dtype != torch.float32:
-        raise TypeError(f"lp24 kernels take float32, got {x.dtype}")
-    n = x.shape[-1]
-    x2 = x.reshape(-1, n).contiguous()
+    x2 = rows_of(x, "lp24 kernels")
     dens = [sec[i] for sec in sections for i in (3, 4)]
     if all(is_scalar(c) for c in dens):
         return x2, Streams(SCALAR, [-scalar32(c) for c in dens], 1)
     views = [rows_view(-as_f32(c, x.device), x.shape, x.device)
              for c in dens]
-    return x2, Streams(SAMPLE, views, n)
+    return x2, Streams(SAMPLE, views, x2.shape[1])
 
 
 def lp24_cascade(x: torch.Tensor, sections) -> torch.Tensor:
     """K6: fused single-pass lp24 cascade over [..., n] whose sections'
     denominators are per-sample arrays broadcastable to x.shape, or
     scalars (the reference's lp24_cascade_pallas). Only the denominators
-    reach the kernel: the numerators are filters004's constant (1, 2, 1)."""
-    x2, st = _prepare_cascade(x, sections)
+    reach the kernel: the numerators are filters004's constant (1, 2, 1).
+    On a card static denominators (every render path's) run csrc/lp24.cu's
+    lp24_tiled, passed by value, with no torch operation on x; per-sample
+    ones stay on the multi-launch lp24_cascade until tiled.cuh has a
+    staged per-sample coefficient tile."""
+    x2 = rows_of(x, "lp24 kernels")
     ln = geometry(x2.shape[1], blockrate=False)[0]
-    y = dispatch(x2, lambda: _lp24_cascade_plain(x2, st),
-                 lambda: _launch(False, x2, st, ln),
-                 "lp24_cascade", LAUNCHES, "lp24 kernel")
+    dens = [sec[i] for sec in sections for i in (3, 4)]
+    if all(is_scalar(c) for c in dens):
+        values = [scalar32(c) for c in dens]
+        launch = lambda: _launch_lp24_tiled(  # noqa: E731
+            x2, ln, values=values)
+    else:
+        launch = lambda: _launch(  # noqa: E731
+            False, *_prepare_cascade(x, sections), ln)
+    y = dispatch(x2, lambda: _lp24_cascade_plain(
+        *_prepare_cascade(x, sections)), launch, "lp24_cascade", LAUNCHES,
+        "lp24 kernel")
     return y.reshape(x.shape)
 
 

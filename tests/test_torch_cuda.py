@@ -5,10 +5,11 @@ block-rate, static or per-sample coefficients), the serial scan and the
 stream kernels K7/K8 (K3/K2 with carried state, one launch of
 csrc/lp24_stream.cu per call: chained calls equal one call, many tiles
 with a short last one, strided coefficient views, the earlier multi-launch
-route, two allocations per call, a captured CUDA graph's replay), K4 and
-K2 on their shared-memory tiles (csrc/tiled.cuh) against their twins and
-their earlier multi-launch routes over block, tile and alignment edges,
-zero-stride coefficients, a non-default stream and a captured graph, plus
+route, two allocations per call, a captured CUDA graph's replay), K4, K2,
+K3 and static K6 on their shared-memory tiles (csrc/tiled.cuh) against
+their twins and their earlier multi-launch routes over block, tile and
+alignment edges, every in-block length, zero-stride coefficients, rows cut
+into segments, a non-default stream and a captured graph, plus
 short renders of the slices and of a streamed Welsh song on
 the card against the same renders on the CPU.
 
@@ -337,8 +338,15 @@ def _tiled_case(name: str, rows: int, n: int, kind: str):
     """(wrapper, earlier route, counter, key, x, coefficients) on the CPU;
     kind: 'full' a curve per row, 'row' one curve for all rows (stride 0
     along rows), 'time' one value per row held for all time (stride 0
-    along time)."""
+    along time). K6 takes static sections (by value): kind does not
+    apply."""
     nb = -(-n // 64)
+    if name == "K6":
+        gain, secs = iir.lp24_sections(300.0, 0.9, 44100.0)
+        return (iir_kernels.lp24_cascade,
+                lambda x, c: iir_kernels._cascade_earlier(x, c, False),
+                iir_kernels.LAUNCHES, "lp24_cascade",
+                _noise((rows, n), 9) * float(gain), secs)
     if name == "K4":
         x = _noise((rows, n), 7)
         coefs = _lowpass(nb, 25.0, 8000.0, q=2.0)
@@ -349,9 +357,14 @@ def _tiled_case(name: str, rows: int, n: int, kind: str):
         x, secs = _sweep(1, 25.0, n, seed=8)
         x = x.expand(rows, n) * torch.linspace(0.5, 1.0, rows)[:, None]
         coefs = [tuple(c[0] for c in s) for s in secs]
-        args = (iir_kernels.lp24_refined_blockrate,
-                iir_kernels._refined_earlier, iir_kernels.LAUNCHES,
-                "lp24_refined")
+        if name == "K2":
+            args = (iir_kernels.lp24_refined_blockrate,
+                    iir_kernels._refined_earlier, iir_kernels.LAUNCHES,
+                    "lp24_refined")
+        else:
+            args = (iir_kernels.lp24_blockrate,
+                    lambda x, c: iir_kernels._cascade_earlier(x, c, True),
+                    iir_kernels.LAUNCHES, "lp24")
 
     def view(c):
         # every row reads whole coefficient sets of the one curve, so each
@@ -376,8 +389,11 @@ def _to(coefs, device):
     return [tuple(_moved(c, device) for c in s) for s in coefs]
 
 
-def _moved(c: torch.Tensor, device) -> torch.Tensor:
-    """c on `device` with its strides kept (a broadcast stays stride 0)."""
+def _moved(c, device):
+    """c on `device` with its strides kept (a broadcast stays stride 0); a
+    static coefficient as it is."""
+    if not torch.is_tensor(c):
+        return c
     base = torch.empty_strided(c.shape, c.stride(), dtype=c.dtype,
                                device=device)
     if 0 in c.stride():
@@ -395,7 +411,7 @@ TILED_SHAPES = [(2, 441024, "row"), (64, 65536, "row"), (5, 32589, "row"),
                 (2, 1100003, "row")]
 
 
-@pytest.mark.parametrize("name", ["K4", "K2"])
+@pytest.mark.parametrize("name", ["K4", "K2", "K3", "K6"])
 @pytest.mark.parametrize("rows,n,kind", TILED_SHAPES)
 def test_tiled_kernel_matches_twin_and_earlier_route(cuda_device, name, rows,
                                                      n, kind):
@@ -416,7 +432,7 @@ def test_tiled_kernel_matches_twin_and_earlier_route(cuda_device, name, rows,
     assert counts[key] == before + 1
 
 
-@pytest.mark.parametrize("name", ["K4", "K2"])
+@pytest.mark.parametrize("name", ["K4", "K2", "K3"])
 def test_tiled_kernel_reads_strided_coefficients(cuda_device, name):
     """Zero-stride views along rows or time, and column slices of a wider
     array, give the bits of their contiguous copies."""
@@ -439,12 +455,13 @@ def test_tiled_kernel_reads_strided_coefficients(cuda_device, name):
 
 
 @pytest.mark.parametrize("n", [50000, 2200000], ids=["short", "long"])
-@pytest.mark.parametrize("name,allocations", [("K4", 2), ("K2", 3)])
+@pytest.mark.parametrize("name,allocations", [("K4", 2), ("K2", 3), ("K3", 3),
+                                              ("K6", 3)])
 def test_tiled_kernel_on_another_stream_and_in_a_graph(cuda_device, name,
                                                        allocations, n):
-    """A call launches on the current stream, whichever it is (a long K2
-    call forks its chains onto streams of the library's and joins them
-    again); it allocates its outputs and one scratch buffer and nothing
+    """A call launches on the current stream, whichever it is (a long K2,
+    K3 or K6 call forks its chains onto streams of the library's and joins
+    them again); it allocates its outputs and one scratch buffer and nothing
     else; captured in a CUDA graph, its replay on new input bits equals
     the eager call."""
     fn, _, _, _, x, coefs = _tiled_case(name, 4 if n < 10**6 else 2, n, "row")
@@ -468,6 +485,24 @@ def test_tiled_kernel_on_another_stream_and_in_a_graph(cuda_device, name,
     torch.cuda.synchronize()
     y_e = fn(xd, cd)
     assert torch.equal(y_g, y_e) and not torch.equal(y_e, y)
+
+
+@pytest.mark.parametrize("n,ln", [(1, 16), (200, 16), (256, 16), (257, 32),
+                                  (1000, 32), (1024, 32)])
+def test_static_lp24_at_short_in_block_lengths(cuda_device, n, ln):
+    """Static K6 at the in-block lengths only it takes (16 and 32: one
+    coefficient set a block, the 4-chunk swizzle at 16) equals the CPU twin
+    and the earlier route, and the tiled kernel counts its launch."""
+    assert iir_kernels.geometry(n, blockrate=False)[0] == ln
+    fn, earlier, counts, key, x, secs = _tiled_case("K6", 3, n, "")
+    xd = x.to(cuda_device)
+    before = counts[key]
+    y = fn(xd, secs)
+    torch.cuda.synchronize()
+    assert counts[key] == before + 1
+    assert torch.equal(y.cpu(), fn(x, secs))
+    assert torch.equal(y, earlier(xd, secs))
+    assert counts[key] == before + 1
 
 
 def test_welsh_stream_on_card_equals_cpu(cuda_device):

@@ -1,17 +1,21 @@
-"""K4 and K2 around their tiled CUDA kernels (groove_tpu_torch/csrc/tiled.cuh
-through biquad_tiled and lp24_refined_tiled), as far as a host without a
-card can hold them: a pure-torch model of the tiled walk (tiles of T
-ln-blocks staged with zeros past n, block maps only out of phase 1, prefix
-rows re-scanned in every combine, the refined cascade's defect taking its
-history across tiles from a re-run halo block, section B's maps from the
-values the second combine holds in its tile) equals the plain twins bit for
-bit; the wrappers' buffers (allocations counted, no torch operation on x or
-the coefficients); the shared-memory budget against the source; the build's
-cover of the new header. The kernels themselves are held to the twins and
-to their earlier routes on a card by tests/test_torch_cuda.py."""
+"""K4, K2, K3 and static K6 around their tiled CUDA kernels
+(groove_tpu_torch/csrc/tiled.cuh through biquad_tiled, lp24_refined_tiled
+and lp24_tiled), as far as a host without a card can hold them: a
+pure-torch model of the tiled walk (tiles of T ln-blocks staged with zeros
+past n, block maps only out of phase 1, prefix rows re-scanned in every
+combine, the refined cascade's defect taking its history across tiles from
+a re-run halo block, section B's maps from the values the first section's
+last combine holds in its tile, a row cut into segments whose chains hand
+their states on) equals the plain twins bit for bit, at every in-block
+length; the wrappers' routes and buffers (allocations counted, no torch
+operation on x or the coefficients); the shared-memory budget and the
+wavefront's segment count against the source; the build's cover of the
+new header. The kernels themselves are held to the twins and to their
+earlier routes on a card by tests/test_torch_cuda.py."""
 
 from __future__ import annotations
 
+import importlib.util
 import re
 import shutil
 
@@ -74,24 +78,77 @@ def model_maps(z2, coefs, ln: int, T: int):
     return m, c
 
 
+def model_combine(z2, coefs, s, first: int, count: int, ln: int, T: int,
+                  nxt=None):
+    """One tile of a combine: out = b0 z + ((p11 S1 + p12 S2) + q1) with
+    the prefix rows re-scanned from the staged tile (zeros past n) and the
+    entry states s; coefs: (na1, na2, b1m, b2m, b0) per sample. With the
+    next lp24 section's negated denominators `nxt`, also that section's
+    block maps of out, in the same loop (its phase 1)."""
+    z = _stage(z2, first, T, ln)[:, :count]
+    cut = [_blocks(v, first, count, ln) for v in coefs]
+    p11, p12, q1, _, _ = phase1(*cut[:4], z, ln)
+    S = s[:, first:first + count]
+    out = cut[4] * z + (p11 * S[..., 0:1] + p12 * S[..., 1:2] + q1)
+    maps = None
+    if nxt is not None:
+        an, bn = (_blocks(v, first, count, ln) for v in nxt)
+        maps = phase1(an, bn, 2.0 + an, 1.0 + bn, out, ln)[3:]
+    return out, maps
+
+
+def _put(y, out, first: int, count: int, ln: int) -> None:
+    """A tile's output blocks into the rows y [B, n], samples below n."""
+    lo = first * ln
+    hi = min(lo + count * ln, y.shape[1])
+    y[:, lo:hi] = out.reshape(y.shape[0], -1)[:, :hi - lo]
+
+
 def model_k4(x2, st: Streams, ln: int, T: int) -> torch.Tensor:
     """biquad_tiled: maps, chain, combine (prefix rows re-scanned)."""
     B, n = x2.shape
     nb = -(-n // ln)
-    na1, na2, b1m, b2m, b0 = st.per_sample(B, nb * ln, x2.device)
-    m, c = model_maps(x2, (na1, na2, b1m, b2m), ln, T)
+    coefs = st.per_sample(B, nb * ln, x2.device)
+    m, c = model_maps(x2, coefs[:4], ln, T)
     s, _ = chain(m, c)
     y = torch.empty_like(x2)
     for first, count in _tiles(nb, T, 0):
-        z = _stage(x2, first, T, ln)[:, :count]
-        cut = [_blocks(v, first, count, ln)
-               for v in (na1, na2, b1m, b2m, b0)]
-        p11, p12, q1, _, _ = phase1(*cut[:4], z, ln)
-        S = s[:, first:first + count]
-        out = cut[4] * z + (p11 * S[..., 0:1] + p12 * S[..., 1:2] + q1)
-        lo = first * ln
-        hi = min(lo + count * ln, n)
-        y[:, lo:hi] = out.reshape(B, -1)[:, :hi - lo]
+        _put(y, model_combine(x2, coefs, s, first, count, ln, T)[0], first,
+             count, ln)
+    return y
+
+
+def model_single(x2, na, ln: int, T: int, segments: int = 1) -> torch.Tensor:
+    """lp24_tiled (K3, static K6): section A's maps; then per segment of
+    whole tiles section A's chain (from the state the segment before handed
+    on), section A's combine, which also gives section B's maps of its
+    output, section B's chain (handed on likewise) and section B's combine.
+    One array of entry states serves both chains. na: the four negated
+    denominators per sample [B, npad]."""
+    B, n = x2.shape
+    nb = -(-n // ln)
+    one = torch.ones_like(na[0])
+    sec = [(na[0], na[1], 2.0 + na[0], 1.0 + na[1], one),
+           (na[2], na[3], 2.0 + na[2], 1.0 + na[3], one)]
+    m, c = model_maps(x2, sec[0][:4], ln, T)
+    tiles = list(_tiles(nb, T, 0))
+    each = -(-len(tiles) // segments)
+    s = torch.empty((B, nb, 2))
+    ya, y = torch.empty_like(x2), torch.empty_like(x2)
+    seed = [None, None]
+    for i in range(0, len(tiles), each):
+        part = tiles[i:i + each]
+        k0, k1 = part[0][0], part[-1][0] + part[-1][1]
+        s[:, k0:k1], seed[0] = chain(m[:, k0:k1], c[:, k0:k1], seed[0])
+        for first, count in part:
+            out, maps = model_combine(x2, sec[0], s, first, count, ln, T,
+                                      nxt=sec[1][:2])
+            _put(ya, out, first, count, ln)
+            m[:, first:first + count], c[:, first:first + count] = maps
+        s[:, k0:k1], seed[1] = chain(m[:, k0:k1], c[:, k0:k1], seed[1])
+        for first, count in part:
+            _put(y, model_combine(ya, sec[1], s, first, count, ln, T)[0],
+                 first, count, ln)
     return y
 
 
@@ -235,6 +292,42 @@ def _k2_case(rows: int, n: int, kind: str, seed: int):
     return x, [_as_views(sec, kind, rows, nb) for sec in secs]
 
 
+def _k6_case(rows: int, n: int, seed: int):
+    """A static lp24 (K6's render route: the filter bank's lp24-8k and its
+    like), cutoff and q from the seed, down to the 40 Hz corner."""
+    rng = np.random.default_rng(seed)
+    cutoff = float(rng.choice([40.0, 300.0, 2000.0, 8000.0]))
+    gain, secs = iir.lp24_sections(cutoff, float(rng.uniform(0.5, 2.0)), SR)
+    return _x(rows, n, seed) * float(gain), secs
+
+
+def _single_case(kernel: str, rows: int, n: int, kind: str, seed: int):
+    """(x, sections, x2, the four negated denominators per sample, ln) of a
+    K3 (block-rate, `kind` strides) or a static K6 call."""
+    if kernel == "K3":
+        x, secs = _k2_case(rows, n, kind, seed)
+        x2, den = iir_kernels._prepare(x, secs, 64)
+        ln = geometry(n)[0]
+        na = [iir_kernels._per_sample(d, -(-n // ln) * ln) for d in den]
+        return x, secs, x2, na, ln
+    x, secs = _k6_case(rows, n, seed)
+    x2, st = iir_kernels._prepare_cascade(x, secs)
+    ln = geometry(n, blockrate=False)[0]
+    return x, secs, x2, st.per_sample(rows, -(-n // ln) * ln, x.device), ln
+
+
+def _single_twin(kernel: str, x, secs) -> torch.Tensor:
+    if kernel == "K3":
+        x2, den = iir_kernels._prepare(x, secs, 64)
+        return iir_kernels.lp24_blockrate_plain(x2, *den)
+    return iir_kernels.lp24_cascade_plain(x, secs)
+
+
+def _single_wrapper(kernel: str):
+    return (iir_kernels.lp24_blockrate if kernel == "K3"
+            else iir_kernels.lp24_cascade)
+
+
 LN128 = 128 * TILED_SLOTS  # frames of a whole tile at ln = 128
 SIZES = [1, 63, 64, 65, 8191, 8192, 8193, LN128 - 1, LN128 + 1]
 ROWS = [1, 2, 5]
@@ -265,14 +358,76 @@ def test_k2_tiled_model_equals_twin(i, n):
     assert float(y.abs().max()) > 0.0
 
 
-@pytest.mark.parametrize("kernel", ["K4", "K2"])
+@pytest.mark.parametrize("i,n", list(enumerate(SIZES)))
+def test_k3_tiled_model_equals_twin(i, n):
+    """K3 on lp24_tiled: section A's combine also gives section B's maps;
+    every n around a block and a tile edge."""
+    rows, kind = ROWS[(i + 2) % 3], KINDS[(i + 1) % 3]
+    x, secs, x2, na, ln = _single_case("K3", rows, n, kind, seed=100 + i)
+    y = model_single(x2, na, ln, TILED_SLOTS)
+    assert torch.equal(y, _single_twin("K3", x, secs))
+    assert torch.equal(y, iir_kernels.lp24_blockrate(x, secs))
+    assert float(y.abs().max()) > 0.0
+
+
+# n for each in-block length of a static section: ln 16 up to 256 frames,
+# 32 up to 1024, 64 up to 4096, then 128
+K6_SIZES = [1, 200, 257, 1000, 1025, 4096, 4097, LN128 + 1]
+
+
+@pytest.mark.parametrize("i,n", list(enumerate(K6_SIZES)))
+def test_k6_static_tiled_model_equals_twin(i, n):
+    """Static K6 on lp24_tiled at every ln that block_for gives it (16 and
+    32 too: one coefficient set a block, the 4-chunk swizzle)."""
+    x, secs, x2, na, ln = _single_case("K6", ROWS[i % 3], n, "", 120 + i)
+    assert ln == [16, 16, 32, 32, 64, 64, 128, 128][i]
+    y = model_single(x2, na, ln, TILED_SLOTS)
+    assert torch.equal(y, _single_twin("K6", x, secs))
+    assert torch.equal(y, iir_kernels.lp24_cascade(x, secs))
+    assert float(y.abs().max()) > 0.0
+
+
+@pytest.mark.parametrize("kernel,n,T,segments", [
+    ("K3", 8193 + 64 * 5, 7, 3), ("K3", LN128 + 1, TILED_SLOTS, 2),
+    ("K6", 200, 2, 3), ("K6", 1000, 3, 4), ("K6", 8193, 5, 8)])
+def test_segments_hand_their_chain_states_on(kernel, n, T, segments):
+    """A row cut into segments of whole tiles (the wavefront of
+    csrc/lp24.cu): both chains start each segment from the state the one
+    before handed on, and the row is bitwise one segment."""
+    x, secs, x2, na, ln = _single_case(kernel, 2, n, "full", seed=140 + T)
+    nb = -(-n // ln)
+    assert -(-nb // T) >= segments
+    y = model_single(x2, na, ln, T, segments)
+    assert torch.equal(y, model_single(x2, na, ln, T))
+    assert torch.equal(y, _single_twin(kernel, x, secs))
+
+
+@pytest.mark.parametrize("kernel", ["K3", "K6"])
+def test_zero_fill_reaches_no_output_of_the_single_pass(kernel):
+    """Samples past n (garbage staged there, other denominators) change
+    only the last block's maps, never an output below n: the fused
+    combine's continuation past n is harmless."""
+    n = 8193
+    x, secs, x2, na, ln = _single_case(kernel, 2, n, "full", seed=150)
+    longer = torch.cat([x2, torch.full((2, 100), 3.0)], 1)
+    extra = -(-(n + 100) // ln) * ln - na[0].shape[1]
+    na_l = [torch.nn.functional.pad(v, (0, extra), value=-0.5) for v in na]
+    y = model_single(longer, na_l, ln, TILED_SLOTS)[:, :n]
+    assert torch.equal(y, _single_twin(kernel, x, secs))
+
+
+@pytest.mark.parametrize("kernel", ["K4", "K2", "K3", "K6"])
 @pytest.mark.parametrize("rows,kind,T", [(1, "full", 2), (2, "row", 3),
                                          (5, "time", 7)])
 def test_many_small_tiles_equal_twin(kernel, rows, kind, T):
     """Many tiles a row (T blocks each, the last one short, a halo at every
     tile edge): the walk does not depend on the tile size."""
     n = 8193 + 64 * rows  # ln = 128; neither a block nor a tile multiple
-    if kernel == "K4":
+    if kernel in ("K3", "K6"):
+        x, secs, x2, na, ln = _single_case(kernel, rows, n, kind, 160 + T)
+        y = model_single(x2, na, ln, T)
+        want = _single_twin(kernel, x, secs)
+    elif kernel == "K4":
         x, coefs = _k4_case(rows, n, kind, seed=60 + T)
         x2, st, ln = biquad_kernels._prepare(x, coefs, BLOCK)
         y = model_k4(x2, st, ln, T)
@@ -313,7 +468,8 @@ class _Count(TorchDispatchMode):
 
 
 @pytest.mark.parametrize("name,outputs,pairs,carries",
-                         [("K4", 1, 2, 0), ("K2", 2, 5, 4)])
+                         [("K4", 1, 2, 0), ("K2", 2, 5, 4), ("K3", 2, 2, 2),
+                          ("K6", 2, 2, 2)])
 @pytest.mark.parametrize("rows,n", [(2, 8193), (5, 64)])
 def test_buffers_are_the_only_torch_operations(name, outputs, pairs, carries,
                                                rows, n):
@@ -321,7 +477,7 @@ def test_buffers_are_the_only_torch_operations(name, outputs, pairs, carries,
     section's output) and one scratch buffer, and makes no other torch
     operation: x is neither padded nor copied."""
     x2 = _x(rows, n, seed=90)
-    ln = geometry(n)[0]
+    ln = geometry(n, blockrate=name != "K6")[0]
     blocks = rows * -(-n // ln)
     with _Count() as mode:
         outs, scratch, ptrs = iir_kernels.tiled_buffers(x2, ln, outputs,
@@ -335,12 +491,13 @@ def test_buffers_are_the_only_torch_operations(name, outputs, pairs, carries,
     sizes = [s for s in sizes if s]
     assert ptrs == [base + sum(sizes[:i]) for i in range(len(sizes))]
     assert ptrs[-1] + sizes[-1] == base + 4 * scratch.numel()
-    text = _source("lp24.cu" if name == "K2" else "biquad.cu")
-    entry = "lp24_refined_tiled" if name == "K2" else "biquad_tiled"
+    text = _source("biquad.cu" if name == "K4" else "lp24.cu")
+    entry = {"K4": "biquad_tiled", "K2": "lp24_refined_tiled"}.get(
+        name, "lp24_tiled")
     head = text[text.index(f'extern "C" int {entry}('):]
     head = head[:head.index(")")]
-    scratch_args = ("m, c, sa, sb, r, sc, carries" if name == "K2"
-                    else "m, c, s")
+    scratch_args = {"K4": "m, c, s", "K2": "m, c, sa, sb, r, sc, carries"}.get(
+        name, "m, c, s, carries")
     assert [a.split("*")[-1].strip() for a in head.split(",")
             if a.split("*")[-1].strip() in scratch_args.split(", ")] \
         == scratch_args.split(", ")
@@ -403,7 +560,79 @@ def test_wrappers_route_block_mode_to_the_tiled_kernels(monkeypatch):
         assert "_launch(" in text and "LAUNCHES" not in text
 
 
-@pytest.mark.parametrize("name", ["K4", "K2"])
+def test_lp24_wrappers_route_to_lp24_tiled(monkeypatch):
+    """On a card K3 and static K6 call the library's lp24_tiled with the
+    arguments its signature binds: K3's denominators are the caller's
+    tensors, strides and all, K6's the positive values by value, each at
+    its in-block length; per-sample K6 stays on the multi-launch
+    lp24_cascade; the earlier route is a private helper that counts no
+    launch."""
+    import inspect
+
+    from groove_tpu_torch.kernels import build as kbuild
+
+    calls = []
+
+    class Library:
+        def lp24_tiled(self, *args):
+            assert len(args) == len(kbuild.SIGNATURES["lp24_tiled"])
+            calls.append(("tiled", args))
+            return 0
+
+    monkeypatch.setattr(kbuild, "library", Library)
+    monkeypatch.setattr(iir_kernels, "check_input", lambda x2, what: None)
+    monkeypatch.setattr(iir_kernels, "raw_stream", lambda device: 0)
+    monkeypatch.setattr(iir_kernels, "_launch", lambda refined, x2, st, ln: (
+        calls.append(("cascade", st.mode, ln)), x2)[1])
+    monkeypatch.setattr(iir_kernels, "dispatch", lambda x2, plain, launch,
+                        *a: launch())
+    x, secs = _k2_case(2, 5000, "time", seed=98)
+    iir_kernels.lp24_blockrate(x, secs)
+    _, static = iir.lp24_sections(8000.0, 0.707, SR)
+    iir_kernels.lp24_cascade(x[:, :300], static)
+    cut = np.geomspace(60.0, 15000.0, 300).astype(np.float32)
+    _, ps = iir.lp24_sections(cut, np.float32(0.9), SR)
+    iir_kernels.lp24_cascade(x[:, :300], ps)
+    assert [c[0] for c in calls] == ["tiled", "tiled", "cascade"]
+    k3, k6 = calls[0][1], calls[1][1]
+    want = [sec[i] for sec in secs for i in (3, 4)]
+    assert k3[0] == iir_kernels.BLOCK and k3[1] == x.data_ptr()
+    assert [a.value for a in k3[2:6]] == [c.data_ptr() for c in want]
+    assert list(k3[6]) == [1, 0] * 4 and k3[7] == -(-5000 // 64)
+    assert k3[-2] == 128
+    assert k6[0] == iir_kernels.SCALAR and k6[6] is None
+    assert [a.value for a in k6[2:6]] == [None] * 4
+    assert list(k6[8:12]) == [float(np.float32(sec[i])) for sec in static
+                              for i in (3, 4)]
+    assert k6[-2] == 32
+    assert calls[2][1:] == (iir_kernels.SAMPLE, 32)
+    text = inspect.getsource(iir_kernels._cascade_earlier)
+    assert "_launch(" in text and "LAUNCHES" not in text
+
+
+def test_static_lp24_arguments_cost_no_torch_operation(monkeypatch):
+    """On a card static K6 hands lp24_tiled x itself and the four positive
+    denominators by value: no torch operation before the launch."""
+    x, secs = _k6_case(3, 8193, seed=99)
+    seen = []
+
+    def launch(x2, ln, values):
+        seen.append((x2, ln, values, list(mode.ops)))
+        return x2
+
+    monkeypatch.setattr(iir_kernels, "_launch_lp24_tiled", launch)
+    monkeypatch.setattr(iir_kernels, "dispatch", lambda x2, plain, go,
+                        *a: go())
+    with _Count() as mode:
+        iir_kernels.lp24_cascade(x, secs)
+    (x2, ln, values, ops), = seen
+    assert ops == [] and x2 is x and ln == 128
+    assert values == [np.float32(sec[i]) for sec in secs for i in (3, 4)]
+    with pytest.raises(TypeError, match="float32"):
+        iir_kernels.lp24_cascade(x.double(), secs)
+
+
+@pytest.mark.parametrize("name", ["K4", "K2", "K3"])
 def test_arguments_cost_no_torch_operation(name):
     """block_views hands the kernels what the renderer passes (float32
     tensors expanded to [rows, ceil(n / 64)] on x's device) untouched: no
@@ -413,7 +642,7 @@ def test_arguments_cost_no_torch_operation(name):
     n = 8193
     if name == "K4":
         x, coefs = _k4_case(3, n, "row", seed=95)
-    else:
+    else:  # K2 and K3 take the same denominators
         x, secs = _k2_case(3, n, "row", seed=96)
         coefs = [sec[i] for sec in secs for i in (3, 4)]
     with _Count() as mode:
@@ -435,7 +664,7 @@ def test_arguments_cost_no_torch_operation(name):
         iir_kernels.block_views(x.double(), coefs, "kernels")
 
 
-@pytest.mark.parametrize("name", ["K4", "K2"])
+@pytest.mark.parametrize("name", ["K4", "K2", "K3", "K6"])
 def test_tiled_wrappers_refuse_other_devices_and_types(name):
     """No fallback: a meta tensor is refused, float64 is refused, the CPU
     runs the twin and counts no launch."""
@@ -443,9 +672,15 @@ def test_tiled_wrappers_refuse_other_devices_and_types(name):
         x, co = _k4_case(2, 128, "full", seed=92)
         fn, counts = biquad_kernels.biquad_blockrate, biquad_kernels.LAUNCHES
         meta = tuple(c.to("meta") for c in co)
+    elif name == "K6":
+        x, co = _k6_case(2, 128, seed=93)
+        fn, counts = iir_kernels.lp24_cascade, iir_kernels.LAUNCHES
+        meta = co
     else:
         x, co = _k2_case(2, 128, "full", seed=93)
-        fn, counts = iir_kernels.lp24_refined_blockrate, iir_kernels.LAUNCHES
+        fn = (iir_kernels.lp24_refined_blockrate if name == "K2"
+              else iir_kernels.lp24_blockrate)
+        counts = iir_kernels.LAUNCHES
         meta = [tuple(c.to("meta") for c in s) for s in co]
     before = dict(counts)
     with pytest.raises(RuntimeError, match="unsupported device"):
@@ -470,7 +705,9 @@ def _constant(name: str) -> int:
     return int(found[0])
 
 
-@pytest.mark.parametrize("ln,constant", [(64, "kSmemBytes64"),
+@pytest.mark.parametrize("ln,constant", [(16, "kSmemBytes16"),
+                                         (32, "kSmemBytes32"),
+                                         (64, "kSmemBytes64"),
                                          (128, "kSmemBytes128")])
 def test_tiled_shared_memory_budget_matches_the_source(ln, constant):
     """The bytes ops/iir_kernels.py reckons for a tile are the source's
@@ -483,8 +720,32 @@ def test_tiled_shared_memory_budget_matches_the_source(ln, constant):
     assert got == 4 * TILED_SLOTS * ln + 16 * TILED_SLOTS
     assert f"static_assert(smem_bytes({ln}) == {constant}" \
         in _source("tiled.cuh")
-    # geometry() never asks for another in-block length
-    assert {geometry(n)[0] for n in (1, 64, 4096, 4097, 10**7)} == {64, 128}
+    # geometry() never asks for another in-block length: 64 and 128 for
+    # the block-rate kernels, 16 to 128 for a static section
+    sizes = (1, 64, 256, 257, 1024, 1025, 4096, 4097, 10**7)
+    assert {geometry(n)[0] for n in sizes} == {64, 128}
+    assert {geometry(n, blockrate=False)[0] for n in sizes} == {16, 32, 64,
+                                                                128}
+
+
+@pytest.mark.parametrize("kind,passes", [("K2", 4), ("K3", 2), ("K6", 2),
+                                         ("K7", 2), ("K8", 4)])
+def test_bound_counts_one_chain_of_a_cascade(kind, passes):
+    """chip_smoke's bound for a cascade is the function's dependency chain:
+    one chain of n / ln steps (its chains can run as a wavefront) and
+    every pass's in-block scans, for a row of one tile and for a long row
+    alike, whatever the kernel's segments."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", build.CSRC.parents[1] / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    for n in (4096, 65536, 441024, 7938048):
+        ln = (64 if kind in ("K7", "K8")
+              else geometry(n, blockrate=kind != "K6")[0])
+        _, flops, chain = smoke.iir_work(kind, 2, n, 0.0)
+        assert chain == 2 * ln * passes + 3 * -(-n // ln)
+        assert flops > 2 * n * 36
+    assert smoke.iir_work("K4", 2, 65536, 0.0)[2] == 2 * 128 + 3 * 512
 
 
 def test_tile_counts_follow_the_halo():
@@ -507,7 +768,8 @@ def test_build_covers_the_tiled_header(tmp_path, monkeypatch):
     path."""
     assert "tiled.cuh" in [p.name for p in build.headers()]
     for src, entry in (("biquad.cu", "biquad_tiled"),
-                       ("lp24.cu", "lp24_refined_tiled")):
+                       ("lp24.cu", "lp24_refined_tiled"),
+                       ("lp24.cu", "lp24_tiled")):
         assert entry in build.SIGNATURES
         assert f'extern "C" int {entry}(' in _source(src)
         assert '#include "tiled.cuh"' in _source(src)
@@ -548,11 +810,12 @@ def test_stage_cycles_instruments_the_walker_and_the_tiles():
     stamps = re.findall(r" TSTAMP\(([^;]*)\);",
                         tiled.replace(sc._TILED_DECL, ""))
     assert len(stamps) == sum(b + 1 for _, _, b in sc._TILED_KERNELS) == 12
-    assert len(sc.TILED_STAGES) == 16  # refine_kernel's slots count twice
+    # the combine's and refine_kernel's slots count twice (kNext)
+    assert len(sc.TILED_STAGES) == 19
     plain = re.sub(r" TSTAMP\([^;]*\);", "",
                    tiled.replace(sc._TILED_DECL, "")).replace(
         "\n  long long last = clock64();", "")
     assert re.sub(r"\n\s*\n", "\n", plain) == re.sub(
         r"\n\s*\n", "\n", _source("tiled.cuh"))
-    for name in ("biquad_tiled", "lp24_refined_tiled"):
+    for name in ("biquad_tiled", "lp24_refined_tiled", "lp24_tiled"):
         assert name in build.SIGNATURES
