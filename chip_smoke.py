@@ -29,17 +29,22 @@ Phases, one JSON line each:
      empty kernel launched the same way (launch_floor_ms) and the
      kernel's device time (device_ms: a captured CUDA graph of 20 calls,
      replayed); a captured graph of one call must replay to the eager
-     call's bits. K4, K2, K3 and K6 with static denominators
+     call's bits. K4, K5, K2, K3 and K6 with static denominators
      (csrc/tiled.cuh's shared-memory tiles) are held bit for bit to their
      twins and to their earlier multi-launch routes at the 10-second
      shape, at [64, 65536] and at [5, 32589] (n a multiple neither of the
      in-block length nor of a tile, coefficients broadcast through a zero
-     stride), and timed in turns with the earlier routes there and at the
-     3-minute size (kernel_vs_earlier_route: ms, earlier_ms, and the card
-     alone, device_ms and earlier_device_ms), a
-     captured graph's replay equal to the eager call; the chain walker's
-     cycles per step come from an instrumented build
-     (groove_tpu_torch/kernels/stage_cycles.py) at the 3-minute size;
+     stride), K5 also on short rows at the in-block lengths 16 and 32, and
+     timed in turns with the earlier routes there and at the 3-minute size
+     (kernel_vs_earlier_route: ms, earlier_ms, and the card alone,
+     device_ms and earlier_device_ms), a captured graph's replay equal to
+     the eager call; the chain walker's cycles per step come from an
+     instrumented build (groove_tpu_torch/kernels/stage_cycles.py) at the
+     3-minute size. K1 (csrc/drums.cu's tiled, culled kernel) is also held
+     to its twin on dense hits (every 64 frames, rows longer than a chunk:
+     each tile's hit list overflows several times) at [2, 3 * 65536 + 64],
+     and timed at the 3-minute size as a whole call (ms) and on the card
+     alone from a captured graph (device_ms);
   4. the main path through the CLI (groove_tpu_torch.cli.main --wav
      --perf), each run with the launch counts set to 0 just before it and
      read just after: the 3-minute north-star analogue (K1 + K2), the same
@@ -177,14 +182,17 @@ def bounds(nbytes: float, flops: float, chain_ops: float) -> dict:
                          else "operations")}
 
 
-def compare(name, kernel_fn, plain_fn, peak_ref, work, reps=20):
+def compare(name, kernel_fn, plain_fn, peak_ref, work, reps=20,
+            graph=False):
     """Time kernel and twin on the same card inputs; they must be equal.
     The twin runs once: it repeats the kernel's arithmetic as a loop of
     torch calls and measures launch overhead, not a competitor. A stream
-    kernel returns (y, state'): both are compared."""
+    kernel returns (y, state'): both are compared. With `graph`, also the
+    kernel's time on the card alone (device_ms, graph_ms)."""
     import torch
 
     ms, y = cuda_ms(kernel_fn, reps)
+    extra = {"device_ms": graph_ms(kernel_fn)} if graph else {}
     plain_ms, y_plain = cuda_ms(plain_fn, 1, warmup=False)
     shape = list((y[0] if isinstance(y, tuple) else y).shape)
     if isinstance(y, tuple):
@@ -195,7 +203,7 @@ def compare(name, kernel_fn, plain_fn, peak_ref, work, reps=20):
     db = 20.0 * (torch.log10(torch.tensor(err / peak + 1e-30)).item())
     return {"name": name, "shape": shape, "max_abs_err": err,
             "err_dbfs": db, "bitwise": bool(torch.equal(y, y_plain)),
-            "ms": ms, "plain_ms": plain_ms, **bounds(*work)}
+            "ms": ms, "plain_ms": plain_ms, **extra, **bounds(*work)}
 
 
 def iir_work(kind: str, rows: int, n: int, coef_bytes: float,
@@ -359,13 +367,28 @@ def stream_kernel_check(key: str, x, sections, state) -> dict:
             **bounds(*iir_call_work(key, x, sections))}
 
 
-TILED = {"biquad_blockrate": "K4", "lp24_refined": "K2", "lp24": "K3",
-         "lp24_cascade": "K6"}
+TILED = {"biquad_blockrate": "K4", "biquad_scalar": "K5",
+         "lp24_refined": "K2", "lp24": "K3", "lp24_cascade": "K6"}
 ODD = (5, 2 * 127 * 128 + 77)  # rows, n: no multiple of 128 nor of a tile
 
 
+def graph_ms(fn, reps: int = 5) -> float:
+    """Milliseconds of one call of `fn` on the card alone: a captured CUDA
+    graph of GRAPH_CALLS calls, replayed `reps` times (median), over
+    GRAPH_CALLS. `fn` has run eagerly before."""
+    import torch
+
+    many = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(many):
+        for _ in range(GRAPH_CALLS):
+            fn()
+    ms = cuda_ms(many.replay, reps)[0] / GRAPH_CALLS
+    del many
+    return ms
+
+
 def tiled_kernel_check(name: str, x, coefs) -> dict:
-    """K4, K2, K3 or static K6 beside its earlier multi-launch route on the
+    """K4, K5, K2, K3 or static K6 beside its earlier multi-launch route on the
     same inputs: both timed in turns as whole wrapper calls, equal bit for
     bit; a captured CUDA graph of one call, replayed on a changed input,
     equal to the eager call; the device time of each route from a
@@ -376,6 +399,8 @@ def tiled_kernel_check(name: str, x, coefs) -> dict:
 
     kern, earlier = {
         "biquad_blockrate": (bk.biquad_blockrate, bk._blockrate_earlier),
+        "biquad_scalar": (bk.biquad_scalar, lambda a, c: bk._launch(
+            *bk._prepare(a, c, bk.SCALAR))),
         "lp24_refined": (iir_kernels.lp24_refined_blockrate,
                          iir_kernels._refined_earlier),
         "lp24": (iir_kernels.lp24_blockrate,
@@ -394,14 +419,7 @@ def tiled_kernel_check(name: str, x, coefs) -> dict:
     one.replay()
     torch.cuda.synchronize()
     y_half = kern(xg, coefs)
-    device = []
-    for fn in (kern, earlier):
-        many = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(many):
-            for _ in range(GRAPH_CALLS):
-                fn(x, coefs)
-        device.append(cuda_ms(many.replay, 5)[0] / GRAPH_CALLS)
-        del many
+    device = [graph_ms(lambda f=fn: f(x, coefs)) for fn in (kern, earlier)]
     return {"name": name, "shape": list(x.shape), "ms": ms,
             "earlier_ms": earlier_ms, "device_ms": device[0],
             "earlier_device_ms": device[1],
@@ -427,22 +445,48 @@ def chains(key: str, x, sections, state) -> bool:
                 and torch.equal(sb, st))
 
 
-def drum_work(r, n: int) -> tuple:
-    """(bytes, flops, chain ops) of one K1 call: the table and hit lists
-    read once, [2, n] written once; a multiply and an add per channel for
-    every sample of every hit that lands in the timeline."""
-    h = r.host_inputs
-    on = h["drums/on"].astype("int64")
-    slots = h["drums/slots"]
-    span = (h["drums/lengths"][slots.clip(0)].astype("int64")
-            .clip(max=h["drums/gate"]).clip(max=n - on))
-    hit_samples = float(span[(slots >= 0) & (on < n)].sum())
-    nbytes = 2.0 * n * 4 + sum(
-        float(r.inputs[f"drums/{k}"].numel()
-              * r.inputs[f"drums/{k}"].element_size())
-        for k in ("ptable", "hcounts", "hslots", "hstarts", "hshifts",
-                  "hlimits", "hvels"))
-    return nbytes, 4.0 * hit_samples, 0.0
+def drum_work(hits, n: int) -> tuple:
+    """(bytes, flops, chain ops) of one K1 call on `hits` (the table and
+    the prepare_hits arrays, as the kernel takes them): the table and hit
+    lists read once, [2, n] written once; a multiply and an add per
+    channel for every sample of every hit that lands in the timeline."""
+    import numpy as np
+
+    from groove_tpu_torch.ops.drums import CHUNK
+
+    _, counts, _, starts, shifts, limits, _ = (t.cpu().numpy() for t in hits)
+    listed = np.arange(limits.shape[1])[None, :] < counts[:, None]
+    on = (np.arange(len(counts), dtype=np.int64)[:, None] * CHUNK + starts
+          + 64 * shifts.astype(np.int64))
+    span = np.clip(np.minimum(limits, n - on), 0, None)
+    nbytes = 2.0 * n * 4 + sum(float(t.numel() * t.element_size())
+                               for t in hits)
+    return nbytes, 4.0 * float(span[listed].sum()), 0.0
+
+
+def dense_hits(n: int, device) -> list:
+    """Hits every 64 frames over rows longer than a 65536-frame chunk (a
+    fifth gated short), from numpy seed 0: some 1,000 hits cover each
+    2048-frame tile, so its list overflows several times."""
+    import numpy as np
+    import torch
+
+    from groove_tpu_torch.ops import drums
+
+    rng = np.random.default_rng(0)
+    lengths = np.array([66100, 70000, 30000, 700])
+    table = (rng.standard_normal((4, 2, 70000)) * 0.5).astype(np.float32)
+    for s, ln in enumerate(lengths):
+        table[s, :, ln:] = 0.0
+    on = np.arange(0, n, 64)
+    gate = np.where(rng.random(len(on)) < 0.2,
+                    rng.integers(1, 5000, len(on)), 2**30)
+    meta = drums.prepare_hits(rng.integers(0, 4, len(on)).astype(np.int32),
+                              on, gate,
+                              rng.integers(1, 128, len(on)).astype(np.float32),
+                              lengths, n)
+    return [torch.from_numpy(a).to(device)
+            for a in (drums.prepare_table(table), *meta)]
 
 
 def main() -> int:
@@ -568,7 +612,14 @@ def main() -> int:
     results.append(compare(
         "drums", lambda: drums.accumulate_hits(*hits, n_frames=n),
         lambda: drums.accumulate_hits_plain(*hits, n_frames=n),
-        bus.abs().max(), drum_work(r, n)))
+        bus.abs().max(), drum_work(hits, n), graph=True))
+    nd = 3 * drums.CHUNK + 64
+    dense = dense_hits(nd, dev)
+    results.append(compare(
+        "drums", lambda: drums.accumulate_hits(*dense, n_frames=nd),
+        lambda: drums.accumulate_hits_plain(*dense, n_frames=nd), 1.0,
+        drum_work(dense, nd), graph=True))
+    del dense
     x, secs = lp24_inputs(r, bus)
     twins = (("lp24_refined", iir_kernels.lp24_refined_blockrate,
               iir_kernels.lp24_refined_blockrate_plain),
@@ -599,6 +650,7 @@ def main() -> int:
         tiled_kernel_check("lp24_refined", x, secs),
         tiled_kernel_check("biquad_blockrate", bus_b,
                            bank["biquad_blockrate"][3]),
+        tiled_kernel_check("biquad_scalar", *bank["biquad_scalar"][2:]),
         tiled_kernel_check("lp24", x, secs),
         tiled_kernel_check("lp24_cascade", *bank["lp24_cascade"][2:])]
     del r, rb, hits, bus, bus_b, x, secs, x2, den, held, bank
@@ -635,8 +687,16 @@ def main() -> int:
         results.append(compare(name, lambda k=kern, c=co: k(xw, c),
                                lambda p=plain, c=co: p(xw, c),
                                xw.abs().max(), iir_call_work(name, xw, co)))
-    # K4 and K2 beside their earlier routes at [64, 65536], and at ODD with
-    # the row-broadcast (stride 0) coefficient views
+    # K5 on short rows: the in-block lengths 16 (n <= 256) and 32 (<= 1024)
+    peq = wide[1][3]
+    short = [xw[:4, :k].contiguous() for k in (200, 1000)]
+    for xs in short:
+        results.append(compare(
+            "biquad_scalar", lambda a=xs: bk.biquad_scalar(a, peq),
+            lambda a=xs: bk.biquad_scalar_plain(a, peq), xs.abs().max(),
+            iir_call_work("biquad_scalar", xs, peq)))
+    # the tiled kernels beside their earlier routes at [64, 65536], and at
+    # ODD with the row-broadcast (stride 0) coefficient views
     orows, on = ODD
     xo = xg[:orows, :on].contiguous()
     so = [tuple(c[:orows, :-(-on // 64)] for c in sec) for sec in sw]
@@ -660,16 +720,23 @@ def main() -> int:
         "lp24_cascade", lambda: iir_kernels.lp24_cascade(xo, lp8k),
         lambda: iir_kernels.lp24_cascade_plain(xo, lp8k), xo.abs().max(),
         iir_call_work("lp24_cascade", xo, lp8k)))
+    results.append(compare(
+        "biquad_scalar", lambda: bk.biquad_scalar(xo, peq),
+        lambda: bk.biquad_scalar_plain(xo, peq), xo.abs().max(),
+        iir_call_work("biquad_scalar", xo, peq)))
     tiled_checks += [
         tiled_kernel_check("lp24_refined", xg, sw),
         tiled_kernel_check("biquad_blockrate", xw, wide[0][3]),
+        tiled_kernel_check("biquad_scalar", xw, peq),
         tiled_kernel_check("lp24", xg, sw),
         tiled_kernel_check("lp24_cascade", xw, lp8k),
         tiled_kernel_check("lp24_refined", xo, so),
         tiled_kernel_check("biquad_blockrate", xo, co),
+        tiled_kernel_check("biquad_scalar", xo, peq),
         tiled_kernel_check("lp24", xo, so),
-        tiled_kernel_check("lp24_cascade", xo, lp8k)]
-    del xo, so, co, xo2, deno
+        tiled_kernel_check("lp24_cascade", xo, lp8k),
+        *(tiled_kernel_check("biquad_scalar", xs, peq) for xs in short)]
+    del xo, so, co, xo2, deno, short
     # K7 and K8 at [64, 65536] from the state a first call carries out
     # and at [12, 2 tiles + 192]: many shared-memory tiles, the last one
     # short, the coefficients still the row-broadcast (stride 0) views
@@ -736,7 +803,7 @@ def main() -> int:
     n = r.c.n_frames
     x, secs = lp24_inputs(r, bus)
     alone = [("drums", lambda: drums.accumulate_hits(*hits, n_frames=n),
-              drum_work(r, n)),
+              drum_work(hits, n)),
              ("lp24_refined",
               lambda: iir_kernels.lp24_refined_blockrate(x, secs),
               iir_call_work("lp24_refined", x, secs)),
@@ -749,12 +816,17 @@ def main() -> int:
                       iir_call_work(name, xb, co)))
     for name, fn, wk in alone:
         ms, _ = cuda_ms(fn, 5)
-        emit("kernel_at_song_size", name=name, frames=n, ms=ms, **bounds(*wk))
+        # K1 on the card alone too (the tiled kernels' device_ms is in
+        # their kernel_vs_earlier_route lines)
+        extra = {"device_ms": graph_ms(fn)} if name == "drums" else {}
+        emit("kernel_at_song_size", name=name, frames=n, ms=ms, **extra,
+             **bounds(*wk))
     bank = bank_calls(rb, bus_b)
     tiled_checks += [
         tiled_kernel_check("lp24_refined", x, secs),
         tiled_kernel_check("biquad_blockrate", bus_b,
                            bank["biquad_blockrate"][3]),
+        tiled_kernel_check("biquad_scalar", *bank["biquad_scalar"][2:]),
         tiled_kernel_check("lp24", x, secs),
         tiled_kernel_check("lp24_cascade", *bank["lp24_cascade"][2:])]
     del r, rb, hits, bus, bus_b, x, secs, alone, bank
@@ -770,7 +842,7 @@ def main() -> int:
     prof_dir = build.BUILD_DIR / "stage_cycles"
     prof_dir.mkdir(parents=True, exist_ok=True)
     prof = stage_cycles.build_tiled_profile(prof_dir)
-    for kind in ("K4", "K2", "K3", "K6"):
+    for kind in ("K4", "K5", "K2", "K3", "K6"):
         res = stage_cycles.tiled_cycles(prof, kind, 2, n)
         emit("chain_cycles", **res)
         per_step = res["cycles_per_chain_step"]["chain"]

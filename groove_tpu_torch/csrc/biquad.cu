@@ -6,8 +6,8 @@
 //                pallas_call in _biquad_blk_2d)
 //   K9  kSample  one set per sample               (_make_kernel_ps,
 //                pallas_call in _biquad_ps_2d)
-// all in groove_tpu/ops/pallas_iir.py. The caller prepares the five
-// coefficient streams as the reference does, in f32: na1 = -a1,
+// all in groove_tpu/ops/pallas_iir.py. The recurrence runs on the
+// coefficient streams as the reference prepares them, in f32: na1 = -a1,
 // na2 = -a2, b1m = b1 - a1 b0, b2m = b2 - a2 b0 (each rounded once), b0.
 // The in-block length ln is the caller's: block_for(n, 128) for K5 and K9,
 // max(block_for(n, 128), 64) for K4, as in the reference. The TPU's
@@ -17,21 +17,23 @@
 // -fmad=false, the in-block recurrence's explicit __fmaf_rn mirrored by
 // fma32 in the plain twins of ops/biquad_kernels.py, so every route and
 // the twin agree bit for bit):
-//   biquad_tiled  K4. Three launches: tiled::maps_kernel (phase 1 on
-//                 shared-memory tiles, writes only the block maps),
-//                 tdf2::chain, tiled::combine_kernel (re-scans the tile
-//                 beside the entry states and writes y). x is read twice
-//                 and y written once; the scratch is the block maps and
-//                 entry states, 32 bytes per ln-block. It takes b0, b1, b2,
-//                 a1, a2 as the caller holds them, each through its own
-//                 strides, and prepares the streams in registers. See
-//                 tiled.cuh.
-//   biquad_scan   K5 and K9, and K4's earlier route (kept callable as the
-//                 yardstick biquad_tiled is timed against, on no render
+//   biquad_tiled  K4 (kBlock) and K5 (kScalar). Three launches:
+//                 tiled::maps_kernel (phase 1 on shared-memory tiles,
+//                 writes only the block maps), tdf2::chain,
+//                 tiled::combine_kernel (re-scans the tile beside the entry
+//                 states and writes y). x is read twice and y written once;
+//                 the scratch is the block maps and entry states, 32 bytes
+//                 per ln-block. It takes b0, b1, b2, a1, a2 as the caller
+//                 holds them (K4: arrays, each through its own strides; K5:
+//                 five float32 values) and prepares the streams in
+//                 registers. See tiled.cuh.
+//   biquad_scan   K9, and the earlier routes of K4 and K5 (kept callable as
+//                 the yardsticks biquad_tiled is timed against, on no render
 //                 path): tdf2::phase1_kernel, a thread per (row, ln-block)
 //                 walking device memory and storing the prefix rows p11,
 //                 p12, q1; tdf2::chain; an elementwise combine
-//                 y = b0 x + ((p11 S1 + p12 S2) + q1).
+//                 y = b0 x + ((p11 S1 + p12 S2) + q1). The caller prepares
+//                 the five streams and pads x to whole ln-blocks.
 //
 // What bounds it on the H100: the chain (n / ln dependent steps per row,
 // see tdf2.cuh) for a few long rows; the bytes of x and y otherwise. The
@@ -85,11 +87,10 @@ void scan(const float* x, const Coef* co, Layout l, float* y, float* p11,
       x, co[4], l, p11, p12, q1, s, y, B, n, npad, nb, ln);
 }
 
-// K4 on shared-memory tiles: phase 1, chain, combine.
-template <int kLn>
+// K4 and K5 on shared-memory tiles: phase 1, chain, combine.
+template <int M, int kLn>
 int tiled_scan(const float* x, const tiled::Biquad& sec, float* y, float* m,
                float* c, float* s, int B, int64_t n, cudaStream_t stream) {
-  constexpr int M = tdf2::kBlock;
   constexpr int kBytes = tiled::smem_bytes(kLn);
   static bool allowed[tiled::kMaxDevices] = {};
   int err = 0;
@@ -155,28 +156,52 @@ extern "C" int biquad_scan(int mode, const float* x, const float* na1,
   return (int)cudaGetLastError();
 }
 
-// K4 over [B, n] rows on shared-memory tiles (tiled.cuh). x and y are
-// contiguous [B, n]: nothing is padded. The block-rate coefficients b0, b1,
-// b2, a1, a2 are [B, count] arrays as the caller holds them, each read
-// through its own strides (strides[2 i] the row stride and strides[2 i + 1]
-// the entry stride of stream i, in elements; 0 broadcasts): the kernels
-// derive -a1, -a2, b1 - a1 b0 and b2 - a2 b0 themselves. ln is 64 or 128,
-// with nb = ceil(n / ln). Scratch, allocated by the caller: m [B, nb, 4]
-// (16-byte aligned), c and s [B, nb, 2]. Three launches on `stream`; never
+// K4 (mode kBlock) and K5 (mode kScalar) over [B, n] rows on shared-memory
+// tiles (tiled.cuh). x and y are contiguous [B, n]: nothing is padded.
+// kBlock: the block-rate coefficients b0, b1, b2, a1, a2 are [B, count]
+// arrays as the caller holds them, each read through its own strides
+// (strides[2 i] the row stride and strides[2 i + 1] the entry stride of
+// stream i, in elements; 0 broadcasts), with ln 64 or 128. kScalar: the
+// values v0, v1, v2, v3, v4 of b0, b1, b2, a1, a2 (the arrays, strides and
+// count are not read), with ln 16, 32, 64 or 128. Either way the kernels
+// derive -a1, -a2, b1 - a1 b0 and b2 - a2 b0 themselves, and nb =
+// ceil(n / ln). Scratch, allocated by the caller: m [B, nb, 4] (16-byte
+// aligned), c and s [B, nb, 2]. Three launches on `stream`; never
 // synchronises; returns cudaGetLastError().
-extern "C" int biquad_tiled(const float* x, const float* b0, const float* b1,
-                            const float* b2, const float* a1, const float* a2,
-                            const int64_t* strides, int64_t count, float* y,
+extern "C" int biquad_tiled(int mode, const float* x, const float* b0,
+                            const float* b1, const float* b2,
+                            const float* a1, const float* a2,
+                            const int64_t* strides, int64_t count, float v0,
+                            float v1, float v2, float v3, float v4, float* y,
                             float* m, float* c, float* s, int B, int64_t n,
                             int ln, void* stream_handle) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_handle);
   if (B <= 0 || n <= 0) return (int)cudaErrorInvalidValue;
   const float* p[5] = {b0, b1, b2, a1, a2};
+  const float v[5] = {v0, v1, v2, v3, v4};
   tiled::Stream st[5];
-  for (int i = 0; i < 5; ++i)
-    st[i] = {{p[i], 0.0f}, {strides[2 * i], strides[2 * i + 1], count}};
+  for (int i = 0; i < 5; ++i) {
+    st[i] = {{p[i], v[i]}, {0, 0, 1}};
+    if (mode == tdf2::kBlock)
+      st[i].l = {strides[2 * i], strides[2 * i + 1], count};
+  }
   const tiled::Biquad sec = {st[0], st[1], st[2], st[3], st[4]};
-  if (ln == 64) return tiled_scan<64>(x, sec, y, m, c, s, B, n, stream);
-  if (ln == 128) return tiled_scan<128>(x, sec, y, m, c, s, B, n, stream);
-  return (int)cudaErrorInvalidValue;
+  if (mode == tdf2::kBlock && ln == 64)
+    return tiled_scan<tdf2::kBlock, 64>(x, sec, y, m, c, s, B, n, stream);
+  if (mode == tdf2::kBlock && ln == 128)
+    return tiled_scan<tdf2::kBlock, 128>(x, sec, y, m, c, s, B, n, stream);
+  if (mode != tdf2::kScalar) return (int)cudaErrorInvalidValue;
+  switch (ln) {
+    case 16:
+      return tiled_scan<tdf2::kScalar, 16>(x, sec, y, m, c, s, B, n, stream);
+    case 32:
+      return tiled_scan<tdf2::kScalar, 32>(x, sec, y, m, c, s, B, n, stream);
+    case 64:
+      return tiled_scan<tdf2::kScalar, 64>(x, sec, y, m, c, s, B, n, stream);
+    case 128:
+      return tiled_scan<tdf2::kScalar, 128>(x, sec, y, m, c, s, B, n,
+                                            stream);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }

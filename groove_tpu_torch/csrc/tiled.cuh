@@ -1,9 +1,9 @@
 // Tiled in-block scans for Hopper (sm_90a): the phase 1, the combines and
 // the refined cascade's defect and correction scan of the two-level TDF2
 // scheme (tdf2.cuh), on tiles of a row that live in shared memory. biquad.cu
-// runs K4 on them (biquad_tiled) and lp24.cu runs K2 (lp24_refined_tiled),
-// K3 and K6's static form (lp24_tiled); the chain between the scans is
-// tdf2::chain.
+// runs K4 and K5 on them (biquad_tiled) and lp24.cu runs K2
+// (lp24_refined_tiled), K3 and K6's static form (lp24_tiled); the chain
+// between the scans is tdf2::chain.
 //
 // What bounds it on the H100. An in-block scan is ln dependent steps per
 // ln-block and there are rows * n / ln blocks, so the scans are as parallel
@@ -13,7 +13,7 @@
 // rows in device memory between launches. So:
 //   tile      a thread block stages kSlots = 128 consecutive ln-blocks of
 //             one row (64 KB at ln = 128, 32 KB at ln = 64, 16 and 8 KB at
-//             the static lp24's ln = 32 and 16; three blocks fit an SM)
+//             a static section's ln = 32 and 16; three blocks fit an SM)
 //             with coalesced 16-byte cp.async copies, zero-filling
 //             past n itself, so the caller pads nothing. A row whose start
 //             is not 16-byte aligned (n % 4 != 0) is copied 4 bytes at a

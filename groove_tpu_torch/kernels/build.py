@@ -46,7 +46,8 @@ SIGNATURES = {
     "launch_floor": [_P],
     "biquad_scan": ([_I] + [_P] * 6 + [_F] * 5 + [_I64] * 3 + [_P] * 7
                     + [_I, _I64, _I64, _I, _P]),
-    "biquad_tiled": [_P] * 7 + [_I64] + [_P] * 4 + [_I, _I64, _I, _P],
+    "biquad_tiled": ([_I] + [_P] * 7 + [_I64] + [_F] * 5 + [_P] * 4
+                     + [_I, _I64, _I, _P]),
     "biquad_serial_scan": ([_I] + [_P] * 6 + [_F] * 5 + [_I64] * 3 + [_P]
                            + [_I, _I64, _I64, _P]),
     "drums_accumulate": [_P, _I] + [_P] * 6 + [_I, _I, _I, _P, _I64, _P],

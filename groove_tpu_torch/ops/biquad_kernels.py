@@ -10,10 +10,10 @@ One TDF2 section, a0 == 1:
 K4, K5 and K9 run the reference's two-level scheme (phase 1 in-block
 prefix maps, phase 2 the serial cross-block chain, combine
 y = b0 x + ((p11 S1 + p12 S2) + q1); see ops/iir_kernels.py) in
-csrc/biquad.cu with three coefficient modes. On a card K4 runs on
+csrc/biquad.cu with three coefficient modes. On a card K4 and K5 run on
 shared-memory tiles (biquad_tiled, csrc/tiled.cuh: three launches, x read
 twice and y written once, from a wrapper that checks, allocates y and one
-scratch buffer, and launches); K5 and K9 run biquad_scan:
+scratch buffer, and launches); K9 runs biquad_scan:
 
   K4  biquad_blockrate   one coefficient set per 64-frame control block,
                          ln = max(block_for(n, 128), 64) (_biquad_blk_2d);
@@ -41,18 +41,15 @@ import torch
 from groove_tpu_torch.ops.iir_kernels import (BLOCK, CBLOCK, SAMPLE, SCALAR,
                                               Streams, as_f32, block_views,
                                               check_input, dispatch, fma32,
-                                              fold_back,
-                                              geometry, is_scalar, phase1,
-                                              phase2, ptr, raw_stream,
-                                              rows_view, scalar32, stream_of,
-                                              strides_of, tiled_buffers)
+                                              fold_back, geometry, is_scalar,
+                                              phase1, phase2, ptr, raw_stream,
+                                              rows_of, rows_view, scalar32,
+                                              stream_of, strides_of,
+                                              tiled_buffers)
 
 # kernel launches per wrapper (one per call of the C entry point)
 LAUNCHES = {"biquad_blockrate": 0, "biquad_scalar": 0,
             "biquad_per_sample": 0, "biquad_serial": 0}
-
-_KEYS = {BLOCK: "biquad_blockrate", SCALAR: "biquad_scalar",
-         SAMPLE: "biquad_per_sample"}
 
 
 def _prep(b0, b1, b2, a1, a2):
@@ -88,14 +85,6 @@ def _prepare(x: torch.Tensor, coefs, mode: int):
     return x2, _streams(x, coefs, mode, count), ln
 
 
-def _run(x: torch.Tensor, coefs, mode: int) -> torch.Tensor:
-    x2, st, ln = _prepare(x, coefs, mode)
-    y = dispatch(x2, lambda: _plain(x2, st, ln),
-                 lambda: _launch(x2, st, ln), _KEYS[mode], LAUNCHES,
-                 "biquad kernel")
-    return y.reshape(x.shape)
-
-
 def _plain_of(x: torch.Tensor, coefs, mode: int) -> torch.Tensor:
     x2, st, ln = _prepare(x, coefs, mode)
     return _plain(x2, st, ln).reshape(x.shape)
@@ -113,7 +102,8 @@ def biquad_blockrate(x: torch.Tensor, coefs_b,
         raise ValueError(f"biquad kernels take cblock {CBLOCK}, got {cblock}")
     x2, views = block_views(x, coefs_b, "biquad kernels")
     y = dispatch(x2, lambda: _plain(*_prepare(x, coefs_b, BLOCK)),
-                 lambda: _launch_tiled(x2, views), "biquad_blockrate",
+                 lambda: _launch_tiled(x2, geometry(x2.shape[1])[0],
+                                       views=views), "biquad_blockrate",
                  LAUNCHES, "biquad kernel")
     return y.reshape(x.shape)
 
@@ -124,8 +114,17 @@ def biquad_blockrate_plain(x: torch.Tensor, coefs_b) -> torch.Tensor:
 
 
 def biquad_scalar(x: torch.Tensor, coefs) -> torch.Tensor:
-    """K5: one section with static coefficients over [..., n]."""
-    return _run(x, coefs, SCALAR)
+    """K5: one section with static coefficients over [..., n]. On a card
+    the kernels take b0, b1, b2, a1, a2 as five float32 values and
+    prepare the streams of _prep in registers, so the call makes no torch
+    operation on x."""
+    x2 = rows_of(x, "biquad kernels")
+    ln = geometry(x2.shape[1], blockrate=False)[0]
+    values = [scalar32(c) for c in coefs]
+    y = dispatch(x2, lambda: _plain(*_prepare(x, coefs, SCALAR)),
+                 lambda: _launch_tiled(x2, ln, values=values),
+                 "biquad_scalar", LAUNCHES, "biquad kernel")
+    return y.reshape(x.shape)
 
 
 def biquad_scalar_plain(x: torch.Tensor, coefs) -> torch.Tensor:
@@ -136,7 +135,11 @@ def biquad_scalar_plain(x: torch.Tensor, coefs) -> torch.Tensor:
 def biquad_per_sample(x: torch.Tensor, coefs) -> torch.Tensor:
     """K9: one section with per-sample coefficients, each broadcastable
     against x.shape."""
-    return _run(x, coefs, SAMPLE)
+    x2, st, ln = _prepare(x, coefs, SAMPLE)
+    y = dispatch(x2, lambda: _plain(x2, st, ln),
+                 lambda: _launch(x2, st, ln), "biquad_per_sample", LAUNCHES,
+                 "biquad kernel")
+    return y.reshape(x.shape)
 
 
 def biquad_per_sample_plain(x: torch.Tensor, coefs) -> torch.Tensor:
@@ -161,21 +164,27 @@ def _blockrate_earlier(x: torch.Tensor, coefs_b) -> torch.Tensor:
     return _launch(x2, st, ln).reshape(x.shape)
 
 
-def _launch_tiled(x2: torch.Tensor, views) -> torch.Tensor:
-    """Run csrc/biquad.cu's biquad_tiled (K4) on [B, n] CUDA inputs and the
-    five coefficients (b0, b1, b2, a1, a2) as [B, ceil(n / 64)] views: two
-    allocations, no copy, no synchronisation, so a call can be captured
-    in a CUDA graph. Raises on a refused launch."""
+def _launch_tiled(x2: torch.Tensor, ln: int, views=None,
+                  values=None) -> torch.Tensor:
+    """Run csrc/biquad.cu's biquad_tiled on [B, n] CUDA inputs: K4 with the
+    five coefficients (b0, b1, b2, a1, a2) as [B, ceil(n / 64)] `views`,
+    or K5 with their five static float32 `values`. Two allocations, no
+    copy, no synchronisation, so a call can be captured in a CUDA graph.
+    Raises on a refused launch."""
     from groove_tpu_torch.kernels.build import library
 
     check_input(x2, "biquad kernel")
     B, n = x2.shape
-    ln = geometry(n)[0]
     (y,), _scratch, ptrs = tiled_buffers(x2, ln, outputs=1, pairs=2)
+    if views is None:
+        mode, arrays, strides, count = SCALAR, [None] * 5, None, 1
+    else:
+        mode, arrays, strides, count = (BLOCK, views, strides_of(views),
+                                        views[0].shape[1])
+        values = [0.0] * 5
     err = library().biquad_tiled(
-        x2.data_ptr(), *(v.data_ptr() for v in views), strides_of(views),
-        views[0].shape[1], y.data_ptr(), *ptrs, B, n, ln,
-        raw_stream(x2.device))
+        mode, x2.data_ptr(), *(ptr(a) for a in arrays), strides, count,
+        *values, y.data_ptr(), *ptrs, B, n, ln, raw_stream(x2.device))
     if err:
         raise RuntimeError(f"biquad kernel launch failed: CUDA error {err}")
     return y

@@ -6,14 +6,20 @@ per 65536-frame chunk, the hits that start in it (stable in note order),
 with chunk-local 128-aligned starts and a 64-frame shift flag. The CUDA
 kernel (csrc/drums.cu) and its plain twin here both consume that layout
 and sum, for every frame, the covering hits in layout order:
-acc + row[t - on] * (vel / 127)."""
+acc + row[t - on] * (vel / 127). On a card the kernel is output-stationary
+on 2048-frame tiles: each thread block culls the hits of the chunks that
+can reach its tile into a shared-memory list, in layout order, and every
+thread runs over that list for its frames. The wrapper checks, allocates
+y and launches, and nothing else: a call can be captured in a CUDA
+graph."""
 
 from __future__ import annotations
 
-import ctypes
-
 import numpy as np
 import torch
+
+from groove_tpu_torch.kernels import build
+from groove_tpu_torch.ops import iir_kernels
 
 CHUNK = 65536    # timeline frames per hit-list chunk (multiple of 128)
 
@@ -95,8 +101,9 @@ def accumulate_hits(table_padded: torch.Tensor, counts, slots, starts,
 
 def _launch(table, counts, slots, starts, shifts, limits, vels,
             n_frames: int) -> torch.Tensor:
-    from groove_tpu_torch.kernels.build import library
-
+    """Run csrc/drums.cu's drums_accumulate: one allocation (y), no copy,
+    no synchronisation. Raises on inputs the kernel does not take and on a
+    refused launch."""
     if table.dim() != 3 or table.shape[1] != 2:
         raise ValueError(f"drum kernel: table {tuple(table.shape)} is not "
                          "[slots, 2, row_len]")
@@ -112,22 +119,23 @@ def _launch(table, counts, slots, starts, shifts, limits, vels,
                 or not t.is_contiguous():
             raise ValueError(f"drum kernel: {name} must be contiguous {dt} "
                              f"on {table.device}")
-        if name != "table" and tuple(t.shape) != (
+        if name != "table" and t.shape != (
                 (nchunks,) if name == "counts" else (nchunks, M)):
             raise ValueError(f"drum kernel: {name} has shape "
                              f"{tuple(t.shape)}")
     if nchunks < -(-n_frames // CHUNK):
         raise ValueError("drum kernel: fewer hit chunks than the timeline")
+    # the kernel reads rows as float4 and offsets them in 32-bit integers
+    if table.shape[-1] % 4 or table.data_ptr() % 16 \
+            or table.numel() >= 2**31:
+        raise ValueError("drum kernel: the table needs rows of a multiple "
+                         "of 4 frames, 16-byte alignment and < 2^31 floats")
     y = torch.empty((2, n_frames), dtype=torch.float32, device=table.device)
-
-    def ptr(t):
-        return ctypes.c_void_p(t.data_ptr())
-
-    err = library().drums_accumulate(
-        ptr(table), table.shape[-1], ptr(counts), ptr(slots), ptr(starts),
-        ptr(shifts), ptr(limits), ptr(vels), nchunks, M, CHUNK, ptr(y),
-        n_frames,
-        ctypes.c_void_p(torch.cuda.current_stream(table.device).cuda_stream))
+    err = build.library().drums_accumulate(
+        table.data_ptr(), table.shape[-1], counts.data_ptr(),
+        slots.data_ptr(), starts.data_ptr(), shifts.data_ptr(),
+        limits.data_ptr(), vels.data_ptr(), nchunks, M, CHUNK, y.data_ptr(),
+        n_frames, iir_kernels.raw_stream(table.device))
     if err:
         raise RuntimeError(f"drum kernel launch failed: CUDA error {err}")
     return y
@@ -136,10 +144,13 @@ def _launch(table, counts, slots, starts, shifts, limits, vels,
 def accumulate_hits_plain(table_padded, counts, slots, starts, shifts,
                           limits, vels, n_frames: int) -> torch.Tensor:
     """K1's plain twin: the hits in layout order, each adding
-    row[:limit] * (vel / 127) at its note-on frame."""
+    row[:limit] * (vel / 127) at its note-on frame. vel / 127 is a true
+    division on every device, as in the kernel: torch divides a CUDA
+    tensor by a number through its reciprocal, which rounds some
+    velocities differently."""
     out = torch.zeros((2, n_frames), dtype=torch.float32,
                       device=table_padded.device)
-    scale = vels / 127.0
+    scale = vels / torch.full_like(vels, 127.0)
     host = [torch.as_tensor(a).cpu() for a in (counts, slots, starts, shifts,
                                                limits)]
     cnt, sl, st, sh, li = (a.tolist() for a in host)

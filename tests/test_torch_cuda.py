@@ -1,12 +1,13 @@
 """The CUDA kernels of groove_tpu_torch against their plain torch twins on
-a card, bit for bit: K1 (drums), K3 (lp24), K2 (refined lp24), K6 (lp24
+a card, bit for bit: K1 (drums; dense hits that overflow a tile's list,
+one allocation, a captured graph), K3 (lp24), K2 (refined lp24), K6 (lp24
 with per-sample or static denominators), K4/K5/K9 (one biquad section with
 block-rate, static or per-sample coefficients), the serial scan and the
 stream kernels K7/K8 (K3/K2 with carried state, one launch of
 csrc/lp24_stream.cu per call: chained calls equal one call, many tiles
 with a short last one, strided coefficient views, the earlier multi-launch
-route, two allocations per call, a captured CUDA graph's replay), K4, K2,
-K3 and static K6 on their shared-memory tiles (csrc/tiled.cuh) against
+route, two allocations per call, a captured CUDA graph's replay), K4, K5,
+K2, K3 and static K6 on their shared-memory tiles (csrc/tiled.cuh) against
 their twins and their earlier multi-launch routes over block, tile and
 alignment edges, every in-block length, zero-stride coefficients, rows cut
 into segments, a non-default stream and a captured graph, plus
@@ -98,6 +99,64 @@ def test_drum_kernel_matches_twin(cuda_device, n, count):
     assert drums.LAUNCHES["drums"] == before + 1
     assert torch.equal(y.cpu(), drums.accumulate_hits(table, *meta,
                                                       n_frames=n))
+
+
+def _dense_hits(n: int, seed: int = 3):
+    """Hits every 64 frames over rows longer than a 65536-frame chunk, a
+    fifth of them gated short: some 1,000 hits cover a 2048-frame tile, so
+    its list (256 entries) overflows four times."""
+    rng = np.random.default_rng(seed)
+    lengths = np.array([66100, 70000, 30000, 700])
+    table = (rng.standard_normal((4, 2, 70000)) * 0.5).astype(np.float32)
+    for s, ln in enumerate(lengths):
+        table[s, :, ln:] = 0.0
+    on = np.arange(0, n, 64)
+    gate = np.where(rng.random(len(on)) < 0.2,
+                    rng.integers(1, 5000, len(on)), 2**30)
+    meta = drums.prepare_hits(rng.integers(0, 4, len(on)).astype(np.int32),
+                              on, gate,
+                              rng.integers(1, 128, len(on)).astype(np.float32),
+                              lengths, n)
+    return (torch.from_numpy(drums.prepare_table(table)),
+            [torch.from_numpy(m) for m in meta])
+
+
+@pytest.mark.parametrize("n", [3 * drums.CHUNK + 64, 2 * drums.CHUNK + 4001])
+def test_drum_kernel_dense_hits_match_twin(cuda_device, n):
+    """Dense hits: every tile's list overflows more than once; n a
+    multiple neither of the tile nor of 4 in the second case."""
+    table, meta = _dense_hits(n)
+    assert int(meta[0].max()) == 1024
+    before = drums.LAUNCHES["drums"]
+    y = drums.accumulate_hits(table.to(cuda_device),
+                              *[m.to(cuda_device) for m in meta], n_frames=n)
+    torch.cuda.synchronize()
+    assert drums.LAUNCHES["drums"] == before + 1
+    assert torch.equal(y.cpu(), drums.accumulate_hits(table, *meta,
+                                                      n_frames=n))
+
+
+def test_drum_kernel_allocates_once_and_replays(cuda_device):
+    """A call allocates y and nothing else, and can be captured in a CUDA
+    graph: the replay on changed hit velocities equals the eager call."""
+    n = 441000
+    table, meta = _hits(n, 400)
+    table = table.to(cuda_device)
+    meta = [m.to(cuda_device) for m in meta]
+    y = drums.accumulate_hits(table, *meta, n_frames=n)
+    torch.cuda.synchronize()
+    count = "allocation.all.allocated"
+    before = torch.cuda.memory_stats(cuda_device)[count]
+    drums.accumulate_hits(table, *meta, n_frames=n)
+    assert torch.cuda.memory_stats(cuda_device)[count] == before + 1
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        y_g = drums.accumulate_hits(table, *meta, n_frames=n)
+    meta[-1].mul_(0.5)
+    graph.replay()
+    torch.cuda.synchronize()
+    y_e = drums.accumulate_hits(table, *meta, n_frames=n)
+    assert torch.equal(y_g, y_e) and not torch.equal(y_e, y)
 
 
 def test_wrappers_refuse_bad_inputs(cuda_device):
@@ -338,9 +397,16 @@ def _tiled_case(name: str, rows: int, n: int, kind: str):
     """(wrapper, earlier route, counter, key, x, coefficients) on the CPU;
     kind: 'full' a curve per row, 'row' one curve for all rows (stride 0
     along rows), 'time' one value per row held for all time (stride 0
-    along time). K6 takes static sections (by value): kind does not
-    apply."""
+    along time). K5 and K6 take static coefficients (by value): kind does
+    not apply."""
     nb = -(-n // 64)
+    if name == "K5":
+        return (biquad_kernels.biquad_scalar,
+                lambda x, c: biquad_kernels._launch(*biquad_kernels._prepare(
+                    x, c, iir_kernels.SCALAR)).reshape(x.shape),
+                biquad_kernels.LAUNCHES, "biquad_scalar",
+                _noise((rows, n), 10),
+                iir.rbj_peaking_eq(300.0, 2.0, 6.0, 44100.0))
     if name == "K6":
         gain, secs = iir.lp24_sections(300.0, 0.9, 44100.0)
         return (iir_kernels.lp24_cascade,
@@ -411,7 +477,7 @@ TILED_SHAPES = [(2, 441024, "row"), (64, 65536, "row"), (5, 32589, "row"),
                 (2, 1100003, "row")]
 
 
-@pytest.mark.parametrize("name", ["K4", "K2", "K3", "K6"])
+@pytest.mark.parametrize("name", ["K4", "K5", "K2", "K3", "K6"])
 @pytest.mark.parametrize("rows,n,kind", TILED_SHAPES)
 def test_tiled_kernel_matches_twin_and_earlier_route(cuda_device, name, rows,
                                                      n, kind):
@@ -455,8 +521,8 @@ def test_tiled_kernel_reads_strided_coefficients(cuda_device, name):
 
 
 @pytest.mark.parametrize("n", [50000, 2200000], ids=["short", "long"])
-@pytest.mark.parametrize("name,allocations", [("K4", 2), ("K2", 3), ("K3", 3),
-                                              ("K6", 3)])
+@pytest.mark.parametrize("name,allocations", [("K4", 2), ("K5", 2), ("K2", 3),
+                                              ("K3", 3), ("K6", 3)])
 def test_tiled_kernel_on_another_stream_and_in_a_graph(cuda_device, name,
                                                        allocations, n):
     """A call launches on the current stream, whichever it is (a long K2,
@@ -502,6 +568,25 @@ def test_static_lp24_at_short_in_block_lengths(cuda_device, n, ln):
     assert counts[key] == before + 1
     assert torch.equal(y.cpu(), fn(x, secs))
     assert torch.equal(y, earlier(xd, secs))
+    assert counts[key] == before + 1
+
+
+@pytest.mark.parametrize("n,ln", [(1, 16), (200, 16), (257, 32),
+                                  (1024, 32), (4000, 64), (57216, 128)])
+def test_biquad_scalar_at_every_in_block_length(cuda_device, n, ln):
+    """K5 on biquad_tiled at every in-block length a static section takes
+    (16 and 32: one coefficient set a block, the 4-chunk swizzle at 16)
+    equals the CPU twin and its earlier route, biquad_scan, and counts its
+    launch."""
+    assert iir_kernels.geometry(n, blockrate=False)[0] == ln
+    fn, earlier, counts, key, x, coefs = _tiled_case("K5", 3, n, "")
+    xd = x.to(cuda_device)
+    before = counts[key]
+    y = fn(xd, coefs)
+    torch.cuda.synchronize()
+    assert counts[key] == before + 1
+    assert torch.equal(y.cpu(), fn(x, coefs))
+    assert torch.equal(y, earlier(xd, coefs))
     assert counts[key] == before + 1
 
 

@@ -1,4 +1,4 @@
-"""K4, K2, K3 and static K6 around their tiled CUDA kernels
+"""K4, K5, K2, K3 and static K6 around their tiled CUDA kernels
 (groove_tpu_torch/csrc/tiled.cuh through biquad_tiled, lp24_refined_tiled
 and lp24_tiled), as far as a host without a card can hold them: a
 pure-torch model of the tiled walk (tiles of T ln-blocks staged with zeros
@@ -26,9 +26,9 @@ from torch.utils._python_dispatch import TorchDispatchMode
 
 from groove_tpu_torch.kernels import build
 from groove_tpu_torch.ops import biquad_kernels, iir, iir_kernels
-from groove_tpu_torch.ops.iir_kernels import (BLOCK, TILED_SLOTS, Streams,
-                                              _corr_phase1, chain, geometry,
-                                              phase1)
+from groove_tpu_torch.ops.iir_kernels import (BLOCK, SCALAR, TILED_SLOTS,
+                                              Streams, _corr_phase1, chain,
+                                              geometry, phase1)
 
 SR = 44100.0
 
@@ -283,6 +283,17 @@ def _k4_case(rows: int, n: int, kind: str, seed: int):
     return _x(rows, n, seed), coefs
 
 
+def _k5_case(rows: int, n: int, seed: int):
+    """A static section (K5's render route: the filter bank's peaking EQ
+    and its like), its kind, corner and q from the seed."""
+    rng = np.random.default_rng(seed)
+    cutoff = float(rng.choice([40.0, 300.0, 2000.0, 8000.0]))
+    q = float(rng.uniform(0.5, 4.0))
+    coefs = (iir.rbj_peaking_eq(cutoff, q, 6.0, SR) if seed % 2
+             else iir.rbj_low_pass(cutoff, q, SR))
+    return _x(rows, n, seed), coefs
+
+
 def _k2_case(rows: int, n: int, kind: str, seed: int):
     nb = -(-n // 64)
     cut = _cutoffs(rows, nb, kind)
@@ -387,6 +398,26 @@ def test_k6_static_tiled_model_equals_twin(i, n):
     assert float(y.abs().max()) > 0.0
 
 
+@pytest.mark.parametrize("i,n", list(enumerate(SIZES + K6_SIZES)))
+def test_k5_tiled_model_equals_twin(i, n):
+    """K5 on biquad_tiled by value: the walk of K4 with SCALAR streams, at
+    every ln that block_for gives a static section (16 up to 256 frames,
+    32 up to 1024, 64 up to 4096, then 128) and every n around a block and
+    a tile edge."""
+    x, coefs = _k5_case(ROWS[i % 3], n, seed=170 + i)
+    x2, st, ln = biquad_kernels._prepare(x, coefs, SCALAR)
+    assert st.mode == SCALAR and ln == geometry(n, blockrate=False)[0]
+    y = model_k4(x2, st, ln, TILED_SLOTS)
+    assert torch.equal(y, biquad_kernels.biquad_scalar_plain(x, coefs))
+    assert torch.equal(y, biquad_kernels.biquad_scalar(x, coefs))
+    assert float(y.abs().max()) > 0.0
+
+
+def test_k5_sizes_reach_every_in_block_length():
+    lns = {geometry(n, blockrate=False)[0] for n in SIZES + K6_SIZES}
+    assert lns == {16, 32, 64, 128}
+
+
 @pytest.mark.parametrize("kernel,n,T,segments", [
     ("K3", 8193 + 64 * 5, 7, 3), ("K3", LN128 + 1, TILED_SLOTS, 2),
     ("K6", 200, 2, 3), ("K6", 1000, 3, 4), ("K6", 8193, 5, 8)])
@@ -416,7 +447,7 @@ def test_zero_fill_reaches_no_output_of_the_single_pass(kernel):
     assert torch.equal(y, _single_twin(kernel, x, secs))
 
 
-@pytest.mark.parametrize("kernel", ["K4", "K2", "K3", "K6"])
+@pytest.mark.parametrize("kernel", ["K4", "K5", "K2", "K3", "K6"])
 @pytest.mark.parametrize("rows,kind,T", [(1, "full", 2), (2, "row", 3),
                                          (5, "time", 7)])
 def test_many_small_tiles_equal_twin(kernel, rows, kind, T):
@@ -432,6 +463,11 @@ def test_many_small_tiles_equal_twin(kernel, rows, kind, T):
         x2, st, ln = biquad_kernels._prepare(x, coefs, BLOCK)
         y = model_k4(x2, st, ln, T)
         want = biquad_kernels.biquad_blockrate_plain(x, coefs)
+    elif kernel == "K5":
+        x, coefs = _k5_case(rows, n, seed=65 + T)
+        x2, st, ln = biquad_kernels._prepare(x, coefs, SCALAR)
+        y = model_k4(x2, st, ln, T)
+        want = biquad_kernels.biquad_scalar_plain(x, coefs)
     else:
         x, secs = _k2_case(rows, n, kind, seed=70 + T)
         x2, den = iir_kernels._prepare(x, secs, 64)
@@ -468,16 +504,16 @@ class _Count(TorchDispatchMode):
 
 
 @pytest.mark.parametrize("name,outputs,pairs,carries",
-                         [("K4", 1, 2, 0), ("K2", 2, 5, 4), ("K3", 2, 2, 2),
-                          ("K6", 2, 2, 2)])
+                         [("K4", 1, 2, 0), ("K5", 1, 2, 0), ("K2", 2, 5, 4),
+                          ("K3", 2, 2, 2), ("K6", 2, 2, 2)])
 @pytest.mark.parametrize("rows,n", [(2, 8193), (5, 64)])
 def test_buffers_are_the_only_torch_operations(name, outputs, pairs, carries,
                                                rows, n):
-    """A tiled call allocates its outputs (K4: y; K2: y and the first
+    """A tiled call allocates its outputs (K4, K5: y; K2: y and the first
     section's output) and one scratch buffer, and makes no other torch
     operation: x is neither padded nor copied."""
     x2 = _x(rows, n, seed=90)
-    ln = geometry(n, blockrate=name != "K6")[0]
+    ln = geometry(n, blockrate=name not in ("K5", "K6"))[0]
     blocks = rows * -(-n // ln)
     with _Count() as mode:
         outs, scratch, ptrs = iir_kernels.tiled_buffers(x2, ln, outputs,
@@ -491,12 +527,13 @@ def test_buffers_are_the_only_torch_operations(name, outputs, pairs, carries,
     sizes = [s for s in sizes if s]
     assert ptrs == [base + sum(sizes[:i]) for i in range(len(sizes))]
     assert ptrs[-1] + sizes[-1] == base + 4 * scratch.numel()
-    text = _source("biquad.cu" if name == "K4" else "lp24.cu")
-    entry = {"K4": "biquad_tiled", "K2": "lp24_refined_tiled"}.get(
-        name, "lp24_tiled")
+    text = _source("biquad.cu" if name in ("K4", "K5") else "lp24.cu")
+    entry = {"K4": "biquad_tiled", "K5": "biquad_tiled",
+             "K2": "lp24_refined_tiled"}.get(name, "lp24_tiled")
     head = text[text.index(f'extern "C" int {entry}('):]
     head = head[:head.index(")")]
-    scratch_args = {"K4": "m, c, s", "K2": "m, c, sa, sb, r, sc, carries"}.get(
+    scratch_args = {"K4": "m, c, s", "K5": "m, c, s",
+                    "K2": "m, c, sa, sb, r, sc, carries"}.get(
         name, "m, c, s, carries")
     assert [a.split("*")[-1].strip() for a in head.split(",")
             if a.split("*")[-1].strip() in scratch_args.split(", ")] \
@@ -521,15 +558,17 @@ def test_a_chain_cut_into_segments_is_the_chain():
 
 
 def test_wrappers_route_block_mode_to_the_tiled_kernels(monkeypatch):
-    """On a card K4 launches biquad_tiled and K2 lp24_refined_tiled, on the
-    coefficients as they were given; K5 and K9 keep biquad_scan; the
-    earlier routes are private helpers that count no launch."""
+    """On a card K4 launches biquad_tiled on the coefficients as they were
+    given, K5 biquad_tiled on the five static values, K2
+    lp24_refined_tiled; K9 keeps biquad_scan; the earlier routes are
+    private helpers that count no launch."""
     import inspect
 
     seen = []
     run = lambda x2, plain, launch, *a: (launch(), x2)[1]  # noqa: E731
     monkeypatch.setattr(biquad_kernels, "_launch_tiled",
-                        lambda x2, views: seen.append(("tiled", views)))
+                        lambda x2, ln, views=None, values=None: seen.append(
+                            ("tiled", ln, views, values)))
     monkeypatch.setattr(biquad_kernels, "_launch",
                         lambda x2, st, ln: seen.append(("scan", st.mode)))
     monkeypatch.setattr(biquad_kernels, "dispatch", run)
@@ -538,19 +577,22 @@ def test_wrappers_route_block_mode_to_the_tiled_kernels(monkeypatch):
     monkeypatch.setattr(iir_kernels, "dispatch", run)
     x, coefs = _k4_case(2, 256, "row", seed=91)
     biquad_kernels.biquad_blockrate(x, coefs)
-    biquad_kernels.biquad_scalar(x, iir.rbj_low_pass(1000.0, 0.7, SR))
+    static = iir.rbj_low_pass(1000.0, 0.7, SR)
+    biquad_kernels.biquad_scalar(x, static)
     biquad_kernels.biquad_per_sample(
         x, tuple(torch.from_numpy(np.ascontiguousarray(c)) for c in
                  iir.rbj_low_pass(np.full(256, 900.0, np.float32),
                                   np.float32(0.7), SR)))
     x, secs = _k2_case(2, 256, "time", seed=94)
     iir_kernels.lp24_refined_blockrate(x, secs)
-    assert [s[0] for s in seen] == ["tiled", "scan", "scan", "refined"]
-    assert seen[1][1] == iir_kernels.SCALAR
+    assert [s[0] for s in seen] == ["tiled", "tiled", "scan", "refined"]
+    assert seen[0][1] == 64 and seen[0][3] is None
+    assert seen[1][1] == 16 and seen[1][2] is None
+    assert seen[1][3] == [np.float32(c) for c in static]
     assert seen[2][1] == iir_kernels.SAMPLE
     # the views are the caller's tensors, strides and all
-    assert [v.data_ptr() for v in seen[0][1]] == [c.data_ptr() for c in coefs]
-    assert [v.stride() for v in seen[0][1]] == [(0, 1)] * 5
+    assert [v.data_ptr() for v in seen[0][2]] == [c.data_ptr() for c in coefs]
+    assert [v.stride() for v in seen[0][2]] == [(0, 1)] * 5
     want = [sec[i] for sec in secs for i in (3, 4)]
     assert [d.data_ptr() for d in seen[3][1]] == [c.data_ptr() for c in want]
     assert [d.stride() for d in seen[3][1]] == [(1, 0)] * 4
@@ -558,6 +600,46 @@ def test_wrappers_route_block_mode_to_the_tiled_kernels(monkeypatch):
                     biquad_kernels._blockrate_earlier):
         text = inspect.getsource(earlier)
         assert "_launch(" in text and "LAUNCHES" not in text
+
+
+@pytest.mark.parametrize("rows,n,ln", [(2, 200, 16), (3, 1000, 32),
+                                       (1, 4000, 64), (2, 8193, 128)])
+def test_biquad_scalar_calls_biquad_tiled_by_value(monkeypatch, rows, n, ln):
+    """On a card K5 calls the library's biquad_tiled in scalar mode with
+    the arguments its signature binds: x itself, no arrays, the five
+    float32 values b0, b1, b2, a1, a2, y and the scratch of tiled_buffers,
+    at block_for(n, 128); before the launch the call's only torch
+    operations are those two allocations, none on x."""
+    from groove_tpu_torch.kernels import build as kbuild
+
+    calls = []
+
+    class Library:
+        def biquad_tiled(self, *args):
+            assert len(args) == len(kbuild.SIGNATURES["biquad_tiled"])
+            calls.append((args, list(mode.ops)))
+            return 0
+
+    monkeypatch.setattr(kbuild, "library", Library)
+    monkeypatch.setattr(biquad_kernels, "check_input", lambda x2, what: None)
+    monkeypatch.setattr(biquad_kernels, "raw_stream", lambda device: 0)
+    monkeypatch.setattr(biquad_kernels, "dispatch",
+                        lambda x2, plain, launch, *a: launch())
+    x, coefs = _k5_case(rows, n, seed=180 + ln)
+    before = dict(biquad_kernels.LAUNCHES)
+    with _Count() as mode:
+        y = biquad_kernels.biquad_scalar(x, coefs)
+    (args, ops), = calls
+    assert len(ops) == 2 and all("empty" in op for op in ops), ops
+    # after the launch: at most a view of y back to x's shape
+    assert all("view" in op for op in mode.ops[2:]), mode.ops
+    assert args[0] == SCALAR and args[1] == x.data_ptr()
+    assert [a.value for a in args[2:7]] == [None] * 5
+    assert args[7] is None and args[8] == 1
+    assert list(args[9:14]) == [np.float32(c) for c in coefs]
+    assert all(type(a) is np.float32 for a in args[9:14])
+    assert args[14] == y.data_ptr() and args[-4:] == (rows, n, ln, 0)
+    assert biquad_kernels.LAUNCHES == before  # the fake dispatch counts none
 
 
 def test_lp24_wrappers_route_to_lp24_tiled(monkeypatch):
@@ -664,7 +746,7 @@ def test_arguments_cost_no_torch_operation(name):
         iir_kernels.block_views(x.double(), coefs, "kernels")
 
 
-@pytest.mark.parametrize("name", ["K4", "K2", "K3", "K6"])
+@pytest.mark.parametrize("name", ["K4", "K5", "K2", "K3", "K6"])
 def test_tiled_wrappers_refuse_other_devices_and_types(name):
     """No fallback: a meta tensor is refused, float64 is refused, the CPU
     runs the twin and counts no launch."""
@@ -675,6 +757,10 @@ def test_tiled_wrappers_refuse_other_devices_and_types(name):
     elif name == "K6":
         x, co = _k6_case(2, 128, seed=93)
         fn, counts = iir_kernels.lp24_cascade, iir_kernels.LAUNCHES
+        meta = co
+    elif name == "K5":
+        x, co = _k5_case(2, 128, seed=93)
+        fn, counts = biquad_kernels.biquad_scalar, biquad_kernels.LAUNCHES
         meta = co
     else:
         x, co = _k2_case(2, 128, "full", seed=93)
@@ -728,6 +814,30 @@ def test_tiled_shared_memory_budget_matches_the_source(ln, constant):
                                                                 128}
 
 
+@pytest.mark.parametrize("ln", [16, 32, 64, 128])
+def test_every_in_block_length_has_its_instantiations(ln):
+    """biquad.cu instantiates K5's tiled scan (kScalar) at every in-block
+    length a static section takes and K4's (kBlock) at 64 and 128, as
+    lp24.cu does for static K6 and K3; each instantiation allows its
+    kernels the tile's shared memory once per device before it launches."""
+    for src, entry in (("biquad.cu", "tiled_scan"),
+                       ("lp24.cu", "single_tiled")):
+        text = _source(src)
+        assert f"{entry}<tdf2::kScalar, {ln}>(" in text, (src, ln)
+        if ln >= 64:
+            assert re.search(rf"{entry}<(tdf2::)?kBlock, {ln}>\(", text), (
+                src, ln)
+        body = text[text.index(f"int {entry}("):]
+        body = body[:body.index("\n}\n")]
+        assert "constexpr int kBytes = tiled::smem_bytes(kLn);" in body
+        flat = re.sub(r"\s+", " ", body)
+        allowed = set(re.findall(r"tiled::allow\((tiled::\w+<[^;]*?>),", flat))
+        launched = set(re.findall(r"(tiled::\w+_kernel<[^;]*?>) ?<<<", flat))
+        assert launched and launched <= allowed, (src, launched, allowed)
+        assert body.index("allowed[dev] = true;") < body.index("<<<")
+    assert iir_kernels.tiled_smem_bytes(ln) <= 232448 // 3
+
+
 @pytest.mark.parametrize("kind,passes", [("K2", 4), ("K3", 2), ("K6", 2),
                                          ("K7", 2), ("K8", 4)])
 def test_bound_counts_one_chain_of_a_cascade(kind, passes):
@@ -777,9 +887,11 @@ def test_build_covers_the_tiled_header(tmp_path, monkeypatch):
     shutil.copytree(build.CSRC, copy)
     monkeypatch.setattr(build, "CSRC", copy)
     first = build.library_path()
-    with open(copy / "tiled.cuh", "a") as f:
-        f.write("// changed\n")
-    assert build.library_path() != first
+    for name in ("tiled.cuh", "biquad.cu", "drums.cu"):
+        with open(copy / name, "a") as f:
+            f.write("// changed\n")
+        assert build.library_path() != first
+        first = build.library_path()
     code = re.sub(r"//.*", "", _source("tiled.cuh"))
     for shared in ("tdf2::step(", "tdf2::corr_step(", "tdf2::lp24_defect("):
         assert shared in code, shared
