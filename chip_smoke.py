@@ -29,18 +29,22 @@ Phases, one JSON line each:
      empty kernel launched the same way (launch_floor_ms) and the
      kernel's device time (device_ms: a captured CUDA graph of 20 calls,
      replayed); a captured graph of one call must replay to the eager
-     call's bits. K4, K5, K2, K3 and K6 with static denominators
-     (csrc/tiled.cuh's shared-memory tiles) are held bit for bit to their
-     twins and to their earlier multi-launch routes at the 10-second
-     shape, at [64, 65536] and at [5, 32589] (n a multiple neither of the
-     in-block length nor of a tile, coefficients broadcast through a zero
-     stride), K5 also on short rows at the in-block lengths 16 and 32, and
-     timed in turns with the earlier routes there and at the 3-minute size
+     call's bits. K4, K5, K9, K2, K3 and K6 with static and with
+     per-sample denominators (csrc/tiled.cuh's shared-memory tiles; K9's
+     and per-sample K6's coefficients staged beside the tile) are held bit
+     for bit to their twins and to their earlier multi-launch routes at
+     the 10-second shape, at [64, 65536] and at [5, 32589] (n a multiple
+     neither of the in-block length nor of a tile, coefficients broadcast
+     through a zero stride), K5, K9 and per-sample K6 also on short rows
+     at the in-block lengths 16 and 32, and timed in turns with the
+     earlier routes there and at the 3-minute size
      (kernel_vs_earlier_route: ms, earlier_ms, and the card alone,
      device_ms and earlier_device_ms), a captured graph's replay equal to
-     the eager call; the chain walker's cycles per step come from an
-     instrumented build (groove_tpu_torch/kernels/stage_cycles.py) at the
-     3-minute size. K1 (csrc/drums.cu's tiled, culled kernel) is also held
+     the eager call; per-sample K6 (a cutoff swept 60 Hz -> 15 kHz at q
+     0.9) is held to its twin at the 3-minute size too. The chain
+     walker's cycles per step come from an instrumented build
+     (groove_tpu_torch/kernels/stage_cycles.py) at the 3-minute size.
+     K1 (csrc/drums.cu's tiled, culled kernel) is also held
      to its twin on dense hits (every 64 frames, rows longer than a chunk:
      each tile's hit list overflows several times) at [2, 3 * 65536 + 64],
      and timed at the 3-minute size as a whole call (ms) and on the card
@@ -51,8 +55,9 @@ Phases, one JSON line each:
      song with the cutoff kept above 2 kHz (K1 + K3), and the 3-minute
      filter-bank analogue (every route of the effect filters: K1, K5, K4,
      K4 twice for "refine", the serial scan, K6 and K3); then the ops entry
-     point iir.biquad_best with per-sample coefficients (K9, which no
-     render path reaches) on the filter bank's output; then the 3-minute
+     points that no render path reaches, on the filter bank's output:
+     iir.biquad_best with per-sample coefficients (K9) and iir.lp24_apply
+     with a per-sample cutoff (K6, one launch); then the 3-minute
      Welsh analogue through the CLI's --stream --sliced at 4096-frame
      segments (every Welsh device sliced, K7 and K8 launched once per
      segment and bucket, as the renderer plans), and K7 and K8 alone on
@@ -368,7 +373,8 @@ def stream_kernel_check(key: str, x, sections, state) -> dict:
 
 
 TILED = {"biquad_blockrate": "K4", "biquad_scalar": "K5",
-         "lp24_refined": "K2", "lp24": "K3", "lp24_cascade": "K6"}
+         "biquad_per_sample": "K9", "lp24_refined": "K2", "lp24": "K3",
+         "lp24_cascade": "K6"}
 ODD = (5, 2 * 127 * 128 + 77)  # rows, n: no multiple of 128 nor of a tile
 
 
@@ -387,11 +393,23 @@ def graph_ms(fn, reps: int = 5) -> float:
     return ms
 
 
+def coefficient_mode(name: str, coefs) -> str:
+    """How a tiled kernel call takes its coefficients: "static" (by value),
+    "block" (one set per 64 frames) or "per-sample"."""
+    from groove_tpu_torch.ops.iir_kernels import is_scalar
+
+    if name in ("biquad_blockrate", "lp24_refined", "lp24"):
+        return "block"
+    flat = [c for sec in coefs for c in sec[3:]] \
+        if name == "lp24_cascade" else list(coefs)
+    return "static" if all(is_scalar(c) for c in flat) else "per-sample"
+
+
 def tiled_kernel_check(name: str, x, coefs) -> dict:
-    """K4, K5, K2, K3 or static K6 beside its earlier multi-launch route on the
-    same inputs: both timed in turns as whole wrapper calls, equal bit for
-    bit; a captured CUDA graph of one call, replayed on a changed input,
-    equal to the eager call; the device time of each route from a
+    """K4, K5, K9, K2, K3 or K6 beside its earlier multi-launch route on
+    the same inputs: both timed in turns as whole wrapper calls, equal bit
+    for bit; a captured CUDA graph of one call, replayed on a changed
+    input, equal to the eager call; the device time of each route from a
     captured graph of GRAPH_CALLS calls (device_ms, earlier_device_ms)."""
     import torch
     from groove_tpu_torch.ops import biquad_kernels as bk
@@ -401,6 +419,7 @@ def tiled_kernel_check(name: str, x, coefs) -> dict:
         "biquad_blockrate": (bk.biquad_blockrate, bk._blockrate_earlier),
         "biquad_scalar": (bk.biquad_scalar, lambda a, c: bk._launch(
             *bk._prepare(a, c, bk.SCALAR))),
+        "biquad_per_sample": (bk.biquad_per_sample, bk._per_sample_earlier),
         "lp24_refined": (iir_kernels.lp24_refined_blockrate,
                          iir_kernels._refined_earlier),
         "lp24": (iir_kernels.lp24_blockrate,
@@ -420,7 +439,8 @@ def tiled_kernel_check(name: str, x, coefs) -> dict:
     torch.cuda.synchronize()
     y_half = kern(xg, coefs)
     device = [graph_ms(lambda f=fn: f(x, coefs)) for fn in (kern, earlier)]
-    return {"name": name, "shape": list(x.shape), "ms": ms,
+    return {"name": name, "coefficients": coefficient_mode(name, coefs),
+            "shape": list(x.shape), "ms": ms,
             "earlier_ms": earlier_ms, "device_ms": device[0],
             "earlier_device_ms": device[1],
             "equals_earlier_route": bool(torch.equal(new, old)),
@@ -570,11 +590,27 @@ def main() -> int:
         return x, [tuple(fs[i, j].expand(2, -1) for j in range(5))
                    for i in range(2)]
 
-    def sweep(n: int):
-        """Per-sample low-pass coefficients, 200 Hz -> 12 kHz (K9)."""
-        return tiir.rbj_low_pass(
+    def sweep(n: int, rows: int = 0):
+        """Per-sample low-pass coefficients, 200 Hz -> 12 kHz (K9); with
+        rows, each a [rows, n] row broadcast (stride 0)."""
+        co = tiir.rbj_low_pass(
             torch.logspace(2.3, 4.08, n, dtype=torch.float64).float()
             .to(dev), 0.707, 44100.0)
+        return tuple(c.expand(rows, -1) for c in co) if rows else co
+
+    def lp24_sweep(x):
+        """x times the gain of, and the sections of, an lp24 whose cutoff
+        sweeps 60 Hz -> 15 kHz at q 0.9 over x's length (K6's per-sample
+        mode), each coefficient a [rows, n] row broadcast (stride 0)."""
+        rows, n = x.shape
+        cut = torch.from_numpy(np.geomspace(60.0, 15000.0, n)
+                               .astype(np.float32)).to(dev)
+        gain, secs = tiir.lp24_sections(cut, 0.9, 44100.0)
+        return x * gain, [tuple(c.expand(rows, -1) for c in sec)
+                          for sec in secs]
+
+    def per_sample(res: dict) -> dict:
+        return {**res, "coefficients": "per-sample"}
 
     def bank_calls(r, bus):
         """name -> (kernel, twin, x, coefficients): each filter-bank route's
@@ -646,14 +682,22 @@ def main() -> int:
         lambda: bk.biquad_blockrate_plain(bus_b, held), bus_b.abs().max(),
         iir_call_work("biquad_blockrate", bus_b, held)))
     bank = bank_calls(rb, bus_b)
+    xps, ps = lp24_sweep(bus_b)
+    results.append(per_sample(compare(
+        "lp24_cascade", lambda: iir_kernels.lp24_cascade(xps, ps),
+        lambda: iir_kernels.lp24_cascade_plain(xps, ps), xps.abs().max(),
+        iir_call_work("lp24_cascade", xps, ps))))
     tiled_checks = [
         tiled_kernel_check("lp24_refined", x, secs),
         tiled_kernel_check("biquad_blockrate", bus_b,
                            bank["biquad_blockrate"][3]),
         tiled_kernel_check("biquad_scalar", *bank["biquad_scalar"][2:]),
+        tiled_kernel_check("biquad_per_sample",
+                           *bank["biquad_per_sample"][2:]),
         tiled_kernel_check("lp24", x, secs),
-        tiled_kernel_check("lp24_cascade", *bank["lp24_cascade"][2:])]
-    del r, rb, hits, bus, bus_b, x, secs, x2, den, held, bank
+        tiled_kernel_check("lp24_cascade", *bank["lp24_cascade"][2:]),
+        tiled_kernel_check("lp24_cascade", xps, ps)]
+    del r, rb, hits, bus, bus_b, x, secs, x2, den, held, bank, xps, ps
 
     # [64, 65536]: many rows through sweeps that rest near 25 Hz
     g = torch.Generator().manual_seed(0)
@@ -687,21 +731,41 @@ def main() -> int:
         results.append(compare(name, lambda k=kern, c=co: k(xw, c),
                                lambda p=plain, c=co: p(xw, c),
                                xw.abs().max(), iir_call_work(name, xw, co)))
-    # K5 on short rows: the in-block lengths 16 (n <= 256) and 32 (<= 1024)
+    xwp, psw = lp24_sweep(xw)
+    results.append(per_sample(compare(
+        "lp24_cascade", lambda: iir_kernels.lp24_cascade(xwp, psw),
+        lambda: iir_kernels.lp24_cascade_plain(xwp, psw), xwp.abs().max(),
+        iir_call_work("lp24_cascade", xwp, psw))))
+    # K5, K9 and per-sample K6 on short rows: the in-block lengths 16
+    # (n <= 256) and 32 (<= 1024)
     peq = wide[1][3]
     short = [xw[:4, :k].contiguous() for k in (200, 1000)]
+    short_ps = [(xs, sweep(xs.shape[1], 4), *lp24_sweep(xs)) for xs in short]
     for xs in short:
         results.append(compare(
             "biquad_scalar", lambda a=xs: bk.biquad_scalar(a, peq),
             lambda a=xs: bk.biquad_scalar_plain(a, peq), xs.abs().max(),
             iir_call_work("biquad_scalar", xs, peq)))
+    for xs, co9, xsp, pss in short_ps:
+        results.append(compare(
+            "biquad_per_sample", lambda a=xs, c=co9: bk.biquad_per_sample(a, c),
+            lambda a=xs, c=co9: bk.biquad_per_sample_plain(a, c),
+            xs.abs().max(), iir_call_work("biquad_per_sample", xs, co9)))
+        results.append(per_sample(compare(
+            "lp24_cascade",
+            lambda a=xsp, c=pss: iir_kernels.lp24_cascade(a, c),
+            lambda a=xsp, c=pss: iir_kernels.lp24_cascade_plain(a, c),
+            xsp.abs().max(), iir_call_work("lp24_cascade", xsp, pss))))
     # the tiled kernels beside their earlier routes at [64, 65536], and at
     # ODD with the row-broadcast (stride 0) coefficient views
     orows, on = ODD
     xo = xg[:orows, :on].contiguous()
     so = [tuple(c[:orows, :-(-on // 64)] for c in sec) for sec in sw]
     co = tuple(c[:orows, :-(-on // 64)] for c in wide[0][3])
-    require(so[0][3].stride(0) == 0 and co[0].stride(0) == 0,
+    co9 = sweep(on, orows)
+    xop, pso = lp24_sweep(xw[:orows, :on].contiguous())
+    require(so[0][3].stride(0) == 0 and co[0].stride(0) == 0
+            and co9[0].stride(0) == 0 and pso[0][3].stride(0) == 0,
             "the odd shape's coefficients are not broadcast views")
     xo2, deno = iir_kernels._prepare(xo, so, 64)
     results.append(compare(
@@ -724,19 +788,34 @@ def main() -> int:
         "biquad_scalar", lambda: bk.biquad_scalar(xo, peq),
         lambda: bk.biquad_scalar_plain(xo, peq), xo.abs().max(),
         iir_call_work("biquad_scalar", xo, peq)))
+    results.append(compare(
+        "biquad_per_sample", lambda: bk.biquad_per_sample(xo, co9),
+        lambda: bk.biquad_per_sample_plain(xo, co9), xo.abs().max(),
+        iir_call_work("biquad_per_sample", xo, co9)))
+    results.append(per_sample(compare(
+        "lp24_cascade", lambda: iir_kernels.lp24_cascade(xop, pso),
+        lambda: iir_kernels.lp24_cascade_plain(xop, pso), xop.abs().max(),
+        iir_call_work("lp24_cascade", xop, pso))))
     tiled_checks += [
         tiled_kernel_check("lp24_refined", xg, sw),
         tiled_kernel_check("biquad_blockrate", xw, wide[0][3]),
         tiled_kernel_check("biquad_scalar", xw, peq),
+        tiled_kernel_check("biquad_per_sample", xw, wide[2][3]),
         tiled_kernel_check("lp24", xg, sw),
         tiled_kernel_check("lp24_cascade", xw, lp8k),
+        tiled_kernel_check("lp24_cascade", xwp, psw),
         tiled_kernel_check("lp24_refined", xo, so),
         tiled_kernel_check("biquad_blockrate", xo, co),
         tiled_kernel_check("biquad_scalar", xo, peq),
+        tiled_kernel_check("biquad_per_sample", xo, co9),
         tiled_kernel_check("lp24", xo, so),
         tiled_kernel_check("lp24_cascade", xo, lp8k),
-        *(tiled_kernel_check("biquad_scalar", xs, peq) for xs in short)]
-    del xo, so, co, xo2, deno, short
+        tiled_kernel_check("lp24_cascade", xop, pso),
+        *(tiled_kernel_check("biquad_scalar", xs, peq) for xs in short),
+        *(check for xs, co9s, xsp, pss in short_ps for check in (
+            tiled_kernel_check("biquad_per_sample", xs, co9s),
+            tiled_kernel_check("lp24_cascade", xsp, pss)))]
+    del xo, so, co, xo2, deno, short, co9, xop, pso, short_ps, xwp, psw
     # K7 and K8 at [64, 65536] from the state a first call carries out
     # and at [12, 2 tiles + 192]: many shared-memory tiles, the last one
     # short, the coefficients still the row-broadcast (stride 0) views
@@ -821,15 +900,31 @@ def main() -> int:
         extra = {"device_ms": graph_ms(fn)} if name == "drums" else {}
         emit("kernel_at_song_size", name=name, frames=n, ms=ms, **extra,
              **bounds(*wk))
+    # per-sample K6 alone and against its twin at the 3-minute size
+    xps, ps = lp24_sweep(bus_b)
+    ms, _ = cuda_ms(lambda: iir_kernels.lp24_cascade(xps, ps), 5)
+    emit("kernel_at_song_size", name="lp24_cascade", frames=n, ms=ms,
+         coefficients="per-sample",
+         **bounds(*iir_call_work("lp24_cascade", xps, ps)))
+    res = per_sample(compare(
+        "lp24_cascade", lambda: iir_kernels.lp24_cascade(xps, ps),
+        lambda: iir_kernels.lp24_cascade_plain(xps, ps), xps.abs().max(),
+        iir_call_work("lp24_cascade", xps, ps), reps=5))
+    emit("kernel_vs_twin", **res)
+    require(res["bitwise"], f"per-sample lp24_cascade differs from its twin "
+            f"at {res['shape']}")
     bank = bank_calls(rb, bus_b)
     tiled_checks += [
         tiled_kernel_check("lp24_refined", x, secs),
         tiled_kernel_check("biquad_blockrate", bus_b,
                            bank["biquad_blockrate"][3]),
         tiled_kernel_check("biquad_scalar", *bank["biquad_scalar"][2:]),
+        tiled_kernel_check("biquad_per_sample",
+                           *bank["biquad_per_sample"][2:]),
         tiled_kernel_check("lp24", x, secs),
-        tiled_kernel_check("lp24_cascade", *bank["lp24_cascade"][2:])]
-    del r, rb, hits, bus, bus_b, x, secs, alone, bank
+        tiled_kernel_check("lp24_cascade", *bank["lp24_cascade"][2:]),
+        tiled_kernel_check("lp24_cascade", xps, ps)]
+    del r, rb, hits, bus, bus_b, x, secs, alone, bank, xps, ps, res
     for res in tiled_checks:
         emit("kernel_vs_earlier_route", kind=TILED[res["name"]], **res)
         require(res["equals_earlier_route"], f"{res['name']} differs from "
@@ -842,7 +937,7 @@ def main() -> int:
     prof_dir = build.BUILD_DIR / "stage_cycles"
     prof_dir.mkdir(parents=True, exist_ok=True)
     prof = stage_cycles.build_tiled_profile(prof_dir)
-    for kind in ("K4", "K5", "K2", "K3", "K6"):
+    for kind in ("K4", "K5", "K9", "K2", "K3", "K6", "K6s"):
         res = stage_cycles.tiled_cycles(prof, kind, 2, n)
         emit("chain_cycles", **res)
         per_step = res["cycles_per_chain_step"]["chain"]
@@ -901,7 +996,22 @@ def main() -> int:
          launches={k: v for k, v in got.items() if v})
     require(got["biquad_per_sample"] == 1 and finite,
             f"biquad_best per-sample launched {got}")
-    del out, coefs, y
+    # and iir.lp24_apply with a per-sample cutoff (K6 in its per-sample
+    # mode), 60 Hz -> 15 kHz at q 0.9
+    cut = np.geomspace(60.0, 15000.0, out.shape[-1]).astype(np.float32)
+    zero_launches()
+    y = tiir.lp24_apply(out, cut, np.float32(0.9), 44100.0)
+    torch.cuda.synchronize()
+    got = launches()
+    for k in totals:
+        totals[k] += got[k]
+    finite = bool(torch.isfinite(y).all())
+    emit("ops_entry_point", call="iir.lp24_apply, per-sample cutoff",
+         shape=list(y.shape), finite=finite,
+         launches={k: v for k, v in got.items() if v})
+    require(got == {**dict.fromkeys(got, 0), "lp24_cascade": 1} and finite,
+            f"lp24_apply per-sample launched {got}")
+    del out, coefs, y, cut
 
     # the 3-minute Welsh analogue, segment-streamed with sliced voices
     wpath = synth.write_project(work / "welsh.json", synth.welsh_project(

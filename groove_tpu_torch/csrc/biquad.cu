@@ -17,29 +17,33 @@
 // -fmad=false, the in-block recurrence's explicit __fmaf_rn mirrored by
 // fma32 in the plain twins of ops/biquad_kernels.py, so every route and
 // the twin agree bit for bit):
-//   biquad_tiled  K4 (kBlock) and K5 (kScalar). Three launches:
-//                 tiled::maps_kernel (phase 1 on shared-memory tiles,
-//                 writes only the block maps), tdf2::chain,
+//   biquad_tiled  K4 (kBlock), K5 (kScalar) and K9 (kSample). Three
+//                 launches: tiled::maps_kernel (phase 1 on shared-memory
+//                 tiles, writes only the block maps), tdf2::chain,
 //                 tiled::combine_kernel (re-scans the tile beside the entry
 //                 states and writes y). x is read twice and y written once;
 //                 the scratch is the block maps and entry states, 32 bytes
 //                 per ln-block. It takes b0, b1, b2, a1, a2 as the caller
-//                 holds them (K4: arrays, each through its own strides; K5:
-//                 five float32 values) and prepares the streams in
-//                 registers. See tiled.cuh.
-//   biquad_scan   K9, and the earlier routes of K4 and K5 (kept callable as
-//                 the yardsticks biquad_tiled is timed against, on no render
-//                 path): tdf2::phase1_kernel, a thread per (row, ln-block)
-//                 walking device memory and storing the prefix rows p11,
-//                 p12, q1; tdf2::chain; an elementwise combine
+//                 holds them (K4 and K9: arrays, each through its own
+//                 strides; K5: five float32 values) and prepares the
+//                 streams in registers. K9's per-sample streams are staged
+//                 beside the tile, coalesced, in a ring of two stages
+//                 (tiled::Feed): its coefficients are read twice too, a
+//                 32-byte sector at a time. See tiled.cuh.
+//   biquad_scan   the earlier routes of K4, K5 and K9, kept callable as the
+//                 yardsticks biquad_tiled is timed against (on no path):
+//                 tdf2::phase1_kernel, a thread per (row, ln-block) walking
+//                 device memory and storing the prefix rows p11, p12, q1;
+//                 tdf2::chain; an elementwise combine
 //                 y = b0 x + ((p11 S1 + p12 S2) + q1). The caller prepares
 //                 the five streams and pads x to whole ln-blocks.
 //
 // What bounds it on the H100: the chain (n / ln dependent steps per row,
-// see tdf2.cuh) for a few long rows; the bytes of x and y otherwise. The
-// tiled route's scans run from shared memory at the card's width and do
-// not store prefix rows; biquad_scan's phase 1 is latency-bound on its
-// strided walk of device memory and moves eight [B, n] arrays.
+// see tdf2.cuh) for a few long rows; the bytes of x, y and (K9) the
+// coefficients otherwise. The tiled route's scans run from shared memory
+// at the card's width and do not store prefix rows; biquad_scan's phase 1
+// is latency-bound on its strided walk of device memory and moves eight
+// [B, n] arrays.
 
 #include "tdf2.cuh"
 #include "tiled.cuh"
@@ -87,11 +91,12 @@ void scan(const float* x, const Coef* co, Layout l, float* y, float* p11,
       x, co[4], l, p11, p12, q1, s, y, B, n, npad, nb, ln);
 }
 
-// K4 and K5 on shared-memory tiles: phase 1, chain, combine.
+// K4, K5 and K9 on shared-memory tiles: phase 1, chain, combine.
 template <int M, int kLn>
 int tiled_scan(const float* x, const tiled::Biquad& sec, float* y, float* m,
                float* c, float* s, int B, int64_t n, cudaStream_t stream) {
-  constexpr int kBytes = tiled::smem_bytes(kLn);
+  constexpr int kBytes =
+      tiled::smem_bytes(kLn) + tiled::ring_bytes(M, tiled::Biquad::kStreams);
   static bool allowed[tiled::kMaxDevices] = {};
   int err = 0;
   const int dev = tiled::device_index(err);
@@ -156,18 +161,19 @@ extern "C" int biquad_scan(int mode, const float* x, const float* na1,
   return (int)cudaGetLastError();
 }
 
-// K4 (mode kBlock) and K5 (mode kScalar) over [B, n] rows on shared-memory
-// tiles (tiled.cuh). x and y are contiguous [B, n]: nothing is padded.
-// kBlock: the block-rate coefficients b0, b1, b2, a1, a2 are [B, count]
-// arrays as the caller holds them, each read through its own strides
-// (strides[2 i] the row stride and strides[2 i + 1] the entry stride of
-// stream i, in elements; 0 broadcasts), with ln 64 or 128. kScalar: the
-// values v0, v1, v2, v3, v4 of b0, b1, b2, a1, a2 (the arrays, strides and
-// count are not read), with ln 16, 32, 64 or 128. Either way the kernels
-// derive -a1, -a2, b1 - a1 b0 and b2 - a2 b0 themselves, and nb =
-// ceil(n / ln). Scratch, allocated by the caller: m [B, nb, 4] (16-byte
-// aligned), c and s [B, nb, 2]. Three launches on `stream`; never
-// synchronises; returns cudaGetLastError().
+// K4 (mode kBlock), K5 (mode kScalar) and K9 (mode kSample) over [B, n]
+// rows on shared-memory tiles (tiled.cuh). x and y are contiguous [B, n]:
+// nothing is padded. kBlock and kSample: the coefficients b0, b1, b2, a1,
+// a2 are [B, count] arrays as the caller holds them (kBlock: one entry per
+// 64-frame block, ln 64 or 128; kSample: one per sample, count = n, ln 16,
+// 32, 64 or 128), each read through its own strides (strides[2 i] the row
+// stride and strides[2 i + 1] the entry stride of stream i, in elements; 0
+// broadcasts). kScalar: the values v0, v1, v2, v3, v4 of b0, b1, b2, a1, a2
+// (the arrays, strides and count are not read), with ln 16, 32, 64 or 128.
+// Either way the kernels derive -a1, -a2, b1 - a1 b0 and b2 - a2 b0
+// themselves, and nb = ceil(n / ln). Scratch, allocated by the caller:
+// m [B, nb, 4] (16-byte aligned), c and s [B, nb, 2]. Three launches on
+// `stream`; never synchronises; returns cudaGetLastError().
 extern "C" int biquad_tiled(int mode, const float* x, const float* b0,
                             const float* b1, const float* b2,
                             const float* a1, const float* a2,
@@ -182,7 +188,7 @@ extern "C" int biquad_tiled(int mode, const float* x, const float* b0,
   tiled::Stream st[5];
   for (int i = 0; i < 5; ++i) {
     st[i] = {{p[i], v[i]}, {0, 0, 1}};
-    if (mode == tdf2::kBlock)
+    if (mode != tdf2::kScalar)
       st[i].l = {strides[2 * i], strides[2 * i + 1], count};
   }
   const tiled::Biquad sec = {st[0], st[1], st[2], st[3], st[4]};
@@ -190,6 +196,24 @@ extern "C" int biquad_tiled(int mode, const float* x, const float* b0,
     return tiled_scan<tdf2::kBlock, 64>(x, sec, y, m, c, s, B, n, stream);
   if (mode == tdf2::kBlock && ln == 128)
     return tiled_scan<tdf2::kBlock, 128>(x, sec, y, m, c, s, B, n, stream);
+  if (mode == tdf2::kSample) {
+    switch (ln) {
+      case 16:
+        return tiled_scan<tdf2::kSample, 16>(x, sec, y, m, c, s, B, n,
+                                             stream);
+      case 32:
+        return tiled_scan<tdf2::kSample, 32>(x, sec, y, m, c, s, B, n,
+                                             stream);
+      case 64:
+        return tiled_scan<tdf2::kSample, 64>(x, sec, y, m, c, s, B, n,
+                                             stream);
+      case 128:
+        return tiled_scan<tdf2::kSample, 128>(x, sec, y, m, c, s, B, n,
+                                              stream);
+      default:
+        return (int)cudaErrorInvalidValue;
+    }
+  }
   if (mode != tdf2::kScalar) return (int)cudaErrorInvalidValue;
   switch (ln) {
     case 16:

@@ -30,24 +30,24 @@
 //     M, C, the entry states S, the correction's offsets R and entry
 //     states Sc). The defect's history across tiles is recomputed from a
 //     halo block (tiled.cuh), not exported.
-//   lp24_tiled  K3 (kBlock) and K6 with static denominators (kScalar), on
-//     the same tiles, 5 launches: section A's maps -> chain -> combine,
-//     writing ya and, in the same loop, section B's block maps -> chain ->
-//     section B's combine, writing y. The scratch is ya and 32 bytes per
-//     ln-block (M, C, S). K6 takes every ln that block_for gives a static
-//     section (16 to 128); K3 takes 64 and 128.
+//   lp24_tiled  K3 (kBlock) and K6 with static (kScalar) or per-sample
+//     (kSample) denominators, on the same tiles, 5 launches: section A's
+//     maps -> chain -> combine, writing ya and, in the same loop, section
+//     B's block maps -> chain -> section B's combine, writing y. The
+//     scratch is ya and 32 bytes per ln-block (M, C, S). K6 takes every ln
+//     that block_for gives it (16 to 128); K3 takes 64 and 128. Per-sample
+//     denominators are staged beside the tile in a ring (tiled::Feed): both
+//     sections' in the combine that runs both.
 //   Both cut a long row into up to 8 segments of whole tiles and run their
 //     chains as a wavefront along time, each stage on a stream of its own:
 //     a chain needs the stage before it only up to the block it has
 //     reached (see Lanes below). The streams fork from the caller's and
 //     join it before the call returns.
-//   lp24_cascade  K6 with per-sample denominators (tdf2::kSample, read
-//     through strides; a staged per-sample coefficient tile for tiled.cuh
-//     is still to come), and the earlier routes kept callable as the
-//     yardsticks the tiled kernels are timed against: K2's (14 launches
-//     over six [B, npad] scratch arrays), K3's and static K6's, and the
-//     earlier stateful route of the stream cascades, the yardstick of
-//     lp24_stream.cu: K3 and K2 with ln pinned to 64 and a State, each
+//   lp24_cascade  the earlier routes, kept callable as the yardsticks the
+//     tiled kernels are timed against: K2's (14 launches over six
+//     [B, npad] scratch arrays), K3's, K6's (static and per-sample,
+//     tdf2::kSample read through strides), and the earlier stateful route
+//     of the stream cascades, the yardstick of lp24_stream.cu: K3 and K2 with ln pinned to 64 and a State, each
 //     chain starting from the carried pair and exporting its exit
 //     (tdf2::Carry), the refined cascade's defect reading the previous
 //     call's z, y0 and coefficient edges (History) and exporting its own
@@ -417,18 +417,20 @@ int refined_tiled(const float* x, const tiled::Lp24* secs, float* y,
   return (int)cudaGetLastError();
 }
 
-// K3 and K6 (kBlock, kScalar) on shared-memory tiles: section A's phase 1,
-// then per segment section A's chain, section A's combine (which writes ya
-// and, in the same loop, section B's block maps over section A's, spent
-// here), section B's chain and section B's combine into y: 5 launches for
-// one segment. One array of entry states s serves both chains: section B's
+// K3 (kBlock) and K6 (kScalar, kSample) on shared-memory tiles: section
+// A's phase 1, then per segment section A's chain, section A's combine
+// (which writes ya and, in the same loop, section B's block maps over
+// section A's, spent here), section B's chain and section B's combine into
+// y: 5 launches for one segment. One array of entry states s serves both chains: section B's
 // chain writes a segment's only after section A's combine has read them.
 // carries: [2][B][2], the state each chain hands from segment to segment.
 template <int M, int kLn>
 int single_tiled(const float* x, const tiled::Lp24* secs, float* y,
                  float* ya, float* m, float* c, float* s, float* carries,
                  int B, int64_t n, cudaStream_t stream) {
-  constexpr int kBytes = tiled::smem_bytes(kLn);
+  // kSample: the ring of the combine that stages both sections
+  constexpr int kBytes = tiled::smem_bytes(kLn) +
+                         tiled::ring_bytes(M, 2 * tiled::Lp24::kStreams);
   static bool allowed[tiled::kMaxDevices] = {};
   int err = 0;
   const int dev = tiled::device_index(err);
@@ -567,16 +569,17 @@ extern "C" int lp24_refined_tiled(const float* x, const float* a1a,
   return (int)cudaErrorInvalidValue;
 }
 
-// K3 (mode kBlock) and K6 with static denominators (mode kScalar) over
-// [B, n] rows on shared-memory tiles (tiled.cuh). x and y are contiguous
-// [B, n]: nothing is padded. kBlock: the POSITIVE block-rate denominators
-// a1a, a2a, a1b, a2b are [B, count] arrays as the caller holds them, each
-// read through its own strides (strides[2 i] the row stride and
+// K3 (mode kBlock) and K6 with static (mode kScalar) or per-sample (mode
+// kSample) denominators over [B, n] rows on shared-memory tiles
+// (tiled.cuh). x and y are contiguous [B, n]: nothing is padded. kBlock and
+// kSample: the POSITIVE denominators a1a, a2a, a1b, a2b are [B, count]
+// arrays as the caller holds them (kBlock: one entry per 64-frame block,
+// ln 64 or 128; kSample: one per sample, count = n, ln 16, 32, 64 or 128),
+// each read through its own strides (strides[2 i] the row stride and
 // strides[2 i + 1] the entry stride of stream i, in elements; 0
-// broadcasts), with ln 64 or 128. kScalar: the positive values v1a, v2a,
-// v1b, v2b (the arrays, strides and count are not read), with ln 16, 32,
-// 64 or 128. Either way they are negated in registers, and nb =
-// ceil(n / ln). Scratch, allocated by the caller: ya [B, n];
+// broadcasts). kScalar: the positive values v1a, v2a, v1b, v2b (the arrays,
+// strides and count are not read), with ln 16, 32, 64 or 128. Either way
+// they are negated in registers, and nb = ceil(n / ln). Scratch, allocated by the caller: ya [B, n];
 // m [B, nb, 4] (16-byte aligned); c, s [B, nb, 2]; carries [2, B, 2]. Five
 // launches per segment (one segment below some 8,000 ln-blocks a row, up
 // to 8 above), issued on `stream` and, for several segments, on three
@@ -596,7 +599,7 @@ extern "C" int lp24_tiled(int mode, const float* x, const float* a1a,
   tiled::Stream st[4];
   for (int i = 0; i < 4; ++i) {
     st[i] = {{p[i], v[i]}, {0, 0, 1}};
-    if (mode == kBlock)
+    if (mode != tdf2::kScalar)
       st[i].l = {strides[2 * i], strides[2 * i + 1], count};
   }
   const tiled::Lp24 secs[2] = {{st[0], st[1]}, {st[2], st[3]}};
@@ -606,6 +609,24 @@ extern "C" int lp24_tiled(int mode, const float* x, const float* a1a,
   if (mode == kBlock && ln == 128)
     return single_tiled<kBlock, 128>(x, secs, y, ya, m, c, s, carries, B, n,
                                      stream);
+  if (mode == tdf2::kSample) {
+    switch (ln) {
+      case 16:
+        return single_tiled<tdf2::kSample, 16>(x, secs, y, ya, m, c, s,
+                                               carries, B, n, stream);
+      case 32:
+        return single_tiled<tdf2::kSample, 32>(x, secs, y, ya, m, c, s,
+                                               carries, B, n, stream);
+      case 64:
+        return single_tiled<tdf2::kSample, 64>(x, secs, y, ya, m, c, s,
+                                               carries, B, n, stream);
+      case 128:
+        return single_tiled<tdf2::kSample, 128>(x, secs, y, ya, m, c, s,
+                                                carries, B, n, stream);
+      default:
+        return (int)cudaErrorInvalidValue;
+    }
+  }
   if (mode != tdf2::kScalar) return (int)cudaErrorInvalidValue;
   switch (ln) {
     case 16:

@@ -1,9 +1,9 @@
 // Tiled in-block scans for Hopper (sm_90a): the phase 1, the combines and
 // the refined cascade's defect and correction scan of the two-level TDF2
 // scheme (tdf2.cuh), on tiles of a row that live in shared memory. biquad.cu
-// runs K4 and K5 on them (biquad_tiled) and lp24.cu runs K2
-// (lp24_refined_tiled), K3 and K6's static form (lp24_tiled); the chain
-// between the scans is tdf2::chain.
+// runs K4, K5 and K9 on them (biquad_tiled) and lp24.cu runs K2
+// (lp24_refined_tiled), K3 and K6 (lp24_tiled); the chain between the scans
+// is tdf2::chain.
 //
 // What bounds it on the H100. An in-block scan is ln dependent steps per
 // ln-block and there are rows * n / ln blocks, so the scans are as parallel
@@ -13,8 +13,8 @@
 // rows in device memory between launches. So:
 //   tile      a thread block stages kSlots = 128 consecutive ln-blocks of
 //             one row (64 KB at ln = 128, 32 KB at ln = 64, 16 and 8 KB at
-//             a static section's ln = 32 and 16; three blocks fit an SM)
-//             with coalesced 16-byte cp.async copies, zero-filling
+//             ln = 32 and 16; three blocks fit an SM, two with a per-sample
+//             ring) with coalesced 16-byte cp.async copies, zero-filling
 //             past n itself, so the caller pads nothing. A row whose start
 //             is not 16-byte aligned (n % 4 != 0) is copied 4 bytes at a
 //             time.
@@ -31,7 +31,8 @@
 //             registers (tdf2::step, tdf2::corr_step, tdf2::lp24_defect: the
 //             bits of the multi-launch kernels and of the plain twins) and
 //             reads its next chunk while it works on this one. Block-rate
-//             coefficients are read once per thread, ahead of the scan.
+//             coefficients are read once per thread, ahead of the scan;
+//             per-sample ones are staged beside the tile (Ring below).
 //   no prefix rows in device memory. Phase 1 writes only the block maps
 //             (M, C); a combine stages the tile again and re-runs the same
 //             scan beside the entry state S, writes its output over the
@@ -57,12 +58,13 @@
 // was given: a broadcast stays stride 0 and nothing is negated, combined or
 // copied on the host. The kernel derives what the recurrence runs on (the
 // negated denominators, b1 - a1 b0 and b2 - a2 b0 as one __fmaf_rn each:
-// ops/biquad_kernels.py _prep's bits) once per thread and control block.
-// The templates take tdf2::Mode and hold a coefficient for 64 frames at a
-// time, which serves kScalar and kBlock; a per-sample stream (kSample)
-// needs its own staged tile and is refused at compile time until a kernel
-// brings it. An ln-block of 16 or 32 samples (a static section's short
-// rows: ln = block_for(n, 128)) holds one set for the whole block.
+// ops/biquad_kernels.py _prep's bits, Biquad::of and Lp24::of). kScalar and
+// kBlock hold a coefficient set in registers for 64 frames at a time (an
+// ln-block of 16 or 32 samples, a static section's short rows, holds one
+// set for the whole block: Held). A per-sample stream (kSample: K9, K6
+// with automated denominators) changes at every sample, so it is staged
+// beside the tile instead (Ring): a thread walking device memory would
+// read its coefficients ln * 4 bytes apart from its neighbours'.
 
 #pragma once
 
@@ -87,6 +89,23 @@ static_assert(smem_bytes(32) == kSmemBytes32, "ln = 32 shared memory");
 static_assert(smem_bytes(64) == kSmemBytes64, "ln = 64 shared memory");
 static_assert(smem_bytes(128) == kSmemBytes128, "ln = 128 shared memory");
 static_assert(3 * kSmemBytes128 <= 232448, "three blocks to an SM");
+// A per-sample walk (kSample) adds the ring of its coefficient streams
+// after the edges (Ring): per stream two stages of kRingChunks 16-byte
+// chunks for every slot. K9 stages five streams, K6 four (section A's and
+// section B's denominators in the combine that runs both); two blocks fit
+// an SM.
+constexpr int kRingChunks = 2;
+constexpr int kRingBytes = 2 * kRingChunks * kSlots * 16;
+constexpr int ring_bytes(int mode, int streams) {
+  return mode == tdf2::kSample ? streams * kRingBytes : 0;
+}
+constexpr int kSmemBytesK9 = 108544;
+constexpr int kSmemBytesK6 = 100352;
+static_assert(smem_bytes(128) + ring_bytes(tdf2::kSample, 5) == kSmemBytesK9,
+              "K9's shared memory at ln = 128");
+static_assert(smem_bytes(128) + ring_bytes(tdf2::kSample, 4) == kSmemBytesK6,
+              "K6's per-sample shared memory at ln = 128");
+static_assert(2 * kSmemBytesK9 <= 232448, "two per-sample blocks to an SM");
 
 // Tiles per row of nb ln-blocks; `halo` is 1 for the kernels whose tiles
 // carry the previous tile's last block in slot 0.
@@ -251,41 +270,66 @@ struct Terms {
 
 // A biquad section's five streams as the caller holds them.
 struct Biquad {
+  static constexpr int kStreams = 5;
   Stream b0, b1, b2, a1, a2;
+
+  // the terms of one coefficient set v = (b0, b1, b2, a1, a2)
+  __device__ __forceinline__ static Terms of(const float* v) {
+    Terms t;
+    t.g0 = v[0];
+    t.a = -v[3];
+    t.b = -v[4];
+    t.g1 = __fmaf_rn(t.a, t.g0, v[1]);
+    t.g2 = __fmaf_rn(t.b, t.g0, v[2]);
+    return t;
+  }
 
   template <int M>
   __device__ __forceinline__ Terms terms(int64_t row, int64_t k) const {
-    Terms t;
-    t.g0 = at<M>(b0, row, k);
-    t.a = -at<M>(a1, row, k);
-    t.b = -at<M>(a2, row, k);
-    t.g1 = __fmaf_rn(t.a, t.g0, at<M>(b1, row, k));
-    t.g2 = __fmaf_rn(t.b, t.g0, at<M>(b2, row, k));
-    return t;
+    const float v[kStreams] = {at<M>(b0, row, k), at<M>(b1, row, k),
+                               at<M>(b2, row, k), at<M>(a1, row, k),
+                               at<M>(a2, row, k)};
+    return of(v);
+  }
+
+  __device__ __forceinline__ void put(Stream* s) const {
+    s[0] = b0; s[1] = b1; s[2] = b2; s[3] = a1; s[4] = a2;
   }
 };
 
 // An lp24 section: numerator (1, 2, 1), so b1m = 2 + na1, b2m = 1 + na2.
 struct Lp24 {
+  static constexpr int kStreams = 2;
   Stream a1, a2;
 
-  template <int M>
-  __device__ __forceinline__ Terms terms(int64_t row, int64_t k) const {
+  // the terms of one denominator pair v = (a1, a2)
+  __device__ __forceinline__ static Terms of(const float* v) {
     Terms t;
-    t.a = -at<M>(a1, row, k);
-    t.b = -at<M>(a2, row, k);
+    t.a = -v[0];
+    t.b = -v[1];
     t.g1 = 2.0f + t.a;
     t.g2 = 1.0f + t.b;
     t.g0 = 1.0f;
     return t;
   }
+
+  template <int M>
+  __device__ __forceinline__ Terms terms(int64_t row, int64_t k) const {
+    const float v[kStreams] = {at<M>(a1, row, k), at<M>(a2, row, k)};
+    return of(v);
+  }
+
+  __device__ __forceinline__ void put(Stream* s) const {
+    s[0] = a1; s[1] = a2;
+  }
 };
 
-// A section's terms over an ln-block, one set per CoefSet.
+// A section's terms over an ln-block, one set per CoefSet (kScalar,
+// kBlock; a per-sample stream is staged: Ring).
 template <int M, int kLn>
 struct Held {
   static_assert(M != tdf2::kSample,
-                "a per-sample stream needs a staged coefficient tile");
+                "a per-sample stream is staged beside the tile (Ring)");
   static constexpr int kSeg = CoefSet<kLn>::len;
   Terms t[kLn / kSeg];
 
@@ -324,6 +368,164 @@ __device__ __forceinline__ float2 pair_at(const float* s, int64_t t) {
   return reinterpret_cast<const float2*>(s)[t];
 }
 
+// Per-sample coefficients (kSample), staged beside the tile in a ring of
+// two stages. Stage p % 2 holds chunks 2p and 2p + 1 of every slot (8
+// samples: one 32-byte sector of each stream's row) of every stream, laid
+// out [stream][chunk][slot] as float4, so that thread t reads its slot's
+// chunk beside its neighbours' (consecutive 16-byte words: no bank
+// conflict). Two threads copy a slot's sector, so the copies of a warp
+// fill whole sectors. The block walks its tile in lockstep, one stage a
+// step (walk_staged): while the threads scan stage p, stage p + 1 is in
+// flight, and one barrier a step hands the stages over. A stream's row
+// that starts 16-byte aligned with entry stride 1 is copied 16 bytes at a
+// time, any other (a broadcast along time, an odd column offset) 4 bytes
+// at a time; past `count` a coefficient reads 0 (tdf2::at's rule). A row
+// broadcast (row stride 0) is read where it lies.
+template <int kLn, int kS>
+__device__ __forceinline__ void stage(float4* ring, const Stream (&s)[kS],
+                                      int64_t row, int first, int p) {
+  float4* st = ring + (p & 1) * kS * kRingChunks * kSlots;
+#pragma unroll
+  for (int i = 0; i < kS; ++i) {
+    const float* r = s[i].c.p + row * s[i].l.rs;
+    const int64_t ts = s[i].l.ts;
+    const bool vec = ts == 1 && (reinterpret_cast<uintptr_t>(r) & 15) == 0;
+#pragma unroll
+    for (int h = 0; h < kRingChunks; ++h) {
+      const int g = h * kSlots + threadIdx.x;
+      const int slot = g / kRingChunks, ch = g % kRingChunks;
+      float4* dst = st + (i * kRingChunks + ch) * kSlots + slot;
+      const int64_t k =
+          (int64_t)(first + slot) * kLn + 4 * (kRingChunks * p + ch);
+      const int64_t left = s[i].l.count - k;
+      if (left <= 0) {
+        *dst = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      } else if (vec) {
+        tdf2::cp_async16(dst, r + k, left >= 4 ? 16 : 4 * (int)left);
+      } else {
+        float* d1 = reinterpret_cast<float*>(dst);
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          if (u < left) {
+            tdf2::cp_async4(d1 + u, r + (k + u) * ts);
+          } else {
+            d1[u] = 0.0f;
+          }
+        }
+      }
+    }
+  }
+}
+
+// Walk the kLn samples of this thread's slot with per-sample coefficients,
+// the whole block in lockstep: sample(v, z) gets the kS coefficient values
+// of the sample and may change z; kStore writes the tile back. Stage 0 was
+// issued before the tile's fill, whose wait covers it, and the caller has
+// synchronised since. Every thread of the block must call it.
+template <int kLn, bool kStore, int kS, class Sample>
+__device__ __forceinline__ void walk_staged(float* tile, float4* ring,
+                                            const Stream (&s)[kS],
+                                            const Where& w, Sample sample) {
+  constexpr int kRow = kLn / 4;
+  constexpr int kSteps = kRow / kRingChunks;
+  const int slot = threadIdx.x;
+  float4* r = reinterpret_cast<float4*>(tile) + slot * kRow;
+  const int sw = swizzle<kLn>(slot);
+#pragma unroll 1
+  for (int p = 0; p < kSteps; ++p) {
+    if (p > 0) {
+      // stage p has landed, and every thread is done with stage p - 1,
+      // whose buffer stage p + 1 fills
+      tdf2::cp_async_wait_all();
+      __syncthreads();
+    }
+    if (p + 1 < kSteps) stage<kLn, kS>(ring, s, w.row, w.first, p + 1);
+    const float4* st = ring + (p & 1) * kS * kRingChunks * kSlots + slot;
+#pragma unroll
+    for (int ch = 0; ch < kRingChunks; ++ch) {
+      const int j = kRingChunks * p + ch;
+      const float4 z4 = r[j ^ sw];
+      float4 c4[kS];
+#pragma unroll
+      for (int i = 0; i < kS; ++i) c4[i] = st[(i * kRingChunks + ch) * kSlots];
+      float z[4] = {z4.x, z4.y, z4.z, z4.w};
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        float v[kS];
+#pragma unroll
+        for (int i = 0; i < kS; ++i)
+          v[i] = u == 0 ? c4[i].x : u == 1 ? c4[i].y : u == 2 ? c4[i].z
+                                                              : c4[i].w;
+        sample(v, z[u]);
+      }
+      if (kStore) r[j ^ sw] = make_float4(z[0], z[1], z[2], z[3]);
+    }
+  }
+}
+
+// Where a section's terms come from over one ln-block: held per
+// coefficient set (kScalar, kBlock) or staged per sample (kSample, below).
+// A Feed is made before the tile's fill; walk(tile, w, blk, sample) calls
+// sample(t, tn, z) with the section's terms t (and with kNext the next
+// section's, tn) of every sample of the thread's slot. kAll: every thread
+// of the block walks, its ln-block past the row's end or not.
+template <int M, int kLn, class Sec, bool kNext>
+struct Feed {
+  static constexpr bool kAll = false;
+  const Sec& sec;
+  const Sec& next;
+
+  __device__ __forceinline__ Feed(float*, const Sec& a, const Sec& b,
+                                  const Where&)
+      : sec(a), next(b) {}
+
+  template <bool kStore, class Sample>
+  __device__ __forceinline__ void walk(float* tile, const Where& w, int blk,
+                                       Sample sample) const {
+    const int64_t k0 = (int64_t)blk * kLn;
+    Held<M, kLn> co, cn;
+    co.load(sec, w.row, k0);
+    if (kNext) cn.load(next, w.row, k0);
+    Terms t, tn;
+    tiled::walk<kLn, kStore>(
+        tile, threadIdx.x,
+        [&](int cb) {
+          t = co.t[cb];
+          if (kNext) tn = cn.t[cb];
+        },
+        [&](int, float& z) { sample(t, tn, z); });
+  }
+};
+
+template <int kLn, class Sec, bool kNext>
+struct Feed<tdf2::kSample, kLn, Sec, kNext> {
+  static constexpr bool kAll = true;
+  static constexpr int kS = Sec::kStreams * (kNext ? 2 : 1);
+  float4* ring;
+  Stream s[kS];
+
+  // the ring sits after the tile and its edges; stage 0 is issued here
+  __device__ __forceinline__ Feed(float* tile, const Sec& a, const Sec& b,
+                                  const Where& w)
+      : ring(reinterpret_cast<float4*>(tile + kSlots * kLn + 4 * kSlots)) {
+    a.put(s);
+    if (kNext) b.put(s + Sec::kStreams);
+    stage<kLn, kS>(ring, s, w.row, w.first, 0);
+  }
+
+  template <bool kStore, class Sample>
+  __device__ __forceinline__ void walk(float* tile, const Where& w, int,
+                                       Sample sample) const {
+    walk_staged<kLn, kStore, kS>(tile, ring, s, w,
+                                 [&](const float* v, float& z) {
+                                   const Terms t = Sec::of(v);
+                                   Terms tn;
+                                   if (kNext) tn = Sec::of(v + Sec::kStreams);
+                                   sample(t, tn, z);
+                                 });
+  }
+};
+
 // Phase 1 of one section: the block maps m [B, nb, 4] and c [B, nb, 2] of
 // the rows x [B, n]; nothing else is written.
 template <int M, int kLn, class Sec>
@@ -332,18 +534,17 @@ __global__ void __launch_bounds__(kSlots, 3)
                 float* __restrict__ c, int64_t n, int nb, Span sp) {
   extern __shared__ __align__(16) float tile[];
   const Where w = where<0>(sp);
+  const Feed<M, kLn, Sec, false> feed(tile, sec, sec, w);
   fill<kLn>(tile, x + w.row * n, n, w.first);
   __syncthreads();
   const int blk = w.first + threadIdx.x;
-  if (blk >= nb) return;
-  Held<M, kLn> co;
-  co.load(sec, w.row, (int64_t)blk * kLn);
+  if (!feed.kAll && blk >= nb) return;
   Solve v;
-  Terms t;
-  walk<kLn, false>(
-      tile, threadIdx.x, [&](int cb) { t = co.t[cb]; },
-      [&](int, float& z) { v.step(t.a, t.b, t.g1, t.g2, z); });
-  v.store(m, c, w.row * nb + blk);
+  feed.template walk<false>(tile, w, blk,
+                            [&](const Terms& t, const Terms&, float& z) {
+                              v.step(t.a, t.b, t.g1, t.g2, z);
+                            });
+  if (blk < nb) v.store(m, c, w.row * nb + blk);
 }
 
 // One section's combine: y = b0 x + ((p11 S1 + p12 S2) + q1) over the rows
@@ -361,30 +562,22 @@ __global__ void __launch_bounds__(kSlots, 3)
                    int64_t n, int nb, Span sp) {
   extern __shared__ __align__(16) float tile[];
   const Where w = where<0>(sp);
+  const Feed<M, kLn, Sec, kNext> feed(tile, sec, next, w);
   fill<kLn>(tile, x + w.row * n, n, w.first);
   __syncthreads();
   const int blk = w.first + threadIdx.x;
-  if (blk < nb) {
-    const int64_t k0 = (int64_t)blk * kLn, i = w.row * nb + blk;
-    Held<M, kLn> co, cn;
-    co.load(sec, w.row, k0);
-    if (kNext) cn.load(next, w.row, k0);
-    const float2 S = pair_at(s, i);
+  if (feed.kAll || blk < nb) {
+    const int64_t i = w.row * nb + blk;
+    const float2 S = blk < nb ? pair_at(s, i) : make_float2(0.0f, 0.0f);
     Solve v, vn;
-    Terms t, tn;
-    walk<kLn, true>(
-        tile, threadIdx.x,
-        [&](int cb) {
-          t = co.t[cb];
-          if (kNext) tn = cn.t[cb];
-        },
-        [&](int, float& z) {
+    feed.template walk<true>(
+        tile, w, blk, [&](const Terms& t, const Terms& tn, float& z) {
           const float out = t.g0 * z + v.from_entry(S);
           v.step(t.a, t.b, t.g1, t.g2, z);
           if (kNext) vn.step(tn.a, tn.b, tn.g1, tn.g2, out);
           z = out;
         });
-    if (kNext) vn.store(m_next, c_next, i);
+    if (kNext && blk < nb) vn.store(m_next, c_next, i);
   }
   __syncthreads();
   drain<kLn>(tile, y + w.row * n, n, w.first, 0);

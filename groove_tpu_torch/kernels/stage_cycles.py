@@ -1,6 +1,7 @@
 """Where the cycles go inside the kernels that run from shared memory: the
 stream kernel (csrc/lp24_stream.cu), the chain walker (csrc/tdf2.cuh) and
-the tiled scans of K4, K5, K2, K3 and static K6 (csrc/tiled.cuh).
+the tiled scans of K4, K5, K9, K2, K3 and K6, static and per-sample
+("K6s") (csrc/tiled.cuh).
 
     python -m groove_tpu_torch.kernels.stage_cycles
 
@@ -17,8 +18,8 @@ per case.
     and walking a stage resident in shared memory with nobody else about.
   Chain walker: stamps around the walker's wait for a stage, its walk and
     its hand-back; cycles per chain step (walking, waiting, whole chain)
-    of row 0, summed over the chains of one K4 or K5 call (one chain), one
-    K2 call (four) and one K3 or K6 call (two) at [2, 441024],
+    of row 0, summed over the chains of one K4, K5 or K9 call (one chain),
+    one K2 call (four) and one K3 or K6 call (two) at [2, 441024],
     [2, 7938048] and [64, 65536].
   Tiled scans: a stamp after every __syncthreads() and at the end of each
     kernel; the cycles of tile 0's stages (fill, scans, drain) in the same
@@ -248,9 +249,9 @@ def build_tiled_profile(out):
 
 
 def tiled_cycles(lib, kernel: str, rows: int, n: int) -> dict:
-    """One instrumented K4, K5, K2, K3 or static K6 call at [rows, n] (the
-    last of three): the walker's cycles per chain step and tile 0's cycles
-    by stage."""
+    """One instrumented K4, K5, K9, K2, K3, static K6 or per-sample K6
+    ("K6s") call at [rows, n] (the last of three): the walker's cycles per
+    chain step and tile 0's cycles by stage."""
     import torch
 
     from groove_tpu_torch.ops import iir_kernels
@@ -258,27 +259,31 @@ def tiled_cycles(lib, kernel: str, rows: int, n: int) -> dict:
     dev = torch.device("cuda", 0)
     gen = torch.Generator().manual_seed(0)
     x = (torch.randn(rows, n, generator=gen) * 0.1).to(dev)
-    ln = iir_kernels.geometry(n, blockrate=kernel not in ("K5", "K6"))[0]
-    count = -(-n // 64)
+    per_sample = kernel in ("K9", "K6s")
+    ln = iir_kernels.geometry(
+        n, blockrate=kernel in ("K4", "K2", "K3"))[0]
+    count = n if per_sample else -(-n // 64)
     lp24 = (-1.9, 0.95, -1.8, 0.9)  # a1a, a2a, a1b, a2b
-    if kernel in ("K4", "K5"):  # b0, b1, b2, a1, a2: block mode, by value
+    if kernel in ("K4", "K5", "K9"):  # b0, b1, b2, a1, a2
         values, outputs, pairs, carries = (0.3, 0.6, 0.3, -1.9, 0.95), 1, 2, 0
         read, chains = lib.prof_read_biquad, 1
-        if kernel == "K4":
+        if kernel != "K5":  # the arrays: block or per-sample mode
+            mode = iir_kernels.SAMPLE if per_sample else iir_kernels.BLOCK
             entry = lambda x, *a: lib.biquad_tiled(  # noqa: E731
-                iir_kernels.BLOCK, x, *a[:7], *[0.0] * 5, *a[7:])
+                mode, x, *a[:7], *[0.0] * 5, *a[7:])
         else:
             entry = lambda x, *a: lib.biquad_tiled(  # noqa: E731
                 iir_kernels.SCALAR, x, *[None] * 6, 1, *values, *a[7:])
     elif kernel == "K2":
         values, outputs, pairs, carries = lp24, 2, 5, 4
         entry, read, chains = (lib.lp24_refined_tiled, lib.prof_read_lp24, 4)
-    else:  # K3 (block mode) and K6 (static, by value): lp24_tiled
+    else:  # K3, K6s (block, per-sample mode) and K6 (by value): lp24_tiled
         values, outputs, pairs, carries = lp24, 2, 2, 2
         read, chains = lib.prof_read_lp24, 2
-        if kernel == "K3":
+        if kernel != "K6":
+            mode = iir_kernels.SAMPLE if per_sample else iir_kernels.BLOCK
             entry = lambda x, *a: lib.lp24_tiled(  # noqa: E731
-                iir_kernels.BLOCK, x, *a[:6], 0.0, 0.0, 0.0, 0.0, *a[6:])
+                mode, x, *a[:6], 0.0, 0.0, 0.0, 0.0, *a[6:])
         else:
             entry = lambda x, *a: lib.lp24_tiled(  # noqa: E731
                 iir_kernels.SCALAR, x, None, None, None, None, None, 1,
@@ -398,7 +403,7 @@ def main() -> int:
     out.mkdir(parents=True, exist_ok=True)
     print(json.dumps(chain_floor(out)), flush=True)
     tiled = build_tiled_profile(out)
-    for kernel in ("K4", "K5", "K2", "K3", "K6"):
+    for kernel in ("K4", "K5", "K9", "K2", "K3", "K6", "K6s"):
         for rows, n in TILED_CASES:
             print(json.dumps(tiled_cycles(tiled, kernel, rows, n)),
                   flush=True)

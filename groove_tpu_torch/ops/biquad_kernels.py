@@ -10,10 +10,11 @@ One TDF2 section, a0 == 1:
 K4, K5 and K9 run the reference's two-level scheme (phase 1 in-block
 prefix maps, phase 2 the serial cross-block chain, combine
 y = b0 x + ((p11 S1 + p12 S2) + q1); see ops/iir_kernels.py) in
-csrc/biquad.cu with three coefficient modes. On a card K4 and K5 run on
+csrc/biquad.cu with three coefficient modes. On a card all three run on
 shared-memory tiles (biquad_tiled, csrc/tiled.cuh: three launches, x read
-twice and y written once, from a wrapper that checks, allocates y and one
-scratch buffer, and launches); K9 runs biquad_scan:
+twice and y written once, K9's per-sample coefficients staged beside the
+tile, from a wrapper that checks, allocates y and one scratch buffer, and
+launches):
 
   K4  biquad_blockrate   one coefficient set per 64-frame control block,
                          ln = max(block_for(n, 128), 64) (_biquad_blk_2d);
@@ -134,11 +135,15 @@ def biquad_scalar_plain(x: torch.Tensor, coefs) -> torch.Tensor:
 
 def biquad_per_sample(x: torch.Tensor, coefs) -> torch.Tensor:
     """K9: one section with per-sample coefficients, each broadcastable
-    against x.shape."""
-    x2, st, ln = _prepare(x, coefs, SAMPLE)
-    y = dispatch(x2, lambda: _plain(x2, st, ln),
-                 lambda: _launch(x2, st, ln), "biquad_per_sample", LAUNCHES,
-                 "biquad kernel")
+    against x.shape. On a card the kernels read b0, b1, b2, a1, a2 as they
+    are given (block_views per sample: strided [B, n] views, a broadcast
+    stays stride 0) and prepare the streams of _prep in registers, so the
+    call makes no torch operation on x or on coefficients of that form."""
+    x2, views = block_views(x, coefs, "biquad kernels", per_sample=True)
+    ln = geometry(x2.shape[1], blockrate=False)[0]
+    y = dispatch(x2, lambda: _plain(*_prepare(x, coefs, SAMPLE)),
+                 lambda: _launch_tiled(x2, ln, views=views, mode=SAMPLE),
+                 "biquad_per_sample", LAUNCHES, "biquad kernel")
     return y.reshape(x.shape)
 
 
@@ -164,13 +169,22 @@ def _blockrate_earlier(x: torch.Tensor, coefs_b) -> torch.Tensor:
     return _launch(x2, st, ln).reshape(x.shape)
 
 
-def _launch_tiled(x2: torch.Tensor, ln: int, views=None,
-                  values=None) -> torch.Tensor:
-    """Run csrc/biquad.cu's biquad_tiled on [B, n] CUDA inputs: K4 with the
-    five coefficients (b0, b1, b2, a1, a2) as [B, ceil(n / 64)] `views`,
-    or K5 with their five static float32 `values`. Two allocations, no
-    copy, no synchronisation, so a call can be captured in a CUDA graph.
-    Raises on a refused launch."""
+def _per_sample_earlier(x: torch.Tensor, coefs) -> torch.Tensor:
+    """K9's earlier route on a card: biquad_scan on the five prepared
+    per-sample streams, with its padded copy of x and its prefix rows in
+    device memory. On no path and not counted: the yardstick the tiled
+    kernel is timed and compared against."""
+    x2, st, ln = _prepare(x, coefs, SAMPLE)
+    return _launch(x2, st, ln).reshape(x.shape)
+
+
+def _launch_tiled(x2: torch.Tensor, ln: int, views=None, values=None,
+                  mode: int = BLOCK) -> torch.Tensor:
+    """Run csrc/biquad.cu's biquad_tiled on [B, n] CUDA inputs: the five
+    coefficients (b0, b1, b2, a1, a2) as `views` in `mode` (K4: BLOCK,
+    [B, ceil(n / 64)]; K9: SAMPLE, [B, n]), or K5 with their five static
+    float32 `values`. Two allocations, no copy, no synchronisation, so a
+    call can be captured in a CUDA graph. Raises on a refused launch."""
     from groove_tpu_torch.kernels.build import library
 
     check_input(x2, "biquad kernel")
@@ -179,8 +193,7 @@ def _launch_tiled(x2: torch.Tensor, ln: int, views=None,
     if views is None:
         mode, arrays, strides, count = SCALAR, [None] * 5, None, 1
     else:
-        mode, arrays, strides, count = (BLOCK, views, strides_of(views),
-                                        views[0].shape[1])
+        arrays, strides, count = views, strides_of(views), views[0].shape[1]
         values = [0.0] * 5
     err = library().biquad_tiled(
         mode, x2.data_ptr(), *(ptr(a) for a in arrays), strides, count,

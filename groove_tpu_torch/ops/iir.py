@@ -22,7 +22,9 @@ ops/biquad_kernels.py (one section: K4, K5, K9 and the serial scan):
     (per-sample coefficients);
   - lp24_apply_blockrate: a static cascade -> two serial scans, two
     refined sections (K4 x 4) or K6; block-rate cutoffs ->
-    lp24_apply_blockrate_sections (K2 or K3).
+    lp24_apply_blockrate_sections (K2 or K3);
+  - lp24_apply: cutoff/q per sample or static -> K6 (both sections in one
+    call); along another axis -> biquad_best per section.
 
 TDF2 biquad with a0 == 1:
     y[n]  = b0 x[n] + s1[n-1]
@@ -494,3 +496,22 @@ def lp24_sections(cutoff, q, sample_rate):
         alpha2 = ns.ones_like(cutoff)
         sections.append((ns.ones_like(cutoff), alpha1, alpha2, beta1, beta2))
     return gain, sections
+
+
+def lp24_apply(x: torch.Tensor, cutoff, q, sample_rate,
+               axis: int = -1) -> torch.Tensor:
+    """Run the 24 dB low-pass cascade; cutoff/q broadcast against x (per
+    sample, or scalars). Along the last axis both sections run fused in one
+    K6 call (iir_kernels.lp24_cascade), as the reference's does with Pallas
+    available. Along another axis each section goes to biquad_best on x
+    with that axis moved last, its coefficients broadcast against the
+    moved x as the reference's biquad takes them (its XLA scan there is
+    not ported: the kernels replace it)."""
+    gain, sections = lp24_sections(cutoff, q, sample_rate)
+    y = x * (float(gain) if is_scalar(gain) else as_f32(gain, x.device))
+    if axis == -1:
+        return iir_kernels.lp24_cascade(y, sections)
+    y = y.movedim(axis, -1)
+    for sec in sections:
+        y = biquad_best(y, sec)
+    return y.movedim(-1, axis)

@@ -24,15 +24,14 @@ K2 (the refined cascade) adds, per section, the defect of the solve
 against the shifted-coefficient TDF2 recurrence in its epsilon-regrouped
 form, and an r-only correction scan that reuses the solve's p11/p12.
 
-On a card K2, K3 and K6 with static denominators run on shared-memory
-tiles (csrc/tiled.cuh through csrc/lp24.cu's lp24_refined_tiled and
-lp24_tiled): nine launches for K2 and five for K3 and K6 (per segment of
-a long row, whose chains then run as a wavefront along time) that keep
-no prefix row, solve or defect array in device memory, from a wrapper
-that checks, allocates y, the first section's output and one scratch
-buffer, and launches. K6 with per-sample denominators still runs
-csrc/lp24.cu's multi-launch lp24_cascade: it needs a staged per-sample
-coefficient tile, which tiled.cuh does not have yet.
+On a card K2, K3 and K6 run on shared-memory tiles (csrc/tiled.cuh
+through csrc/lp24.cu's lp24_refined_tiled and lp24_tiled): nine launches
+for K2 and five for K3 and K6 (per segment of a long row, whose chains
+then run as a wavefront along time) that keep no prefix row, solve or
+defect array in device memory, from a wrapper that checks, allocates y,
+the first section's output and one scratch buffer, and launches. K6's
+per-sample denominators are staged beside the tile (a ring of coefficient
+chunks); static ones are passed by value.
 
 Each kernel has its plain torch twin here, written in the same operation
 order: the CPU runs the twin, a CUDA tensor runs the kernel
@@ -276,10 +275,10 @@ def _refined_earlier(x: torch.Tensor, sections_b) -> torch.Tensor:
 def _cascade_earlier(x: torch.Tensor, sections,
                      blockrate: bool) -> torch.Tensor:
     """K3's (blockrate) or K6's earlier route on a card: csrc/lp24.cu's
-    multi-launch lp24_cascade with its negated denominators, its padded
-    copy of x and its four [B, npad] scratch arrays. On no render path and
-    not counted: the yardstick lp24_tiled is timed and compared
-    against."""
+    multi-launch lp24_cascade with its negated denominators (K6: static
+    ones by value, per-sample ones as SAMPLE streams), its padded copy of
+    x and its four [B, npad] scratch arrays. On no path and not counted:
+    the yardstick lp24_tiled is timed and compared against."""
     if blockrate:
         x2, den = _prepare(x, sections, CBLOCK)
         st = Streams(BLOCK, list(den), den[0].shape[1])
@@ -290,14 +289,21 @@ def _cascade_earlier(x: torch.Tensor, sections,
 
 
 # csrc/tiled.cuh stages TILED_SLOTS consecutive ln-blocks of a row per
-# thread block, one thread per ln-block.
+# thread block, one thread per ln-block; a per-sample walk stages each
+# coefficient stream in a ring of two stages of RING_CHUNKS 16-byte chunks
+# per slot.
 TILED_SLOTS = 128
+RING_CHUNKS = 2
 
 
-def tiled_smem_bytes(ln: int) -> int:
+def tiled_smem_bytes(ln: int, streams: int = 0) -> int:
     """Dynamic shared memory of one block of a tiled kernel: the tile
-    (TILED_SLOTS blocks of ln floats) and one float4 of edges per slot."""
-    return 4 * (TILED_SLOTS * ln + 4 * TILED_SLOTS)
+    (TILED_SLOTS blocks of ln floats), one float4 of edges per slot and,
+    for a per-sample walk, the ring of its `streams` coefficient streams
+    (K9: 5; per-sample K6: 4, both sections' in the combine that runs
+    both)."""
+    ring = streams * 2 * RING_CHUNKS * TILED_SLOTS * 16
+    return 4 * (TILED_SLOTS * ln + 4 * TILED_SLOTS) + ring
 
 
 def tiled_buffers(x2: torch.Tensor, ln: int, outputs: int, pairs: int,
@@ -331,18 +337,20 @@ def rows_of(x: torch.Tensor, what: str) -> torch.Tensor:
     return x2 if x2.is_contiguous() else x2.contiguous()
 
 
-def block_views(x: torch.Tensor, coefs, what: str):
+def block_views(x: torch.Tensor, coefs, what: str,
+                per_sample: bool = False):
     """What a tiled or stream kernel call needs of its arguments: x as
     contiguous [B, n], and each block-rate coefficient as a float32
-    [B, ceil(n / 64)] view of whatever strides on x's device (the kernels
-    read every stream through its own; a broadcast stays stride 0).
-    Device-independent, and free for contiguous or expanded float32
-    tensors of those shapes on x's device: every torch operation here is
-    behind a check that found it necessary."""
+    [B, ceil(n / 64)] view (per_sample: each per-sample one as a [B, n]
+    view) of whatever strides on x's device (the kernels read every stream
+    through its own; a broadcast stays stride 0). Device-independent, and
+    free for contiguous or expanded float32 tensors of those shapes on x's
+    device: every torch operation here is behind a check that found it
+    necessary."""
     f32, dev = torch.float32, x.device
     x2 = rows_of(x, what)
     n = x2.shape[1]
-    want = (x2.shape[0], -(-n // CBLOCK))
+    want = (x2.shape[0], n if per_sample else -(-n // CBLOCK))
     views = []
     for c in coefs:
         if not (isinstance(c, torch.Tensor) and c.dtype == f32
@@ -382,13 +390,13 @@ def _launch_refined_tiled(x2: torch.Tensor, den) -> torch.Tensor:
     return y
 
 
-def _launch_lp24_tiled(x2: torch.Tensor, ln: int, den=None,
-                       values=None) -> torch.Tensor:
-    """Run csrc/lp24.cu's lp24_tiled on [B, n] CUDA inputs: K3 with the
-    four positive block-rate denominators `den` [B, ceil(n / 64)], or K6
-    with the four positive static denominators `values`. Three
-    allocations, no copy, no synchronisation, so a call can be captured in
-    a CUDA graph. Raises on a refused launch."""
+def _launch_lp24_tiled(x2: torch.Tensor, ln: int, den=None, values=None,
+                       mode: int = BLOCK) -> torch.Tensor:
+    """Run csrc/lp24.cu's lp24_tiled on [B, n] CUDA inputs: the four
+    positive denominators `den` in `mode` (K3: BLOCK, [B, ceil(n / 64)];
+    K6: SAMPLE, [B, n]), or K6 with the four positive static denominators
+    `values`. Three allocations, no copy, no synchronisation, so a call can
+    be captured in a CUDA graph. Raises on a refused launch."""
     from groove_tpu_torch.kernels.build import library
 
     check_input(x2, "lp24 kernel")
@@ -398,8 +406,7 @@ def _launch_lp24_tiled(x2: torch.Tensor, ln: int, den=None,
     if den is None:
         mode, arrays, strides, count = SCALAR, [None] * 4, None, 1
     else:
-        mode, arrays, strides, count = (BLOCK, den, strides_of(den),
-                                        den[0].shape[1])
+        arrays, strides, count = den, strides_of(den), den[0].shape[1]
         values = [0.0] * 4
     err = library().lp24_tiled(
         mode, x2.data_ptr(), *(ptr(a) for a in arrays), strides, count,
@@ -431,20 +438,20 @@ def lp24_cascade(x: torch.Tensor, sections) -> torch.Tensor:
     denominators are per-sample arrays broadcastable to x.shape, or
     scalars (the reference's lp24_cascade_pallas). Only the denominators
     reach the kernel: the numerators are filters004's constant (1, 2, 1).
-    On a card static denominators (every render path's) run csrc/lp24.cu's
-    lp24_tiled, passed by value, with no torch operation on x; per-sample
-    ones stay on the multi-launch lp24_cascade until tiled.cuh has a
-    staged per-sample coefficient tile."""
-    x2 = rows_of(x, "lp24 kernels")
-    ln = geometry(x2.shape[1], blockrate=False)[0]
+    On a card both forms run csrc/lp24.cu's lp24_tiled: static
+    denominators (every render path's) by value, per-sample ones as the
+    caller holds them (block_views per sample: strided [B, n] views, a
+    broadcast stays stride 0), so the call makes no torch operation on x
+    or on coefficients of that form."""
     dens = [sec[i] for sec in sections for i in (3, 4)]
     if all(is_scalar(c) for c in dens):
-        values = [scalar32(c) for c in dens]
-        launch = lambda: _launch_lp24_tiled(  # noqa: E731
-            x2, ln, values=values)
+        x2 = rows_of(x, "lp24 kernels")
+        args = dict(values=[scalar32(c) for c in dens])
     else:
-        launch = lambda: _launch(  # noqa: E731
-            False, *_prepare_cascade(x, sections), ln)
+        x2, den = block_views(x, dens, "lp24 kernels", per_sample=True)
+        args = dict(den=den, mode=SAMPLE)
+    ln = geometry(x2.shape[1], blockrate=False)[0]
+    launch = lambda: _launch_lp24_tiled(x2, ln, **args)  # noqa: E731
     y = dispatch(x2, lambda: _lp24_cascade_plain(
         *_prepare_cascade(x, sections)), launch, "lp24_cascade", LAUNCHES,
         "lp24 kernel")

@@ -7,10 +7,11 @@ stream kernels K7/K8 (K3/K2 with carried state, one launch of
 csrc/lp24_stream.cu per call: chained calls equal one call, many tiles
 with a short last one, strided coefficient views, the earlier multi-launch
 route, two allocations per call, a captured CUDA graph's replay), K4, K5,
-K2, K3 and static K6 on their shared-memory tiles (csrc/tiled.cuh) against
-their twins and their earlier multi-launch routes over block, tile and
-alignment edges, every in-block length, zero-stride coefficients, rows cut
-into segments, a non-default stream and a captured graph, plus
+K9, K2, K3 and K6 (static and per-sample) on their shared-memory tiles
+(csrc/tiled.cuh) against their twins and their earlier multi-launch routes
+over block, tile and alignment edges, every in-block length, zero-stride
+and unaligned coefficients, rows cut into segments, a non-default stream
+and a captured graph, plus
 short renders of the slices and of a streamed Welsh song on
 the card against the same renders on the CPU.
 
@@ -398,7 +399,9 @@ def _tiled_case(name: str, rows: int, n: int, kind: str):
     kind: 'full' a curve per row, 'row' one curve for all rows (stride 0
     along rows), 'time' one value per row held for all time (stride 0
     along time). K5 and K6 take static coefficients (by value): kind does
-    not apply."""
+    not apply. K9 and K6s (K6 with per-sample denominators) take one
+    coefficient set per sample, swept 200 Hz -> 12 kHz and 60 Hz -> 15 kHz
+    at q 0.9."""
     nb = -(-n // 64)
     if name == "K5":
         return (biquad_kernels.biquad_scalar,
@@ -419,6 +422,23 @@ def _tiled_case(name: str, rows: int, n: int, kind: str):
         args = (biquad_kernels.biquad_blockrate,
                 biquad_kernels._blockrate_earlier, biquad_kernels.LAUNCHES,
                 "biquad_blockrate")
+    elif name == "K9":
+        nb = n
+        x = _noise((rows, n), 11)
+        coefs = _lowpass(n, 200.0, 12000.0)
+        args = (biquad_kernels.biquad_per_sample,
+                biquad_kernels._per_sample_earlier, biquad_kernels.LAUNCHES,
+                "biquad_per_sample")
+    elif name == "K6s":
+        nb = n
+        cut = np.geomspace(60.0, 15000.0, n).astype(np.float32)
+        gain, secs = iir.lp24_sections(cut, np.float32(0.9), 44100.0)
+        x = _noise((rows, n), 12) * torch.from_numpy(gain)
+        coefs = [tuple(torch.from_numpy(np.ascontiguousarray(c)) for c in s)
+                 for s in secs]
+        args = (iir_kernels.lp24_cascade,
+                lambda x, c: iir_kernels._cascade_earlier(x, c, False),
+                iir_kernels.LAUNCHES, "lp24_cascade")
     else:
         x, secs = _sweep(1, 25.0, n, seed=8)
         x = x.expand(rows, n) * torch.linspace(0.5, 1.0, rows)[:, None]
@@ -442,7 +462,7 @@ def _tiled_case(name: str, rows: int, n: int, kind: str):
             return held.reshape(rows, 1).expand(rows, nb)
         return torch.stack([torch.roll(c, 3 * r) for r in range(rows)])
 
-    if name == "K4":
+    if name in ("K4", "K9"):
         coefs = tuple(view(c) for c in coefs)
     else:
         coefs = [tuple(view(c) for c in s) for s in coefs]
@@ -477,14 +497,15 @@ TILED_SHAPES = [(2, 441024, "row"), (64, 65536, "row"), (5, 32589, "row"),
                 (2, 1100003, "row")]
 
 
-@pytest.mark.parametrize("name", ["K4", "K5", "K2", "K3", "K6"])
+@pytest.mark.parametrize("name", ["K4", "K5", "K9", "K2", "K3", "K6",
+                                  "K6s"])
 @pytest.mark.parametrize("rows,n,kind", TILED_SHAPES)
 def test_tiled_kernel_matches_twin_and_earlier_route(cuda_device, name, rows,
                                                      n, kind):
     """One counted launch of the tiled kernels equals the CPU twin and the
     earlier multi-launch route bit for bit: the 10-second and the wide
     shape, n off the in-block length, off a tile and off 16-byte row
-    alignment, both in-block lengths, zero-stride coefficients."""
+    alignment, every in-block length, zero-stride coefficients."""
     fn, earlier, counts, key, x, coefs = _tiled_case(name, rows, n, kind)
     xd, cd = x.to(cuda_device), _to(coefs, cuda_device)
     before = counts[key]
@@ -498,31 +519,35 @@ def test_tiled_kernel_matches_twin_and_earlier_route(cuda_device, name, rows,
     assert counts[key] == before + 1
 
 
-@pytest.mark.parametrize("name", ["K4", "K2", "K3"])
+@pytest.mark.parametrize("name", ["K4", "K9", "K2", "K3", "K6s"])
 def test_tiled_kernel_reads_strided_coefficients(cuda_device, name):
     """Zero-stride views along rows or time, and column slices of a wider
-    array, give the bits of their contiguous copies."""
+    array, give the bits of their contiguous copies. A per-sample slice
+    starts one sample in (off 16-byte alignment: staged 4 bytes at a
+    time)."""
+    single = name in ("K4", "K9")
     for kind in ("row", "time"):
         fn, _, _, _, x, coefs = _tiled_case(name, 6, 20000, kind)
         xd, cd = x.to(cuda_device), _to(coefs, cuda_device)
-        flat = cd if name == "K4" else [c for s in cd for c in s]
+        flat = cd if single else [c for s in cd for c in s]
         assert all(0 in c.stride() for c in flat)
-        dense = (tuple(c.contiguous() for c in cd) if name == "K4"
+        dense = (tuple(c.contiguous() for c in cd) if single
                  else [tuple(c.contiguous() for c in s) for s in cd])
         assert torch.equal(fn(xd, cd), fn(xd, dense))
     fn, _, _, _, x, coefs = _tiled_case(name, 3, 20000, "full")
     xd, cd = x.to(cuda_device), _to(coefs, cuda_device)
-    nb = -(-20000 // 64)
-    wide = lambda c: torch.cat([c, c], 1)[:, nb:]  # noqa: E731
-    sliced = (tuple(wide(c) for c in cd) if name == "K4"
+    off = 1 if name in ("K9", "K6s") else -(-20000 // 64)
+    wide = lambda c: torch.cat([c[:, :off], c], 1)[:, off:]  # noqa: E731
+    sliced = (tuple(wide(c) for c in cd) if single
               else [tuple(wide(c) for c in s) for s in cd])
-    assert not (sliced[0] if name == "K4" else sliced[0][3]).is_contiguous()
+    assert not (sliced[0] if single else sliced[0][3]).is_contiguous()
     assert torch.equal(fn(xd, sliced), fn(xd, cd))
 
 
 @pytest.mark.parametrize("n", [50000, 2200000], ids=["short", "long"])
-@pytest.mark.parametrize("name,allocations", [("K4", 2), ("K5", 2), ("K2", 3),
-                                              ("K3", 3), ("K6", 3)])
+@pytest.mark.parametrize("name,allocations", [("K4", 2), ("K5", 2), ("K9", 2),
+                                              ("K2", 3), ("K3", 3), ("K6", 3),
+                                              ("K6s", 3)])
 def test_tiled_kernel_on_another_stream_and_in_a_graph(cuda_device, name,
                                                        allocations, n):
     """A call launches on the current stream, whichever it is (a long K2,
@@ -568,6 +593,25 @@ def test_static_lp24_at_short_in_block_lengths(cuda_device, n, ln):
     assert counts[key] == before + 1
     assert torch.equal(y.cpu(), fn(x, secs))
     assert torch.equal(y, earlier(xd, secs))
+    assert counts[key] == before + 1
+
+
+@pytest.mark.parametrize("name", ["K9", "K6s"])
+@pytest.mark.parametrize("n,ln", [(1, 16), (200, 16), (256, 16), (257, 32),
+                                  (1000, 32), (1024, 32)])
+def test_per_sample_at_short_in_block_lengths(cuda_device, name, n, ln):
+    """K9 and per-sample K6 at the short in-block lengths (16 and 32: two
+    and four ring stages a tile, the 4-chunk swizzle at 16) equal the CPU
+    twin and the earlier route, and the tiled kernel counts its launch."""
+    assert iir_kernels.geometry(n, blockrate=False)[0] == ln
+    fn, earlier, counts, key, x, coefs = _tiled_case(name, 3, n, "full")
+    xd, cd = x.to(cuda_device), _to(coefs, cuda_device)
+    before = counts[key]
+    y = fn(xd, cd)
+    torch.cuda.synchronize()
+    assert counts[key] == before + 1
+    assert torch.equal(y.cpu(), fn(x, coefs))
+    assert torch.equal(y, earlier(xd, cd))
     assert counts[key] == before + 1
 
 

@@ -32,6 +32,9 @@ iir.lp24_apply_blockrate (numpy seed 10, n = 16384):
     K6  2 rows, static 8 kHz                  -141.0     -133
     K6  [2, 3, 5000], static 8 kHz            -144.5     -136
     K6  2 rows, per-sample 60 Hz -> 15 kHz    -106.3     -98
+
+iir.lp24_apply, against the reference's (numpy seed 12): see
+test_lp24_apply_matches_reference.
     static 8 kHz (K6)                         -144.5     -136
     static 30 Hz (two serial scans)           equal      -130
     static 1 kHz q 8 (two refined sections)   -136.4     -128
@@ -212,6 +215,70 @@ def test_static_lp24_routes(monkeypatch, case):
         ref = jiir.biquad_ref(ref, tuple(np.float64(c) for c in s))
     assert _db(y.numpy(), y_jax, ref) <= bar
     assert _db(y.numpy(), ref, ref) <= -100.0
+
+
+LP24_APPLY = {
+    # id: (shape, axis, cutoff: None a sweep, else static Hz, kernels
+    # reached, bar vs the reference dBFS)
+    "per-sample-B2": ((2, 16384), -1, None, ["lp24_cascade"], -100.0),
+    "per-sample-rows-2x3x5000": ((2, 3, 5000), -1, None, ["lp24_cascade"],
+                                 -113.0),
+    "static-8kHz": ((2, 16384), -1, 8000.0, ["lp24_cascade"], -130.0),
+    "static-2kHz-axis0": ((8192, 2), 0, 2000.0, ["biquad_scalar"] * 2,
+                          -127.0),
+    "static-30Hz-axis0": ((8192, 2), 0, 30.0, ["biquad_serial"] * 2,
+                          -130.0),
+}
+
+
+@pytest.mark.parametrize("case", list(LP24_APPLY))
+def test_lp24_apply_matches_reference(monkeypatch, case):
+    """iir.lp24_apply against the reference's with its kernels interpreted
+    (USE_PALLAS, FORCE_INTERPRET: lp24_cascade_pallas reaches _lp24_2d):
+    a cutoff swept 60 Hz -> 15 kHz at q 0.9 (numpy seed 12), one curve
+    for all rows or one per row, and a static cutoff, along the last axis
+    (K6 once); along axis 0 each section goes to biquad_best (K5 or, at
+    the deep corner, the serial scan; the reference's XLA scan or its
+    serial scan there). Measured on the CPU: per-sample -108.5 (one curve)
+    and -121.3 dBFS (a curve per row), static 8 kHz -138.5, axis 0 2 kHz
+    -135.1 and 30 Hz equal (both packages' serial scans); bars 8 dB
+    above, -130 for equal."""
+    from groove_tpu_torch.ops import biquad_kernels as bk
+
+    shape, axis, static, expect, bar = LP24_APPLY[case]
+    seen = []
+    for mod, name in ((tk, "lp24_cascade"), (bk, "biquad_scalar"),
+                      (bk, "biquad_serial"), (bk, "biquad_per_sample")):
+        fn = getattr(mod, name)
+        monkeypatch.setattr(mod, name, lambda *a, _f=fn, _n=name, **k: (
+            seen.append(_n), _f(*a, **k))[1])
+    monkeypatch.setattr(jiir, "USE_PALLAS", True)
+    monkeypatch.setattr(pallas_iir, "FORCE_INTERPRET", True)
+    rng = np.random.default_rng(12)
+    x = (rng.standard_normal(shape) * 0.3).astype(np.float32)
+    if static is None:
+        t = np.linspace(0.0, 1.0, shape[-1])
+        if len(shape) == 3:
+            t = t + 0.05 * np.arange(6).reshape(2, 3, 1)
+        cutoff = (60.0 * 250.0 ** np.minimum(t, 1.0)).astype(np.float32)
+    else:
+        cutoff = np.float32(static)
+    q = np.float32(0.9)
+    y = tiir.lp24_apply(torch.from_numpy(x), cutoff, q, SR, axis=axis)
+    assert seen == expect
+    assert y.shape == shape and y.dtype == torch.float32
+    y_jax = np.asarray(jiir.lp24_apply(jnp.asarray(x), cutoff, q, SR,
+                                       axis=axis))
+    gain, secs = jiir.lp24_sections(cutoff, q, SR)
+    ref = np.moveaxis(x.astype(np.float64) * np.asarray(gain, np.float64),
+                      axis, -1)
+    for sec in secs:
+        ref = jiir.biquad_ref(ref, tuple(np.asarray(c, np.float64)
+                                         for c in sec))
+    ref = np.moveaxis(ref, -1, axis)
+    db = _db(y.numpy(), y_jax, ref)
+    assert db <= bar, f"lp24_apply {case}: {db:.1f} dBFS > {bar}"
+    assert _db(y.numpy(), ref, ref) <= _db(y_jax, ref, ref) + 3.0
 
 
 def test_unaligned_length_and_leading_dims():

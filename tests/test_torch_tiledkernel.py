@@ -1,4 +1,4 @@
-"""K4, K5, K2, K3 and static K6 around their tiled CUDA kernels
+"""K4, K5, K9, K2, K3 and K6 around their tiled CUDA kernels
 (groove_tpu_torch/csrc/tiled.cuh through biquad_tiled, lp24_refined_tiled
 and lp24_tiled), as far as a host without a card can hold them: a
 pure-torch model of the tiled walk (tiles of T ln-blocks staged with zeros
@@ -6,12 +6,14 @@ past n, block maps only out of phase 1, prefix rows re-scanned in every
 combine, the refined cascade's defect taking its history across tiles from
 a re-run halo block, section B's maps from the values the first section's
 last combine holds in its tile, a row cut into segments whose chains hand
-their states on) equals the plain twins bit for bit, at every in-block
-length; the wrappers' routes and buffers (allocations counted, no torch
-operation on x or the coefficients); the shared-memory budget and the
-wavefront's segment count against the source; the build's cover of the
-new header. The kernels themselves are held to the twins and to their
-earlier routes on a card by tests/test_torch_cuda.py."""
+their states on, per-sample coefficients staged beside the tile in a ring
+that the block walks in lockstep, zeros past count) equals the plain twins
+bit for bit, at every in-block length; the wrappers' routes and buffers
+(allocations counted, no torch operation on x or the coefficients); the
+shared-memory budget and the wavefront's segment count against the
+source; the build's cover of the new header. The kernels themselves are
+held to the twins and to their earlier routes on a card by
+tests/test_torch_cuda.py."""
 
 from __future__ import annotations
 
@@ -26,8 +28,9 @@ from torch.utils._python_dispatch import TorchDispatchMode
 
 from groove_tpu_torch.kernels import build
 from groove_tpu_torch.ops import biquad_kernels, iir, iir_kernels
-from groove_tpu_torch.ops.iir_kernels import (BLOCK, SCALAR, TILED_SLOTS,
-                                              Streams, _corr_phase1, chain,
+from groove_tpu_torch.ops.iir_kernels import (BLOCK, RING_CHUNKS, SAMPLE,
+                                              SCALAR, TILED_SLOTS, Streams,
+                                              _corr_phase1, chain, fma32,
                                               geometry, phase1)
 
 SR = 44100.0
@@ -150,6 +153,137 @@ def model_single(x2, na, ln: int, T: int, segments: int = 1) -> torch.Tensor:
             _put(y, model_combine(ya, sec[1], s, first, count, ln, T)[0],
                  first, count, ln)
     return y
+
+
+# The per-sample walk (K9, per-sample K6): the block steps through its
+# tile two chunks (8 samples) at a time, each step's coefficients staged
+# from the caller's strided views into a ring stage.
+
+
+def _ring_stage(view, first: int, slots: int, ln: int, step: int):
+    """Stage `step` of the ring for one per-sample view [B, count]: samples
+    8 step .. 8 step + 7 of ln-blocks first .. first + slots - 1, each the
+    view's entry k of its row, zeros past count (csrc/tiled.cuh stage)."""
+    B, count = view.shape
+    k = (first + torch.arange(slots))[:, None] * ln + 8 * step \
+        + torch.arange(8)[None, :]
+    out = torch.zeros((B, slots, 8))
+    inside = k < count
+    out[:, inside] = view[:, k[inside]]
+    return out
+
+
+def _biquad_terms(v):
+    """(a, b, g1, g2, g0) of one biquad coefficient set v = (b0, b1, b2,
+    a1, a2) (tiled::Biquad::of)."""
+    a, b = -v[3], -v[4]
+    return a, b, fma32(a, v[0], v[1]), fma32(b, v[0], v[2]), v[0]
+
+
+def _lp24_terms(v):
+    """tiled::Lp24::of: numerator (1, 2, 1) from the positive a1, a2."""
+    a, b = -v[0], -v[1]
+    return a, b, 2.0 + a, 1.0 + b, torch.ones_like(a)
+
+
+def _solve_step(P, t, z):
+    """Solve::step: the prefix map and offset advance by one sample."""
+    p11, p12, p21, p22, q1, q2 = P
+    a, b, g1, g2 = t[:4]
+    c1, c2 = g1 * z, g2 * z
+    return (fma32(a, p11, p21), fma32(a, p12, p22), b * p11, b * p12,
+            fma32(a, q1, q2) + c1, fma32(b, q1, c2))
+
+
+def _identity(B: int, T: int):
+    one, zero = torch.ones((B, T)), torch.zeros((B, T))
+    return one, zero, zero, one, zero, zero
+
+
+def _walk_staged(z2, views, first: int, T: int, ln: int, sample):
+    """One tile walked in lockstep (csrc/tiled.cuh walk_staged): the tile
+    [B, T, ln] of z2 (zeros past n) and, step by step, the ring's stages of
+    `views`; sample(v, z) gets one sample's coefficient values (one [B, T]
+    per view) and the sample z [B, T] and returns what the tile keeps."""
+    tile = _stage(z2, first, T, ln).clone()
+    for step in range(ln // 8):
+        ring = [_ring_stage(v, first, T, ln, step) for v in views]
+        for u in range(8):
+            j = 8 * step + u
+            tile[..., j] = sample([r[..., u] for r in ring], tile[..., j])
+    return tile
+
+
+def model_staged_maps(z2, views, of, ln: int, T: int):
+    """maps_kernel with per-sample streams: every slot walks (slots past
+    the row's last block too); only real blocks store their maps."""
+    B, n = z2.shape
+    nb = -(-n // ln)
+    m, c = torch.empty((B, nb, 4)), torch.empty((B, nb, 2))
+    for first, count in _tiles(nb, T, 0):
+        P = _identity(B, T)
+
+        def scan(v, z):
+            nonlocal P
+            P = _solve_step(P, of(v), z)
+            return z
+
+        _walk_staged(z2, views, first, T, ln, scan)
+        m[:, first:first + count] = torch.stack(P[:4], -1)[:, :count]
+        c[:, first:first + count] = torch.stack(P[4:], -1)[:, :count]
+    return m, c
+
+
+def model_staged_combine(z2, views, of, s, ln: int, T: int, nxt=None):
+    """combine_kernel with per-sample streams: out = g0 z + ((p11 S1 +
+    p12 S2) + q1) re-scanned beside the entry states s (zeros for slots
+    past the row's last block); with the next section's views `nxt`
+    staged in the same ring, also its block maps of out."""
+    B, n = z2.shape
+    nb = -(-n // ln)
+    k = len(views)
+    y = torch.empty_like(z2)
+    m, c = torch.empty((B, nb, 4)), torch.empty((B, nb, 2))
+    for first, count in _tiles(nb, T, 0):
+        S = torch.zeros((B, T, 2))
+        S[:, :count] = s[:, first:first + count]
+        P, Pn = _identity(B, T), _identity(B, T)
+
+        def comb(v, z):
+            nonlocal P, Pn
+            t = of(v[:k])
+            out = t[4] * z + (P[0] * S[..., 0] + P[1] * S[..., 1] + P[4])
+            P = _solve_step(P, t, z)
+            if nxt is not None:
+                Pn = _solve_step(Pn, of(v[k:]), out)
+            return out
+
+        tile = _walk_staged(z2, list(views) + list(nxt or []), first, T, ln,
+                            comb)
+        _put(y, tile[:, :count], first, count, ln)
+        m[:, first:first + count] = torch.stack(Pn[:4], -1)[:, :count]
+        c[:, first:first + count] = torch.stack(Pn[4:], -1)[:, :count]
+    return y, (m, c)
+
+
+def model_k9(x2, views, ln: int, T: int) -> torch.Tensor:
+    """biquad_tiled in mode kSample: maps, chain, combine, the five views
+    (b0, b1, b2, a1, a2) staged per sample."""
+    m, c = model_staged_maps(x2, views, _biquad_terms, ln, T)
+    s, _ = chain(m, c)
+    return model_staged_combine(x2, views, _biquad_terms, s, ln, T)[0]
+
+
+def model_k6_per_sample(x2, den, ln: int, T: int) -> torch.Tensor:
+    """lp24_tiled in mode kSample: section A's maps, chain, section A's
+    combine staging both sections' denominators (ya and section B's
+    maps), chain, section B's combine. den: the four POSITIVE views."""
+    m, c = model_staged_maps(x2, den[:2], _lp24_terms, ln, T)
+    s, _ = chain(m, c)
+    ya, (m, c) = model_staged_combine(x2, den[:2], _lp24_terms, s, ln, T,
+                                      nxt=den[2:])
+    s, _ = chain(m, c)
+    return model_staged_combine(ya, den[2:], _lp24_terms, s, ln, T)[0]
 
 
 def _lagged(cur, e1, e2):
@@ -418,6 +552,132 @@ def test_k5_sizes_reach_every_in_block_length():
     assert lns == {16, 32, 64, 128}
 
 
+PS_KINDS = ["row", "time", "full", "slice"]
+
+
+def _per_sample_case(kernel: str, rows: int, n: int, kind: str, seed: int):
+    """(x, coefficients as a caller holds them) of a K9 call (a low-pass
+    section) or a per-sample K6 call (sections), cutoff swept 60 Hz -> 15
+    kHz at q 0.9. kind: 'row' one curve for all rows (stride 0 along
+    rows), 'time' one cutoff per row held for all time (stride 0 along
+    time), 'full' a curve per row, 'slice' a column slice of a wider array
+    (rows starting off 16-byte alignment)."""
+    rng = np.random.default_rng(seed)
+    t = np.linspace(0.0, 1.0, n)[None, :] + 0.1 * np.arange(rows)[:, None]
+    cut = (60.0 * 250.0 ** np.minimum(t, 1.0)).astype(np.float32)
+    if kind == "time":
+        cut = cut[:, :1]
+    elif kind == "row":
+        cut = cut[:1]
+    elif kind == "slice":
+        cut = np.concatenate([cut[:, :3], cut], 1)
+    q = np.float32(0.9)
+    if kernel == "K9":
+        gain, secs = 1.0, [iir.rbj_low_pass(cut, q, SR)]
+    else:
+        gain, secs = iir.lp24_sections(cut, q, SR)
+
+    def view(c):
+        c = torch.from_numpy(np.ascontiguousarray(c))
+        if kind == "slice":
+            return c[:, 3:]
+        return c.expand(rows, n)
+
+    if kind == "slice" and np.ndim(gain):
+        gain = gain[:, 3:]
+    x = _x(rows, n, seed) * torch.from_numpy(
+        np.broadcast_to(gain, (rows, n)).astype(np.float32))
+    secs = [tuple(view(c) for c in sec) for sec in secs]
+    return x, secs[0] if kernel == "K9" else secs
+
+
+def _per_sample_views(kernel: str, x, co):
+    """x2 and the [B, n] views the wrapper hands the kernel."""
+    flat = co if kernel == "K9" else [sec[i] for sec in co for i in (3, 4)]
+    return iir_kernels.block_views(x, flat, "kernels", per_sample=True)
+
+
+def _per_sample_model(kernel: str, x, co, T: int) -> torch.Tensor:
+    x2, views = _per_sample_views(kernel, x, co)
+    ln = geometry(x2.shape[1], blockrate=False)[0]
+    if kernel == "K9":
+        return model_k9(x2, views, ln, T)
+    return model_k6_per_sample(x2, views, ln, T)
+
+
+def _per_sample_twin(kernel: str, x, co) -> torch.Tensor:
+    if kernel == "K9":
+        return biquad_kernels.biquad_per_sample_plain(x, co)
+    return iir_kernels.lp24_cascade_plain(x, co)
+
+
+def _per_sample_wrapper(kernel: str):
+    return (biquad_kernels.biquad_per_sample if kernel == "K9"
+            else iir_kernels.lp24_cascade)
+
+
+@pytest.mark.parametrize("kernel", ["K9", "K6"])
+@pytest.mark.parametrize("i,n", list(enumerate(K6_SIZES)))
+def test_per_sample_tiled_model_equals_twin(kernel, i, n):
+    """K9 on biquad_tiled and per-sample K6 on lp24_tiled (mode kSample):
+    the coefficients staged two chunks a step beside the tile, read from
+    the caller's views through their strides, zeros past count; K6's
+    first combine stages both sections' denominators and gives section
+    B's maps. Every ln that block_for gives (16 to 128), n around a block
+    and a tile edge, broadcast rows and time, column slices."""
+    kind = PS_KINDS[i % 4]
+    x, co = _per_sample_case(kernel, ROWS[i % 3], n, kind, seed=200 + i)
+    assert geometry(n, blockrate=False)[0] == [16, 16, 32, 32, 64, 64, 128,
+                                               128][i]
+    y = _per_sample_model(kernel, x, co, TILED_SLOTS)
+    assert torch.equal(y, _per_sample_twin(kernel, x, co))
+    assert torch.equal(y, _per_sample_wrapper(kernel)(x, co))
+    assert float(y.abs().max()) > 0.0
+
+
+@pytest.mark.parametrize("kernel,n,T", [
+    ("K9", 200, 2), ("K9", 1000, 3), ("K9", 4161, 7), ("K6", 200, 3),
+    ("K6", 1000, 5), ("K6", 8193, 7)])
+def test_per_sample_many_small_tiles_equal_twin(kernel, n, T):
+    """Many tiles a row, the last one short (slots past the row's last
+    block walk the zeros staged for them and store nothing): the staged
+    walk does not depend on the tile size."""
+    ln = geometry(n, blockrate=False)[0]
+    assert -(-n // ln) > 3 * T and n % ln
+    x, co = _per_sample_case(kernel, 2, n, "full", seed=210 + T)
+    y = _per_sample_model(kernel, x, co, T)
+    assert torch.equal(y, _per_sample_twin(kernel, x, co))
+
+
+@pytest.mark.parametrize("kernel", ["K9", "K6"])
+def test_per_sample_values_past_n_reach_no_output(kernel):
+    """x and every coefficient stream longer than the row (garbage past
+    n, so nothing reads as zero there): no output below n changes."""
+    n = 8193
+    x, co = _per_sample_case(kernel, 2, n, "full", seed=220)
+    x2, views = _per_sample_views(kernel, x, co)
+    longer = torch.cat([x2, torch.full((2, 100), 3.0)], 1)
+    views = [torch.cat([v, torch.full((2, 100), 0.5)], 1) for v in views]
+    model = model_k9 if kernel == "K9" else model_k6_per_sample
+    y = model(longer, views, 128, TILED_SLOTS)[:, :n]
+    assert torch.equal(y, _per_sample_twin(kernel, x, co))
+
+
+def test_ring_stage_reads_the_kernels_entries():
+    """A stage holds samples 8 p .. 8 p + 7 of every slot: chunks 2 p and
+    2 p + 1, RING_CHUNKS of them; past count it reads 0."""
+    assert RING_CHUNKS == 2
+    view = torch.arange(2 * 300, dtype=torch.float32).reshape(2, 300)
+    st = _ring_stage(view, 2, 3, 32, 1)
+    assert st.shape == (2, 3, 8)
+    assert st[1, 0].tolist() == [300.0 + 64 + 8 + u for u in range(8)]
+    assert st[0, 2].tolist() == [float(4 * 32 + 8 + u) for u in range(8)]
+    st = _ring_stage(view, 9, 1, 32, 0)  # samples 288 .. 295 of 300
+    assert st[0, 0].tolist() == [288.0 + u for u in range(8)]
+    st = _ring_stage(view, 9, 1, 32, 2)  # samples 304 .. 311: past count
+    assert not st.any()
+
+
 @pytest.mark.parametrize("kernel,n,T,segments", [
     ("K3", 8193 + 64 * 5, 7, 3), ("K3", LN128 + 1, TILED_SLOTS, 2),
     ("K6", 200, 2, 3), ("K6", 1000, 3, 4), ("K6", 8193, 5, 8)])
@@ -504,16 +764,16 @@ class _Count(TorchDispatchMode):
 
 
 @pytest.mark.parametrize("name,outputs,pairs,carries",
-                         [("K4", 1, 2, 0), ("K5", 1, 2, 0), ("K2", 2, 5, 4),
-                          ("K3", 2, 2, 2), ("K6", 2, 2, 2)])
+                         [("K4", 1, 2, 0), ("K5", 1, 2, 0), ("K9", 1, 2, 0),
+                          ("K2", 2, 5, 4), ("K3", 2, 2, 2), ("K6", 2, 2, 2)])
 @pytest.mark.parametrize("rows,n", [(2, 8193), (5, 64)])
 def test_buffers_are_the_only_torch_operations(name, outputs, pairs, carries,
                                                rows, n):
-    """A tiled call allocates its outputs (K4, K5: y; K2: y and the first
-    section's output) and one scratch buffer, and makes no other torch
-    operation: x is neither padded nor copied."""
+    """A tiled call allocates its outputs (K4, K5, K9: y; K2, K3, K6: y
+    and the first section's output) and one scratch buffer, and makes no
+    other torch operation: x is neither padded nor copied."""
     x2 = _x(rows, n, seed=90)
-    ln = geometry(n, blockrate=name not in ("K5", "K6"))[0]
+    ln = geometry(n, blockrate=name not in ("K5", "K6", "K9"))[0]
     blocks = rows * -(-n // ln)
     with _Count() as mode:
         outs, scratch, ptrs = iir_kernels.tiled_buffers(x2, ln, outputs,
@@ -527,14 +787,14 @@ def test_buffers_are_the_only_torch_operations(name, outputs, pairs, carries,
     sizes = [s for s in sizes if s]
     assert ptrs == [base + sum(sizes[:i]) for i in range(len(sizes))]
     assert ptrs[-1] + sizes[-1] == base + 4 * scratch.numel()
-    text = _source("biquad.cu" if name in ("K4", "K5") else "lp24.cu")
-    entry = {"K4": "biquad_tiled", "K5": "biquad_tiled",
-             "K2": "lp24_refined_tiled"}.get(name, "lp24_tiled")
+    biquad = name in ("K4", "K5", "K9")
+    text = _source("biquad.cu" if biquad else "lp24.cu")
+    entry = ("biquad_tiled" if biquad else
+             {"K2": "lp24_refined_tiled"}.get(name, "lp24_tiled"))
     head = text[text.index(f'extern "C" int {entry}('):]
     head = head[:head.index(")")]
-    scratch_args = {"K4": "m, c, s", "K5": "m, c, s",
-                    "K2": "m, c, sa, sb, r, sc, carries"}.get(
-        name, "m, c, s, carries")
+    scratch_args = "m, c, s" if biquad else {
+        "K2": "m, c, sa, sb, r, sc, carries"}.get(name, "m, c, s, carries")
     assert [a.split("*")[-1].strip() for a in head.split(",")
             if a.split("*")[-1].strip() in scratch_args.split(", ")] \
         == scratch_args.split(", ")
@@ -559,16 +819,17 @@ def test_a_chain_cut_into_segments_is_the_chain():
 
 def test_wrappers_route_block_mode_to_the_tiled_kernels(monkeypatch):
     """On a card K4 launches biquad_tiled on the coefficients as they were
-    given, K5 biquad_tiled on the five static values, K2
-    lp24_refined_tiled; K9 keeps biquad_scan; the earlier routes are
+    given, K5 biquad_tiled on the five static values, K9 biquad_tiled in
+    per-sample mode on the coefficients as they were given, K2
+    lp24_refined_tiled; biquad_scan is left to the earlier routes,
     private helpers that count no launch."""
     import inspect
 
     seen = []
     run = lambda x2, plain, launch, *a: (launch(), x2)[1]  # noqa: E731
     monkeypatch.setattr(biquad_kernels, "_launch_tiled",
-                        lambda x2, ln, views=None, values=None: seen.append(
-                            ("tiled", ln, views, values)))
+                        lambda x2, ln, views=None, values=None, mode=BLOCK:
+                        seen.append(("tiled", ln, views, values, mode)))
     monkeypatch.setattr(biquad_kernels, "_launch",
                         lambda x2, st, ln: seen.append(("scan", st.mode)))
     monkeypatch.setattr(biquad_kernels, "dispatch", run)
@@ -579,17 +840,23 @@ def test_wrappers_route_block_mode_to_the_tiled_kernels(monkeypatch):
     biquad_kernels.biquad_blockrate(x, coefs)
     static = iir.rbj_low_pass(1000.0, 0.7, SR)
     biquad_kernels.biquad_scalar(x, static)
-    biquad_kernels.biquad_per_sample(
-        x, tuple(torch.from_numpy(np.ascontiguousarray(c)) for c in
-                 iir.rbj_low_pass(np.full(256, 900.0, np.float32),
-                                  np.float32(0.7), SR)))
+    per_sample = tuple(torch.from_numpy(np.ascontiguousarray(c)).expand(2, -1)
+                       for c in iir.rbj_low_pass(
+                           np.full(256, 900.0, np.float32), np.float32(0.7),
+                           SR))
+    biquad_kernels.biquad_per_sample(x, per_sample)
     x, secs = _k2_case(2, 256, "time", seed=94)
     iir_kernels.lp24_refined_blockrate(x, secs)
-    assert [s[0] for s in seen] == ["tiled", "tiled", "scan", "refined"]
+    assert [s[0] for s in seen] == ["tiled", "tiled", "tiled", "refined"]
     assert seen[0][1] == 64 and seen[0][3] is None
+    assert seen[0][4] == BLOCK
     assert seen[1][1] == 16 and seen[1][2] is None
     assert seen[1][3] == [np.float32(c) for c in static]
-    assert seen[2][1] == iir_kernels.SAMPLE
+    assert seen[2][1] == 16 and seen[2][3] is None
+    assert seen[2][4] == SAMPLE
+    assert [v.data_ptr() for v in seen[2][2]] == [c.data_ptr()
+                                                  for c in per_sample]
+    assert [v.stride() for v in seen[2][2]] == [(0, 1)] * 5
     # the views are the caller's tensors, strides and all
     assert [v.data_ptr() for v in seen[0][2]] == [c.data_ptr() for c in coefs]
     assert [v.stride() for v in seen[0][2]] == [(0, 1)] * 5
@@ -597,7 +864,8 @@ def test_wrappers_route_block_mode_to_the_tiled_kernels(monkeypatch):
     assert [d.data_ptr() for d in seen[3][1]] == [c.data_ptr() for c in want]
     assert [d.stride() for d in seen[3][1]] == [(1, 0)] * 4
     for earlier in (iir_kernels._refined_earlier,
-                    biquad_kernels._blockrate_earlier):
+                    biquad_kernels._blockrate_earlier,
+                    biquad_kernels._per_sample_earlier):
         text = inspect.getsource(earlier)
         assert "_launch(" in text and "LAUNCHES" not in text
 
@@ -643,12 +911,12 @@ def test_biquad_scalar_calls_biquad_tiled_by_value(monkeypatch, rows, n, ln):
 
 
 def test_lp24_wrappers_route_to_lp24_tiled(monkeypatch):
-    """On a card K3 and static K6 call the library's lp24_tiled with the
-    arguments its signature binds: K3's denominators are the caller's
-    tensors, strides and all, K6's the positive values by value, each at
-    its in-block length; per-sample K6 stays on the multi-launch
-    lp24_cascade; the earlier route is a private helper that counts no
-    launch."""
+    """On a card K3 and K6 call the library's lp24_tiled with the
+    arguments its signature binds: K3's and per-sample K6's denominators
+    are the caller's tensors, strides and all (mode kBlock, kSample),
+    static K6's the positive values by value, each at its in-block
+    length; the multi-launch lp24_cascade is left to the earlier route, a
+    private helper that counts no launch."""
     import inspect
 
     from groove_tpu_torch.kernels import build as kbuild
@@ -674,9 +942,10 @@ def test_lp24_wrappers_route_to_lp24_tiled(monkeypatch):
     iir_kernels.lp24_cascade(x[:, :300], static)
     cut = np.geomspace(60.0, 15000.0, 300).astype(np.float32)
     _, ps = iir.lp24_sections(cut, np.float32(0.9), SR)
+    ps = [tuple(torch.from_numpy(c) for c in sec) for sec in ps]
     iir_kernels.lp24_cascade(x[:, :300], ps)
-    assert [c[0] for c in calls] == ["tiled", "tiled", "cascade"]
-    k3, k6 = calls[0][1], calls[1][1]
+    assert [c[0] for c in calls] == ["tiled", "tiled", "tiled"]
+    k3, k6, k6s = calls[0][1], calls[1][1], calls[2][1]
     want = [sec[i] for sec in secs for i in (3, 4)]
     assert k3[0] == iir_kernels.BLOCK and k3[1] == x.data_ptr()
     assert [a.value for a in k3[2:6]] == [c.data_ptr() for c in want]
@@ -687,9 +956,62 @@ def test_lp24_wrappers_route_to_lp24_tiled(monkeypatch):
     assert list(k6[8:12]) == [float(np.float32(sec[i])) for sec in static
                               for i in (3, 4)]
     assert k6[-2] == 32
-    assert calls[2][1:] == (iir_kernels.SAMPLE, 32)
+    want = [sec[i] for sec in ps for i in (3, 4)]
+    assert k6s[0] == SAMPLE and k6s[7] == 300 and k6s[-2] == 32
+    assert [a.value for a in k6s[2:6]] == [c.data_ptr() for c in want]
+    assert list(k6s[6]) == [0, 1] * 4
+    assert list(k6s[8:12]) == [0.0] * 4
     text = inspect.getsource(iir_kernels._cascade_earlier)
     assert "_launch(" in text and "LAUNCHES" not in text
+
+
+@pytest.mark.parametrize("kernel,rows,n,ln", [
+    ("K9", 2, 200, 16), ("K9", 3, 8193, 128), ("K6", 2, 1000, 32),
+    ("K6", 3, 8193, 128)])
+def test_per_sample_calls_the_tiled_entry_as_given(monkeypatch, kernel, rows,
+                                                  n, ln):
+    """On a card K9 calls biquad_tiled and per-sample K6 lp24_tiled in mode
+    kSample with the arguments their signatures bind: x itself, the
+    caller's [B, n] coefficient views (a row broadcast, stride 0) by
+    pointer and strides, count n, at block_for(n, 128); before the launch
+    the call's only torch operations are tiled_buffers' allocations, none
+    on x or the coefficients."""
+    from groove_tpu_torch.kernels import build as kbuild
+
+    calls = []
+    entry = "biquad_tiled" if kernel == "K9" else "lp24_tiled"
+
+    class Library:
+        def __getattr__(self, name):
+            assert name == entry
+
+            def call(*args):
+                assert len(args) == len(kbuild.SIGNATURES[entry])
+                calls.append((args, list(mode.ops)))
+                return 0
+            return call
+
+    mod = biquad_kernels if kernel == "K9" else iir_kernels
+    monkeypatch.setattr(kbuild, "library", Library)
+    monkeypatch.setattr(mod, "check_input", lambda x2, what: None)
+    monkeypatch.setattr(mod, "raw_stream", lambda device: 0)
+    monkeypatch.setattr(mod, "dispatch", lambda x2, plain, launch, *a: launch())
+    x, co = _per_sample_case(kernel, rows, n, "row", seed=230 + ln)
+    flat = co if kernel == "K9" else [sec[i] for sec in co for i in (3, 4)]
+    assert all(c.shape == (rows, n) and c.stride() == (0, 1) for c in flat)
+    with _Count() as mode:
+        y = _per_sample_wrapper(kernel)(x, co)
+    (args, ops), = calls
+    allocations = 2 if kernel == "K9" else 3
+    assert len(ops) == allocations and all("empty" in op for op in ops), ops
+    assert all("view" in op for op in mode.ops[allocations:]), mode.ops
+    k = len(flat)
+    assert args[0] == SAMPLE and args[1] == x.data_ptr()
+    assert [a.value for a in args[2:2 + k]] == [c.data_ptr() for c in flat]
+    assert list(args[2 + k]) == [0, 1] * k and args[3 + k] == n
+    assert list(args[4 + k:4 + 2 * k]) == [0.0] * k
+    assert args[4 + 2 * k] == y.data_ptr()
+    assert args[-4:] == (rows, n, ln, 0)
 
 
 def test_static_lp24_arguments_cost_no_torch_operation(monkeypatch):
@@ -746,11 +1068,20 @@ def test_arguments_cost_no_torch_operation(name):
         iir_kernels.block_views(x.double(), coefs, "kernels")
 
 
-@pytest.mark.parametrize("name", ["K4", "K5", "K2", "K3", "K6"])
+@pytest.mark.parametrize("name", ["K4", "K5", "K9", "K2", "K3", "K6",
+                                  "K6-per-sample"])
 def test_tiled_wrappers_refuse_other_devices_and_types(name):
     """No fallback: a meta tensor is refused, float64 is refused, the CPU
     runs the twin and counts no launch."""
-    if name == "K4":
+    if name in ("K9", "K6-per-sample"):
+        kernel = name[:2]
+        x, co = _per_sample_case(kernel, 2, 128, "full", seed=93)
+        fn = _per_sample_wrapper(kernel)
+        counts = (biquad_kernels.LAUNCHES if kernel == "K9"
+                  else iir_kernels.LAUNCHES)
+        meta = (tuple(c.to("meta") for c in co) if kernel == "K9"
+                else [tuple(c.to("meta") for c in s) for s in co])
+    elif name == "K4":
         x, co = _k4_case(2, 128, "full", seed=92)
         fn, counts = biquad_kernels.biquad_blockrate, biquad_kernels.LAUNCHES
         meta = tuple(c.to("meta") for c in co)
@@ -816,26 +1147,63 @@ def test_tiled_shared_memory_budget_matches_the_source(ln, constant):
 
 @pytest.mark.parametrize("ln", [16, 32, 64, 128])
 def test_every_in_block_length_has_its_instantiations(ln):
-    """biquad.cu instantiates K5's tiled scan (kScalar) at every in-block
-    length a static section takes and K4's (kBlock) at 64 and 128, as
-    lp24.cu does for static K6 and K3; each instantiation allows its
-    kernels the tile's shared memory once per device before it launches."""
-    for src, entry in (("biquad.cu", "tiled_scan"),
-                       ("lp24.cu", "single_tiled")):
+    """biquad.cu instantiates K5's tiled scan (kScalar) and K9's (kSample)
+    at every in-block length block_for gives and K4's (kBlock) at 64 and
+    128, as lp24.cu does for K6 (static and per-sample) and K3; each
+    instantiation allows its kernels the tile's shared memory (and a
+    per-sample walk's ring) once per device before it launches."""
+    for src, entry, streams in (("biquad.cu", "tiled_scan",
+                                 "tiled::Biquad::kStreams"),
+                                ("lp24.cu", "single_tiled",
+                                 "2 * tiled::Lp24::kStreams")):
         text = _source(src)
         assert f"{entry}<tdf2::kScalar, {ln}>(" in text, (src, ln)
+        assert f"{entry}<tdf2::kSample, {ln}>(" in text, (src, ln)
         if ln >= 64:
             assert re.search(rf"{entry}<(tdf2::)?kBlock, {ln}>\(", text), (
                 src, ln)
         body = text[text.index(f"int {entry}("):]
         body = body[:body.index("\n}\n")]
-        assert "constexpr int kBytes = tiled::smem_bytes(kLn);" in body
+        flat_body = re.sub(r"\s+", " ", body)
+        assert ("constexpr int kBytes = tiled::smem_bytes(kLn) + "
+                f"tiled::ring_bytes(M, {streams});") in flat_body
         flat = re.sub(r"\s+", " ", body)
         allowed = set(re.findall(r"tiled::allow\((tiled::\w+<[^;]*?>),", flat))
         launched = set(re.findall(r"(tiled::\w+_kernel<[^;]*?>) ?<<<", flat))
         assert launched and launched <= allowed, (src, launched, allowed)
         assert body.index("allowed[dev] = true;") < body.index("<<<")
     assert iir_kernels.tiled_smem_bytes(ln) <= 232448 // 3
+
+
+@pytest.mark.parametrize("kernel,streams,constant", [
+    ("K9", 5, "kSmemBytesK9"), ("K6", 4, "kSmemBytesK6")])
+def test_per_sample_shared_memory_budget_matches_the_source(kernel, streams,
+                                                           constant):
+    """A per-sample walk adds a ring of two stages of RING_CHUNKS 16-byte
+    chunks per slot for each coefficient stream (K9: b0, b1, b2, a1, a2;
+    K6: both sections' a1, a2, staged together in the combine that runs
+    both) to the tile: the source's constants, held to its layout by
+    static_assert; two blocks fit an SM at ln = 128, at every ln the
+    kSample instantiations take."""
+    assert _constant("kRingChunks") == RING_CHUNKS
+    got = iir_kernels.tiled_smem_bytes(128, streams)
+    assert got == _constant(constant)
+    assert got == (iir_kernels.tiled_smem_bytes(128)
+                   + streams * 2 * RING_CHUNKS * TILED_SLOTS * 16)
+    assert 2 * got <= 232448 < 3 * got
+    code = _source("tiled.cuh")
+    assert f"ring_bytes(tdf2::kSample, {streams}) == {constant}" in code
+    # the sections' stream counts, and the ring the kernels address
+    section = "struct Biquad {" if kernel == "K9" else "struct Lp24 {"
+    body = code[code.index(section):]
+    per = 5 if kernel == "K9" else 2
+    assert body[:body.index("};")].count(
+        f"static constexpr int kStreams = {per};") == 1
+    assert "tile + kSlots * kLn + 4 * kSlots" in code
+    for ln in (16, 32, 64, 128):
+        assert iir_kernels.tiled_smem_bytes(ln, streams) <= 232448 // 2
+    # kScalar and kBlock take no ring
+    assert iir_kernels.tiled_smem_bytes(128, 0) == _constant("kSmemBytes128")
 
 
 @pytest.mark.parametrize("kind,passes", [("K2", 4), ("K3", 2), ("K6", 2),
