@@ -1,6 +1,7 @@
 """On-card smoke run of groove_tpu_torch: the offline render (drumkit ->
-effect filters -> mix -> 16-bit WAV) and the segment-streamed render of
-sliced Welsh voices on one CUDA device, through the hand-written kernels
+effect filters -> mix -> 16-bit WAV; whole-timeline Welsh voices) and the
+segment-streamed render of sliced Welsh voices on one CUDA device,
+through the hand-written kernels
 K1 (drums), K2 (refined lp24), K3 (lp24, block-rate denominators), K6
 (lp24, per-sample or static denominators), K4/K5/K9 (one biquad section
 with block-rate, static or per-sample coefficients), the serial scan, and
@@ -61,15 +62,24 @@ Phases, one JSON line each:
      Welsh analogue through the CLI's --stream --sliced at 4096-frame
      segments (every Welsh device sliced, K7 and K8 launched once per
      segment and bucket, as the renderer plans), and K7 and K8 alone on
-     the inputs of one of its segments, beside their bounds. Render time,
-     x realtime, peak device memory, WAV size and peak, launch counts;
+     the inputs of one of its segments, beside their bounds; then the same
+     song offline through the CLI's --wav (whole-timeline Welsh voices:
+     K2 for the pad's and K3 for the lead's span buckets, the launches the
+     Renderer's plan gives, Renderer.welsh_launches, required to be one
+     of each a render), and K2 and K3 alone on its packets (the render's
+     own inputs, captured in a render of their own), beside their bounds
+     and held to their twins bit for bit on sampled rows. Render time, x
+     realtime, peak device memory, WAV size and peak, launch counts;
   5. outputs: each 3-minute WAV's shape and peak; the north-star and
      high-sweep WAVs against the CPU render of the same song (the twins)
      bit for bit, and a 10-second filter-bank render through the CLI
      against the twins' (the serial scan's twin is a Python loop over
      time, too slow for 3 minutes on the CPU); the 10-second Welsh
      analogue streamed as one segment and as 4096-frame segments (bit
-     for bit), and its card WAV against the CPU twins' stream.
+     for bit), and its card WAV against the CPU twins' stream; the
+     3-minute Welsh analogue offline against its stream (dBFS, within
+     -80); the 10-second Welsh analogue offline on the card against the
+     CPU twins' offline render with the card's element cap, bit for bit.
 Then the kernel summary line, the nvidia-smi line, and the result line.
 Without a CUDA device it exits non-zero before printing any result.
 Synthetic assets and outputs go to build/chip_smoke/ in this checkout.
@@ -266,33 +276,37 @@ def iir_call_work(name: str, x, coefs) -> tuple:
 
 
 class Capture:
-    """While active, keeps copies of the arguments (x, sections, state) of
-    call number `at` (from 0) of each stream kernel, so that the kernels
-    can be rerun alone and against their twins on the render's own
-    inputs. The wrappers call the kernels as they are, counts included."""
+    """While active, keeps copies of the arguments (x, sections and, for a
+    stream kernel, the state) of call number `at` (from 0) of each kernel
+    in `keys`, so that the kernels can be rerun alone and against their
+    twins on the render's own inputs. The wrappers call the kernels as
+    they are, counts included."""
 
-    def __init__(self, at: int):
+    def __init__(self, at: int, keys=STREAM_KERNELS):
         self.at = at
-        self.calls = dict.fromkeys(STREAM_KERNELS, 0)
+        self.calls = dict.fromkeys(keys, 0)
         self.args: dict = {}
 
     def __enter__(self):
         from groove_tpu_torch.ops import iir_kernels
 
         self.saved = {k: getattr(iir_kernels, wrapper(k))
-                      for k in STREAM_KERNELS}
+                      for k in self.calls}
         for k, fn in self.saved.items():
             setattr(iir_kernels, wrapper(k), self._wrap(k, fn))
         return self
 
     def _wrap(self, key, fn):
-        def call(x, sections, state):
+        import torch
+
+        def call(x, sections, *rest):
             if self.calls[key] == self.at:
                 self.args[key] = (
                     x.clone(), [tuple(c.contiguous().clone() for c in sec)
-                                for sec in sections], state.clone())
+                                for sec in sections],
+                    *(t.clone() for t in rest if torch.is_tensor(t)))
             self.calls[key] += 1
-            return fn(x, sections, state)
+            return fn(x, sections, *rest)
         return call
 
     def __exit__(self, *exc):
@@ -303,9 +317,11 @@ class Capture:
 
 
 def wrapper(key: str) -> str:
-    """The ops/iir_kernels wrapper of a stream kernel's launch count."""
+    """The ops/iir_kernels wrapper of an lp24 kernel's launch count."""
     return {"lp24_stream": "lp24_blockrate_stream",
-            "lp24_refined_stream": "lp24_refined_blockrate_stream"}[key]
+            "lp24_refined_stream": "lp24_refined_blockrate_stream",
+            "lp24": "lp24_blockrate",
+            "lp24_refined": "lp24_refined_blockrate"}[key]
 
 
 def stream_twin(key: str, x, sections, state):
@@ -318,6 +334,35 @@ def stream_twin(key: str, x, sections, state):
              if key == "lp24_refined_stream"
              else iir_kernels.lp24_blockrate_stream_plain)
     return plain(x2, *(-d for d in den), st)
+
+
+SAMPLED_ROWS = 4  # rows_vs_twin: this many at the start, middle and end
+
+
+def rows_vs_twin(key: str, x, sections, y) -> dict:
+    """A K2/K3 call on many rows ([rows, n] -> y) against the plain twin
+    on a sample of its rows (the first, middle and last SAMPLED_ROWS, the
+    whole span): rows are independent, so the twin needs only those."""
+    import torch
+    from groove_tpu_torch.ops import iir_kernels
+
+    rows = x.shape[0]
+    idx = sorted({min(max(r, 0), rows - 1) for base in
+                  (0, rows // 2 - SAMPLED_ROWS // 2, rows - SAMPLED_ROWS)
+                  for r in range(base, base + SAMPLED_ROWS)})
+    pick = torch.tensor(idx, device=x.device)
+    secs = [tuple(c[pick] if torch.is_tensor(c) and c.dim()
+                  and c.shape[0] == rows else c for c in sec)
+            for sec in sections]
+    x2, den = iir_kernels._prepare(x[pick], secs, 64)
+    plain = (iir_kernels.lp24_refined_blockrate_plain
+             if key == "lp24_refined" else iir_kernels.lp24_blockrate_plain)
+    plain_ms, y_plain = cuda_ms(lambda: plain(x2, *den), 1, warmup=False)
+    got = y[pick]
+    err = float((got - y_plain).abs().max())
+    return {"name": key, "shape": list(x.shape), "rows_compared": idx,
+            "max_abs_err": err, "bitwise": bool(torch.equal(got, y_plain)),
+            "plain_ms": plain_ms}
 
 
 def in_turns(fn_a, fn_b, reps: int) -> tuple:
@@ -1057,6 +1102,57 @@ def main() -> int:
                 f"{key} on the 3-minute song's segment: {res}")
     del cap, x, secs, st
 
+    # the same song offline: whole-timeline Welsh voices, each span bucket
+    # one K2 (pad) or K3 (lead) launch over all of its notes. The plan of
+    # the 3-minute analogue is one bucket a voice (PERF.md section 4).
+    planned = Renderer(wc, dev).welsh_launches()
+    require(planned == {"lp24_refined": 1, "lp24": 1},
+            f"welsh offline plans {planned}, not one K2 and one K3 launch")
+    PER_RENDER["welsh-offline"] = planned
+    zero_launches()
+    torch.cuda.reset_peak_memory_stats(dev)
+    perf = []
+    rc = cli.main([str(wpath), "--wav", "--perf", "--device", "cuda",
+                   "--out-dir", str(work / "out-offline")], perf_out=perf)
+    got = launches()
+    peak_bytes = torch.cuda.max_memory_allocated(dev)
+    require(rc == 0 and len(perf) == 1, "cli failed on welsh offline")
+    for k in totals:
+        totals[k] += got[k]
+    wav = Path(perf[0]["wav"])
+    audio, rate = read_wav(wav)
+    per_song["welsh-offline"] = (perf[0], audio)
+    emit("slice", project="welsh-offline", frames=perf[0]["frames"],
+         seconds_of_audio=perf[0]["frames"] / rate,
+         setup_s=perf[0]["setup_s"],
+         first_render_s=perf[0]["first_render_s"],
+         render_s=perf[0]["render_s"], xrt=perf[0]["xrt"],
+         max_memory_allocated=peak_bytes,
+         wav_bytes=wav.stat().st_size, wav_peak=float(abs(audio).max()),
+         launches={k: v for k, v in got.items() if v},
+         planned_per_render=planned)
+    # --perf renders twice: once cold, once steady
+    want = {k: 2 * planned.get(k, 0) for k in got}
+    require(got == want, f"welsh offline launched {got}, planned {want}")
+    # K2 and K3 alone on the inputs of the song's packets, captured in a
+    # render of their own (the copies stay out of the render's peak): the
+    # whole call timed, and sampled rows held to the twin bit for bit
+    with Capture(at=0, keys=("lp24_refined", "lp24")) as cap:
+        Renderer(wc, dev).render()
+    for key in ("lp24_refined", "lp24"):
+        x, secs = cap.args.pop(key)
+        fn = getattr(iir_kernels, wrapper(key))
+        ms, y = cuda_ms(lambda f=fn, a=x, c=secs: f(a, c), 5)
+        emit("kernel_at_song_size", name=key, rows=x.shape[0],
+             frames=x.shape[-1], ms=ms,
+             device_ms=graph_ms(lambda f=fn, a=x, c=secs: f(a, c)),
+             **bounds(*iir_call_work(key, x, secs)))
+        res = rows_vs_twin(key, x, secs, y)
+        emit("kernel_vs_twin", **res)
+        require(res["bitwise"], f"{key} at [{x.shape[0]}, {x.shape[-1]}]: "
+                f"sampled rows differ from the twin: {res}")
+    del cap, x, secs, y
+
     # ---- 5. outputs: right shape, audible, equal to the twins' render -----
     for name, (perf, audio) in per_song.items():
         require(audio.shape == (perf["frames"], 2),
@@ -1114,6 +1210,37 @@ def main() -> int:
     require(one_equal, "welsh-10s: one segment differs from 4096-frame "
             "segments on the card")
     require(diff == 0, "welsh-10s: card stream differs from the twins")
+    # the 3-minute Welsh analogue offline against its stream: the cascade
+    # regroups between the stream's 64-frame grid and the whole windows
+    streamed, offline = per_song["welsh"][1], per_song["welsh-offline"][1]
+    lsb = int(abs((streamed * 32768.0).round()
+                  - (offline * 32768.0).round()).max())
+    db = 20.0 * float(np.log10(abs(streamed - offline).max()
+                               / max(1.0, float(abs(streamed).max()))
+                               + 1e-30))
+    emit("check", project="welsh", offline_vs_streamed_dbfs=db,
+         offline_vs_streamed_max_lsb=lsb)
+    require(db <= -80.0, f"welsh: offline reads {db:.1f} dBFS against "
+            "the stream")
+    # a short Welsh song offline on the card and on the CPU twins, both
+    # with the card's element cap (it decides how the timeline's sums
+    # group)
+    card = Renderer(welsh10, dev)
+    t0 = time.perf_counter()
+    q_cpu = Renderer(welsh10, "cpu", note_chunk_elems=card.note_chunk_elems
+                     ).render_quantized()
+    cpu_s = time.perf_counter() - t0
+    q_gpu = card.render_quantized()
+    diff = int(abs(q_gpu.astype("int32") - q_cpu).max())
+    emit("check", project="welsh-10s-offline", frames=len(q_cpu),
+         note_chunk_elems=card.note_chunk_elems,
+         launches_per_render=card.welsh_launches(),
+         cpu_twin_render_s=cpu_s, max_lsb_diff_vs_cpu_twins=diff,
+         wav_peak=float(abs(q_gpu).max()) / 32768.0)
+    require(diff == 0 and abs(q_gpu).max() > 1000,
+            f"welsh-10s offline: card render differs from the twins by "
+            f"{diff} LSB")
+    del card
 
     kernels = []
     for name, (src, rep) in KERNELS.items():

@@ -7,9 +7,11 @@
 
 The whole-timeline path of groove_tpu/cli.py: compile_song -> Renderer ->
 render_quantized -> 16-bit WAV, named like the input with .wav and placed
-next to it (or in --out-dir). --stream renders segment by segment
-(engine/stream.StreamingRenderer, int16 quantized on the device) and
-writes each segment into the WAV as it arrives; --sliced routes Welsh
+next to it (or in --out-dir): drumkits and Welsh voices (welsh,
+welsh-raw) through the filter and stateless effects. --stream renders
+segment by segment (engine/stream.StreamingRenderer, int16 quantized on
+the device) and writes each segment into the WAV as it arrives; --sliced
+routes Welsh
 voices to sliced rendering where it wins (the only streamed Welsh path
 ported). Assets are found through groove_tpu_torch.project.paths.Paths
 ($GROOVE_ASSETS first). The reference CLI's other flags exit with "not

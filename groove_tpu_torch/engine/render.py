@@ -5,17 +5,28 @@ instruments render into [2, n] buses, effects transform the sum of their
 sources (plus aux sends), and the main mixer's bus is the song. Automation
 is applied per 64-frame block exactly like the reference, upsampled to
 per-sample tensors where an effect reads it per sample. The walk runs
-eagerly in torch on the Renderer's device; the drumkit and the filters
-run on hand kernels (ops/drums.py, ops/iir_kernels.py,
-ops/biquad_kernels.py).
+eagerly in torch on the Renderer's device; the drumkit, the filters and
+the Welsh voices' cascades run on hand kernels (ops/drums.py,
+ops/iir_kernels.py, ops/biquad_kernels.py).
+
+Welsh voices render whole-timeline: each device's notes are bucketed
+by span (models/voices.bucket_notes). A bucket within the Renderer's
+element cap (note_chunk_elems) renders its rows up to the cascade
+(welsh.render_notes_parts), runs ONE cascade launch over all of them (K2
+for 'refine' voices, K3 else) and sums the windows into the timeline
+note after note (voices.scatter_notes); a bucket over the cap renders in
+row chunks of it. The host control constants (oscillator
+frequencies, gate seconds, coefficient tables, LFO and pitch-phase
+tables) are collected here in numpy, bit for bit the reference's.
 
 Sidechain semantics: the reference's SignalPassthroughController observes
 audio during buffer b and emits its control value in buffer b + 1 — a
 one-block delay, reproduced by shifting the derived per-block curve right
 by one block.
 
-Ported so far: drumkits at the song's sample rate; mixer, passthrough,
-gain, limiter, bitcrusher, and every filter-* effect — static, automated
+Ported so far: drumkits at the song's sample rate; welsh and welsh-raw
+voices (a voice-less device renders silence); mixer, passthrough, gain,
+limiter, bitcrusher, and every filter-* effect — static, automated
 (host-designed coefficient curves) or sidechain-driven (coefficients
 designed on the device from the sidechain's per-block values). Every
 other instrument or effect kind raises NotImplementedError: nothing
@@ -34,9 +45,32 @@ from groove_tpu_torch.compiler.song import MAIN_MIXER_UVID, CompiledSong, \
     DeviceIR
 from groove_tpu_torch.engine.params import inputs_from_numpy
 from groove_tpu_torch.io.wav import quantize_16bit
+from groove_tpu_torch.models import welsh as welsh_model
+from groove_tpu_torch.models.voices import bucket_notes, scatter_notes
 from groove_tpu_torch.ops import drums, effects, iir
+from groove_tpu_torch.ops.dca import pan_gains
 
 BLOCK = SAMPLE_BUFFER_SIZE
+WELSH = ("welsh", "welsh-raw")
+
+# Params the registry lists as controllable whose render reading is
+# static: the toy effect's `my-value` has no DSP role, so a trip targeting
+# it warns instead of silently pinning the static value.
+STATIC_ONLY_PARAMS = {
+    ("toy", "my-value"),
+}
+
+
+def warn_static_only(dev) -> None:
+    for pname in dev.automation:
+        if (dev.kind, pname) in STATIC_ONLY_PARAMS:
+            warn(f"automation of {dev.kind}.{pname} ({dev.uvid}) is not "
+                 f"supported; the static value applies")
+    if dev.kind == "oscillator" and "frequency" in dev.automation:
+        wf = dev.params.get("waveform", "sine")
+        if str(wf) == "noise":
+            warn(f"automation of oscillator.frequency ({dev.uvid}) has no "
+                 f"effect on the noise waveform; the trip is ignored")
 
 
 def not_ported(kind: str) -> NotImplementedError:
@@ -146,34 +180,132 @@ def compute_filter_fidelity(compiled) -> dict:
     return out
 
 
+# The element cap of one Welsh voice batch (rows x span): it bounds the
+# voice pipeline's peak memory, and it decides how the timeline's sums
+# group (a bucket over it renders in row chunks, each chunk's scatter
+# added in turn). The CPU keeps the reference's CPU cap, so the twins
+# group exactly as groove_tpu's CPU run does. A card gets a quarter of its
+# memory over NOTE_PEAK_BYTES_PER_ELEM, the peak device bytes per element
+# of the largest bucket of a render (its live [rows, span] intermediates:
+# phases, waveforms, the float64 sine, the mix, the gained input, the
+# cascade's output and scratch, the amp envelope): measured 49.0 on an
+# H100 (4.05 GB for the 3-minute Welsh analogue's 720 x 114816 pad bucket,
+# chip_smoke.py's welsh-offline line). That holds a whole bucket of a
+# long song in one launch (some 430M elements on an 80 GB card). The
+# reference sizes its accelerator cap the same way for its own memory (12
+# x 16M elements x ~5 live arrays, a quarter of a 16 GB card).
+NOTE_CHUNK_ELEMS_CPU = 16_000_000
+NOTE_PEAK_BYTES_PER_ELEM = 49
+
+
+def note_chunk_cap(device) -> int:
+    """The Welsh batch cap for `device` (see NOTE_PEAK_BYTES_PER_ELEM)."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return NOTE_CHUNK_ELEMS_CPU
+    total = torch.cuda.get_device_properties(device).total_memory
+    return int(total // 4 // NOTE_PEAK_BYTES_PER_ELEM)
+
+
 class Renderer:
     """Renders one compiled song on one torch device.
 
     inputs: optional host (numpy) input dict to render from instead of
     this Renderer's own collection — e.g. groove_tpu's Renderer.inputs
-    converted to numpy; see engine/params.inputs_from_numpy."""
+    converted to numpy; see engine/params.inputs_from_numpy.
+    note_chunk_elems: the element cap of one Welsh voice batch (rows x
+    span); None takes note_chunk_cap(device)."""
 
-    def __init__(self, compiled: CompiledSong, device, inputs=None):
+    def __init__(self, compiled: CompiledSong, device, inputs=None,
+                 note_chunk_elems: int | None = None):
         self.c = compiled
         self.device = torch.device(device)
+        self.note_chunk_elems = int(note_chunk_cap(self.device)
+                                    if note_chunk_elems is None
+                                    else note_chunk_elems)
         self.host_inputs: dict[str, np.ndarray] = {}
         self._collect_inputs()
         self._collect_effect_filters()
-        self._filter_modes = compute_filter_fidelity(compiled)
-        self.inputs = inputs_from_numpy(
-            self.host_inputs if inputs is None else inputs, self.device)
+        self._plan_filters()
+        source = self.host_inputs if inputs is None else inputs
+        # note-on frames stay on the host too: the timeline scatter loops
+        # over them without waiting for the device
+        self._host_on = {k: np.asarray(v) for k, v in source.items()
+                         if k.startswith("wm/") and k.endswith("/on")}
+        self.inputs = inputs_from_numpy(source, self.device)
 
     # ---- host-side input collection --------------------------------------
 
     def _collect_inputs(self) -> None:
+        welsh_devs = []
         for dev in self.c.devices.values():
             if (dev.role == "instrument" or dev.kind == "calculator") \
                     and dev.notes is not None:
-                self._collect_instrument(dev)
+                if dev.kind in WELSH and dev.voice is not None \
+                        and dev.notes.count:
+                    welsh_devs.append(dev)
+                else:
+                    self._collect_instrument(dev)
+            warn_static_only(dev)
             for pname, curve in dev.automation.items():
                 if dev.kind == "oscillator" and pname == "frequency":
                     continue  # consumed host-side by the reference
                 self.host_inputs[f"{dev.uvid}/auto/{pname}"] = curve
+        self._collect_welsh_merged(welsh_devs)
+
+    # Welsh merge layout: each device buckets its notes by span alone (the
+    # reference's default layout; its global one, which no caller sets, is
+    # not ported), so every bucket holds one device. The bucket ceiling
+    # trades span tightness (wasted samples) against launches; launch_rows
+    # weighs a launch as that many rows in bucket_notes' cost.
+    WELSH_DEVICE_BUCKETS = 3
+    WELSH_LAUNCH_ROWS = 16
+
+    def _collect_welsh_merged(self, devs) -> None:
+        """The merged-Welsh inputs (wm/b{j}/{uvid}/...) and plan
+        self._wm_plan = [(span, [(uvid, n_rows), ...]), ...]."""
+        self._wm_plan: list = []
+        if not devs:
+            return
+        sr = self.c.sample_rate
+        h = self.host_inputs
+        for d in devs:
+            # unison triples the RENDERED notes only
+            k, v, on, off, pv = welsh_model.unison_input_notes(
+                d.notes, d.voice)
+            gate = (off - on).astype(np.int64)
+            tail = welsh_model.tail_seconds(d.voice)
+            need = gate + int(np.ceil(tail * sr)) + 1
+            buckets = bucket_notes(need, self.c.n_frames,
+                                   max_buckets=self.WELSH_DEVICE_BUCKETS,
+                                   launch_rows=self.WELSH_LAUNCH_ROWS)
+            for span, idx in buckets:
+                li = np.sort(idx)
+                b = f"wm/b{len(self._wm_plan)}/{d.uvid}"
+                h[f"{b}/keys"] = k[li]
+                h[f"{b}/vels"] = v[li]
+                h[f"{b}/on"] = on[li]
+                h[f"{b}/gate"] = gate[li].astype(np.int32)
+                # note indices within the device (noise keying)
+                h[f"{b}/ids"] = li.astype(np.int32)
+                if pv is not None:  # glide sources
+                    h[f"{b}/prev"] = pv[li]
+                hc = welsh_model.host_osc_constants(
+                    d.voice, k[li], None if pv is None else pv[li])
+                hc.update(welsh_model.host_gate_seconds(gate[li], sr))
+                hc.update(welsh_model.host_filter_tables(
+                    d.voice, gate[li], int(span), sr))
+                php = welsh_model.host_pitch_phases(
+                    d.voice, k[li], None if pv is None else pv[li],
+                    int(span), sr)
+                if php is not None:
+                    hc.update(php)
+                lvt = welsh_model.host_lfo_table(d.voice, int(span), sr)
+                if lvt is not None:
+                    hc.update(lvt)
+                for name, arr in hc.items():
+                    h[f"{b}/hc/{name}"] = arr
+                self._wm_plan.append((int(span), [(d.uvid, int(li.size))]))
 
     def _collect_effect_filters(self) -> None:
         """Host-designed coefficient arrays for every AUTOMATED,
@@ -197,13 +329,14 @@ class Renderer:
                 self.host_inputs[f"{u}/fc/coefs"] = np.stack(designed[1])
 
     def _collect_instrument(self, dev: DeviceIR) -> None:
-        if dev.kind != "drumkit":
+        if dev.kind != "drumkit" and dev.kind not in WELSH:
             raise not_ported(dev.kind)
         notes = dev.notes
         if notes.count == 0:
             return
         sr = self.c.sample_rate
-        if not all(int(x) == sr for x in dev.sample_table.rates):
+        if dev.kind == "drumkit" \
+                and not all(int(x) == sr for x in dev.sample_table.rates):
             raise not_ported("drumkit with a sample rate other than the "
                              "song's")
         gate = notes.off_frames - notes.on_frames
@@ -213,6 +346,8 @@ class Renderer:
         h[f"{u}/vels"] = notes.vels
         h[f"{u}/on"] = notes.on_frames
         h[f"{u}/gate"] = gate.astype(np.int32)
+        if dev.kind in WELSH:
+            return  # a Welsh device without a voice: silence
         h[f"{u}/table"] = dev.sample_table.data
         h[f"{u}/lengths"] = dev.sample_table.lengths
         h[f"{u}/rates"] = dev.sample_table.rates
@@ -225,6 +360,114 @@ class Renderer:
         for name, arr in zip(("hcounts", "hslots", "hstarts", "hshifts",
                               "hlimits", "hvels"), meta):
             h[f"{u}/{name}"] = arr
+
+    def _plan_filters(self) -> None:
+        self._filter_modes = compute_filter_fidelity(self.c)
+        # the Welsh voices' cascade routing: 'refine' (K2) or None (K3)
+        sr = float(self.c.sample_rate)
+        self._welsh_refine = {
+            dev.uvid: welsh_model.filter_fidelity_mode(dev.voice, sr)
+            for dev in self.c.devices.values()
+            if dev.kind in WELSH and dev.voice is not None
+        }
+
+    # ---- the Welsh voices -------------------------------------------------
+
+    def _welsh_jobs(self) -> list:
+        """The merged-Welsh render plan in the reference's order, one job
+        per span bucket (each holds one device): (kind, bucket, span,
+        fidelity, uvid, rows). A "packet" runs its rows through ONE
+        cascade launch; a "chunked" bucket is too big for the element cap
+        and renders in row chunks of it."""
+        cap = self.note_chunk_elems
+        jobs = []
+        for j, (span, [(uvid, count)]) in enumerate(self._wm_plan):
+            kind = "chunked" if count * span > cap else "packet"
+            jobs.append((kind, j, span, self._welsh_refine.get(uvid),
+                         uvid, count))
+        return jobs
+
+    def _chunk_rows(self, count: int, span: int) -> list:
+        """Row ranges of a chunked member: as many rows as the cap holds
+        (at least one); the last chunk may be short."""
+        per = max(1, self.note_chunk_elems // max(span, 1))
+        return [(lo, min(lo + per, count)) for lo in range(0, count, per)]
+
+    def welsh_launches(self) -> dict:
+        """Cascade launches of one render by the Welsh voices, from the
+        plan: K2 ("lp24_refined") for 'refine' jobs, else K3 ("lp24"); a
+        packet pays one, a chunked bucket one per chunk."""
+        out = {"lp24_refined": 0, "lp24": 0}
+        for kind, _j, span, fid, _uvid, count in self._welsh_jobs():
+            key = "lp24_refined" if fid else "lp24"
+            out[key] += 1 if kind == "packet" \
+                else len(self._chunk_rows(count, span))
+        return out
+
+    def _render_welsh_merged(self, inputs, n: int) -> dict:
+        """uvid -> mono [n] for every merged Welsh device, job by job."""
+        monos: dict = {}
+        for kind, j, span, fid, uvid, _count in self._welsh_jobs():
+            b = f"wm/b{j}/{uvid}"
+            mono = self._cascade_packet(inputs, b, uvid, span, fid, n) \
+                if kind == "packet" \
+                else self._chunked_mono(inputs, b, uvid, span, fid, n)
+            monos[uvid] = monos.get(uvid, self._mono_zeros(n)) + mono
+        return monos
+
+    def _hc_for(self, inputs, b: str):
+        """A note batch's shipped host-control arrays."""
+        prefix = f"{b}/hc/"
+        hc = {k[len(prefix):]: v for k, v in inputs.items()
+              if k.startswith(prefix)}
+        return hc or None
+
+    def _chunked_mono(self, inputs, b: str, uvid: str, span: int, fid,
+                      n: int) -> torch.Tensor:
+        """Render one bucket's notes in row chunks of the cap and sum each
+        chunk's scatter into the timeline (the reference's chunk scan; its
+        padded last chunk adds exact zeros, a short one here adds none).
+        Per-note host-control rows chunk with the notes, tables pass
+        whole."""
+        dev = self.c.devices[uvid]
+        sr = float(self.c.sample_rate)
+        ctl = self._hc_for(inputs, b) or {}
+        prev = inputs.get(f"{b}/prev")
+        on = self._host_on[f"{b}/on"]
+        chunks = self._chunk_rows(int(on.shape[0]), span)
+
+        def render(lo: int, hi: int) -> torch.Tensor:
+            hc = {k: v[lo:hi] if k in welsh_model.HOST_CTL_PER_NOTE else v
+                  for k, v in ctl.items()}
+            notes = welsh_model.render_notes(
+                dev.voice, inputs[f"{b}/keys"][lo:hi],
+                inputs[f"{b}/vels"][lo:hi], inputs[f"{b}/gate"][lo:hi],
+                span, sr, refine_filter=fid,
+                note_ids=inputs[f"{b}/ids"][lo:hi],
+                prev_keys=None if prev is None else prev[lo:hi],
+                host_ctl=hc or None)
+            return scatter_notes(notes, on[lo:hi], n)
+
+        if len(chunks) == 1:
+            return render(*chunks[0])
+        mono = self._mono_zeros(n)
+        for lo, hi in chunks:
+            mono = mono + render(lo, hi)
+        return mono
+
+    def _cascade_packet(self, inputs, b: str, uvid: str, span: int, fid,
+                        n: int) -> torch.Tensor:
+        """One bucket's notes: render_notes_parts, ONE cascade launch over
+        all its rows, then the windows times their amp scattered into a
+        mono timeline."""
+        sr = float(self.c.sample_rate)
+        osc, filt, amp = welsh_model.render_notes_parts(
+            self.c.devices[uvid].voice, inputs[f"{b}/keys"],
+            inputs[f"{b}/vels"], inputs[f"{b}/gate"], span, sr,
+            note_ids=inputs[f"{b}/ids"], prev_keys=inputs.get(f"{b}/prev"),
+            host_ctl=self._hc_for(inputs, b))
+        y = welsh_model.apply_cascade(osc, filt, sr, fidelity=fid)
+        return scatter_notes(y * amp, self._host_on[f"{b}/on"], n)
 
     # ---- render -------------------------------------------------------------
 
@@ -241,12 +484,27 @@ class Renderer:
     def _zeros(self, n: int) -> torch.Tensor:
         return torch.zeros((2, n), dtype=torch.float32, device=self.device)
 
-    def _render_instrument(self, inputs, dev: DeviceIR, n: int):
-        if dev.kind != "drumkit":
+    def _mono_zeros(self, n: int) -> torch.Tensor:
+        return torch.zeros((n,), dtype=torch.float32, device=self.device)
+
+    def _render_instrument(self, inputs, dev: DeviceIR, n: int,
+                           welsh_monos: dict):
+        if dev.kind != "drumkit" and dev.kind not in WELSH:
             raise not_ported(dev.kind)
         if dev.notes is None or dev.notes.count == 0:
             return self._zeros(n)
         u = dev.uvid
+        if dev.kind in WELSH:
+            if dev.voice is None:
+                return self._zeros(n)
+            mono = welsh_monos.get(u, self._mono_zeros(n))
+            # the voice DCA (centre pan) then the synth DCA with its
+            # pan/gain automation
+            lv, rv = pan_gains(0.0, self.device)
+            ls, rs = pan_gains(self._param(inputs, dev, "pan", 0.0, n),
+                               self.device)
+            g = self._param(inputs, dev, "gain", 1.0, n)
+            return torch.stack([mono * lv * ls * g, mono * rv * rs * g])
         return drums.accumulate_hits(
             inputs[f"{u}/ptable"], inputs[f"{u}/hcounts"],
             inputs[f"{u}/hslots"], inputs[f"{u}/hstarts"],
@@ -359,10 +617,12 @@ class Renderer:
         for src, aux, amount in c.sends:
             sends_by_aux.setdefault(aux, []).append((src, amount))
 
+        welsh_monos = self._render_welsh_merged(inputs, n)
         for uvid in c.order:
             dev = c.devices[uvid]
             if dev.role == "instrument" or dev.kind == "calculator":
-                outputs[uvid] = self._render_instrument(inputs, dev, n)
+                outputs[uvid] = self._render_instrument(inputs, dev, n,
+                                                        welsh_monos)
                 continue
             acc = self._zeros(n)
             for s in c.sinks.get(uvid, []):

@@ -31,16 +31,19 @@ def scatter_notes(note_audio: torch.Tensor, on_frames,
     """Sum per-note windows into the song timeline, in note order.
 
     note_audio: [n_notes, span] (mono) or [n_notes, 2, span] (stereo);
-    on_frames: [n_notes] start frames. Returns [n] or [2, n]. Windows
-    running past the timeline are cropped."""
+    on_frames: [n_notes] start frames, best a host array (a device tensor
+    costs a synchronisation). Returns [n] or [2, n]. Windows running past
+    the timeline are cropped. One in-place add per note: the reference's
+    read-add-write loop, never index_add_ (not deterministic on a card)."""
     span = note_audio.shape[-1]
     mono = note_audio.dim() == 2
     shape = (n_frames + span,) if mono else (2, n_frames + span)
     out = torch.zeros(shape, dtype=note_audio.dtype, device=note_audio.device)
-    for i, start in enumerate(torch.as_tensor(on_frames).tolist()):
+    starts = on_frames if torch.is_tensor(on_frames) \
+        else np.asarray(on_frames)
+    for i, start in enumerate(starts.tolist()):
         start = min(max(int(start), 0), n_frames)
-        win = out[..., start:start + span]
-        win.copy_(win + note_audio[i])
+        out[..., start:start + span].add_(note_audio[i])
     return out[..., :n_frames]
 
 

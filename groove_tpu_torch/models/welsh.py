@@ -1,31 +1,41 @@
-"""Welsh dual-oscillator subtractive voice, sliced (port of the parts of
-groove_tpu/models/welsh.py that the streaming renderer's sliced path
-runs).
+"""Welsh dual-oscillator subtractive voice (port of
+groove_tpu/models/welsh.py: its host constants, whole-window and sliced
+render paths).
 
     osc1/osc2 (optional hard sync) -> mix (+ noise) -> 24 dB low-pass whose
     cutoff the filter envelope (and optionally the LFO) drives -> amp
     envelope -> DCA
 
 Host half: the HOST-designed control constants (oscillator frequencies,
-gate seconds, the per-sample LFO table, the block-rate cascade coefficient
-tables deduplicated by gate, the S&H bank) and the routing predicates, in
-numpy. They are copies of the reference's functions, statement for
-statement where they are whole numpy functions (tests/test_torch_welsh.py
-holds them so); the S&H bank draws from ops/prng.py instead of jax.random,
-bit for bit, and filter_fidelity_mode takes the reference's kernel
-routing ('refine' or None, never 'serial').
+gate seconds, the per-sample LFO table, pitch-LFO phase tables, the
+block-rate cascade coefficient tables deduplicated by gate, the S&H bank)
+and the routing predicates, in numpy. They are copies of the reference's
+functions, statement for statement where they are whole numpy functions
+(tests/test_torch_welsh.py holds them so); the S&H bank draws from
+ops/prng.py instead of jax.random, bit for bit, and filter_fidelity_mode
+takes the reference's kernel routing ('refine' or None, never 'serial').
 
-Slice half: one segment-sized slice [age0, age0 + S) of every note's
-window, in torch on the render's device, with the cascade state carried
-per note across slices in the stream kernels K7 (plain cascade, state
-'p4' [rows, 4]) and K8 (refined cascade, 'p20' [rows, 20]) of
-ops/iir_kernels.py. Time bases are gathers of host constants at absolute
-note ages (slice_rows), so every slice sees the same values whatever the
-segmentation; the noise is drawn at the window's own threefry counters.
+Whole-window half (the offline Renderer): render_notes_parts renders
+every note's whole window [n, span] up to the cascade, apply_cascade runs
+the cascade over all rows in one call of K2 (refined) or K3 (single
+pass) of ops/iir_kernels.py, and render_notes does both with the amp
+envelope. Phases are closed forms of the note age (glide included); only
+pitch-LFO voices integrate, from host phase tables or, past their cap,
+through oscillator.phase_from_freq.
 
-Device-independent bits on the slice path: quotients are true divisions
-by float32 tensors (ops/envelope.py, vels / 127), and the sine waveform
-and the traced filter design's exp run in float64 rounded once.
+Slice half (the streaming renderer): one segment-sized slice [age0,
+age0 + S) of every note's window, with the cascade state carried per note
+across slices in the stream kernels K7 (plain cascade, state 'p4'
+[rows, 4]) and K8 (refined cascade, 'p20' [rows, 20]). Time bases are
+gathers of host constants at absolute note ages (slice_rows), so every
+slice sees the same values whatever the segmentation; the noise is drawn
+at the window's own threefry counters.
+
+Device-independent bits on both paths: quotients are true divisions by
+float32 tensors (ops/envelope.py, vels / 127, the time bases), and the
+sine waveform and every exp, exp2 and log run in float64 rounded once.
+A pitch-LFO phase integrated on the device (phase_from_freq) is the one
+exception: its cumulative sum groups differently on every device.
 """
 
 from __future__ import annotations
@@ -521,6 +531,216 @@ def _amp_env(params: WelshVoiceParams, t, gate_s, vels, routing, lfo_val):
     if routing in ("amplitude", "cutoff-amp"):
         amp = amp * (1.0 + lfo_val)
     return amp
+
+
+def _exp2(v: torch.Tensor) -> torch.Tensor:
+    """2^v in float64, rounded once to float32."""
+    return torch.exp2(v.double()).float()
+
+
+# ---------------------------------------------------------------------------
+# WHOLE-WINDOW rendering: every note's whole window [n, span] at once
+# (engine/render's offline Renderer).
+
+
+def _glide_factor(r, T: float, t):
+    """Instantaneous glide multiplier g(t) = r^max(1 - t/T, 0): the pitch
+    starts at r x the target frequency (r = f_prev/f_target) and slides
+    exponentially to 1 over T seconds (constant-time portamento). log and
+    exp in float64, rounded once."""
+    u = torch.clamp_min(1.0 - torch.div(t, _f32(T, t.device)), 0.0)
+    lr = torch.log(r.double()).float()
+    return torch.exp((u * lr).double()).float()
+
+
+def _glide_phase(f, r, T: float, t):
+    """Closed-form phase of the exponential glide (integral of
+    f * _glide_factor): f*T*(r - r^u)/ln r + f*max(t - T, 0) with
+    u = max(1 - t/T, 0) and the r -> 1 limit f*t (guarded |ln r|)."""
+    lr = torch.log(r.double()).float()
+    small = torch.abs(lr) < 1e-6
+    safe = torch.where(small, 1.0, lr)
+    u = torch.clamp_min(1.0 - torch.div(t, _f32(T, t.device)), 0.0)
+    ph = torch.div(f * T * (r - torch.exp((u * safe).double()).float()),
+                   safe) + f * torch.clamp_min(t - T, 0.0)
+    return torch.where(small, f * t, ph)
+
+
+def render_notes_parts(
+    params: WelshVoiceParams,
+    keys,
+    vels,
+    gate_frames,
+    span: int,
+    sample_rate: float,
+    noise_seed: int = 0,
+    note_ids=None,
+    prev_keys=None,
+    host_ctl=None,
+):
+    """Everything but the cascade, on keys' device: (osc_out [n, span],
+    filt, amp [n, span]) where filt tags the cascade controls — ("secs",
+    gain_rows [n, nb], secs_rows) when host_ctl ships the coefficient
+    tables (host_filter_tables), else ("hz", cutoff_b [n, nb], q_b
+    [n, nb]) designed here.
+
+    host_ctl: the host control constants of the batch (host_osc_constants,
+    host_gate_seconds, host_filter_tables, host_lfo_table,
+    host_pitch_phases), numpy or tensors. note_ids: [n] note identities
+    for the noise keying (default arange). prev_keys: [n] glide-source
+    keys; None (or glide == 0) keeps the glide-free graph. The time base
+    is a true division on the device (the host constant's bits)."""
+    keys = torch.as_tensor(keys)
+    device = keys.device
+    keys = keys.to(torch.float32)
+    n_notes = keys.shape[0]
+    if note_ids is None:
+        note_ids = torch.arange(n_notes, dtype=torch.int64, device=device)
+    sr = _f32(sample_rate, device)
+    t = torch.div(torch.arange(span, dtype=torch.float32, device=device),
+                  sr)[None, :]                                  # [1, span]
+    hc = {k: torch.as_tensor(v, device=device)
+          for k, v in (host_ctl or {}).items()}
+    gate_s = _f32(hc["gs"], device)[:, None] if "gs" in hc \
+        else torch.div(_f32(torch.as_tensor(gate_frames), device),
+                       sr)[:, None]
+
+    lfo = params.lfo
+    lfo_value = _make_lfo_value(lfo, _sh_cycles(lfo, span, sample_rate),
+                                noise_seed, device)
+    routing = lfo.routing
+    lfo_val = hc["lv"][None, :] if "lv" in hc else lfo_value(t)  # [1, span]
+    pitch_modulated = routing in ("pitch", "pitch-osc2")
+    glide_on = params.glide > 0.0 \
+        and (prev_keys is not None or "rgl" in hc)
+    if glide_on:
+        if "rgl" in hc:
+            r_gl = _f32(hc["rgl"], device)[:, None]
+        else:
+            prev = _f32(torch.as_tensor(prev_keys), device)
+            r_gl = _exp2((prev.double() - keys.double()) / 12.0)[:, None]
+
+    def osc_freq(osc, fixed_hz, is_osc2):
+        name = "f2" if is_osc2 else "f1"
+        if name in hc:
+            f = _f32(hc[name], device)[:, None]
+        elif fixed_hz is not None:
+            f = torch.full((n_notes, 1), float(np.float32(fixed_hz)),
+                           dtype=torch.float32, device=device)
+        else:
+            base = (440.0 * torch.exp2((keys.double() - 69.0) / 12.0)
+                    ).float()[:, None]
+            f = base * osc.tune_ratio
+        if routing == "pitch" or (routing == "pitch-osc2" and is_osc2):
+            f = f * _exp2(lfo_val)
+        return f.expand(n_notes, span)
+
+    def osc_phase(f, glides=True):
+        if pitch_modulated:
+            if glide_on and glides:
+                f = f * _glide_factor(r_gl, params.glide, t)
+            return osc_ops.phase_from_freq(f, sample_rate)
+        if glide_on and glides:
+            return _glide_phase(f, r_gl, params.glide, t)
+        # constant per-note frequency: closed-form phase, no cumsum drift
+        return f * t
+
+    def noise_fn(which):
+        # rows keyed by note identity: a note draws the same noise in any
+        # batch
+        return osc_ops.noise_rows(
+            prng.fold_in(prng.prng_key(noise_seed, device), which),
+            note_ids, span)
+
+    shape = (n_notes, span)
+    if "ph1" in hc:
+        # pitch-LFO phases are host tables (host_pitch_phases)
+        osc_out = _osc_mix(params, hc["ph1"], hc["ph2"], routing, lfo_val,
+                           noise_fn, shape)
+        return _parts_filter_amp(params, hc, osc_out, t, gate_s, vels,
+                                 routing, lfo_val, lfo_value, n_notes,
+                                 span, sample_rate)
+    o1_active = params.oscillator_1.waveform.kind != "none"
+    f1 = osc_freq(params.oscillator_1, None, False)
+    f2 = osc_freq(params.oscillator_2, params.oscillator_2_fixed_hz, True)
+    o2_tracks = params.oscillator_2_fixed_hz is None
+    phase1 = osc_phase(f1)
+    if params.oscillator_2_sync and o1_active:
+        # hard sync: osc2's phase resets at each osc1 wrap (closed form)
+        if "rsync" in hc:
+            ratio = _f32(hc["rsync"], device)[:, None].expand(shape)
+            if routing == "pitch-osc2":
+                ratio = ratio * _exp2(lfo_val)
+        else:
+            ratio = torch.div(f2, torch.clamp_min(f1, 1e-6))
+        if glide_on and not o2_tracks:
+            # osc2 holds its fixed pitch while osc1 glides underneath
+            ratio = torch.div(ratio, _glide_factor(r_gl, params.glide, t))
+        phase2 = osc_ops.hard_sync_phase(phase1, ratio)
+    else:
+        phase2 = osc_phase(f2, glides=o2_tracks)
+    osc_out = _osc_mix(params, phase1, phase2, routing, lfo_val, noise_fn,
+                       shape)
+    return _parts_filter_amp(params, hc, osc_out, t, gate_s, vels, routing,
+                             lfo_val, lfo_value, n_notes, span, sample_rate)
+
+
+def _parts_filter_amp(params, hc, osc_out, t, gate_s, vels, routing,
+                      lfo_val, lfo_value, n_notes: int, span: int,
+                      sample_rate: float):
+    """render_notes_parts' tail (filter controls + amp envelope), shared
+    by the traced-phase and host-phase-table paths."""
+    if "fgain" in hc:
+        gain_rows, secs_rows = gather_filter_rows(hc)
+        filt = ("secs", gain_rows, secs_rows)
+    else:
+        cblock = iir_ops.CONTROL_BLOCK
+        nb = -(-span // cblock)
+        t_blk = torch.div(
+            torch.arange(nb, dtype=torch.float32, device=t.device) * cblock,
+            _f32(sample_rate, t.device))[None, :]
+        cutoff_hz, q = _filter_controls(params, t_blk, gate_s, lfo_value)
+        q_b = _f32(q, t.device).expand(n_notes, nb)
+        filt = ("hz", cutoff_hz.expand(n_notes, nb), q_b)
+    amp = _amp_env(params, t, gate_s, vels, routing, lfo_val)
+    return osc_out, filt, amp
+
+
+def apply_cascade(osc_out, filt, sample_rate: float, fidelity=None):
+    """Run the 24 dB cascade from a render_notes_parts filt value: host
+    coefficient tables ("secs") through iir.lp24_apply_blockrate_sections,
+    controls designed on the device ("hz") through lp24_apply_blockrate
+    (K2 for fidelity 'refine', else K3)."""
+    if filt[0] == "secs":
+        return iir_ops.lp24_apply_blockrate_sections(
+            osc_out, filt[1], filt[2], fidelity=fidelity)
+    return iir_ops.lp24_apply_blockrate(
+        osc_out, filt[1], filt[2], sample_rate, fidelity=fidelity)
+
+
+def render_notes(
+    params: WelshVoiceParams,
+    keys,
+    vels,
+    gate_frames,
+    span: int,
+    sample_rate: float,
+    noise_seed: int = 0,
+    refine_filter=False,
+    note_ids=None,
+    prev_keys=None,
+    host_ctl=None,
+) -> torch.Tensor:
+    """Render all notes -> mono [n_notes, span]. refine_filter: a fidelity
+    mode string (filter_fidelity_mode) or a bool ('refine' when true). See
+    render_notes_parts for note_ids, prev_keys and host_ctl."""
+    osc_out, filt, amp = render_notes_parts(
+        params, keys, vels, gate_frames, span, sample_rate,
+        noise_seed=noise_seed, note_ids=note_ids, prev_keys=prev_keys,
+        host_ctl=host_ctl)
+    fidelity = refine_filter if isinstance(refine_filter, str) \
+        else ("refine" if refine_filter else None)
+    return apply_cascade(osc_out, filt, sample_rate, fidelity) * amp
 
 
 # ---------------------------------------------------------------------------

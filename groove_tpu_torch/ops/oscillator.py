@@ -152,6 +152,18 @@ def phase_from_const_freq(freq_hz, n: int, sample_rate: float,
     return f[..., None] * torch.div(k, sr)
 
 
+def phase_from_freq(freq_hz: torch.Tensor, sample_rate: float) -> torch.Tensor:
+    """Phase trajectory for a per-sample frequency [..., n]: cumsum(f)/sr,
+    a phase accumulator that advances by f[k]/sr after emitting sample k
+    (phase[0] == 0). The increment is a true division; the cumulative sum
+    groups differently on every device (as the reference's does), so its
+    bits are not device-independent."""
+    sr = torch.full((), float(sample_rate), dtype=torch.float32,
+                    device=freq_hz.device)
+    ph = torch.cumsum(torch.div(freq_hz, sr), dim=-1)
+    return torch.cat([torch.zeros_like(ph[..., :1]), ph[..., :-1]], dim=-1)
+
+
 def hard_sync_phase(phase_master, freq_ratio):
     """Slave phase under hard sync: resets at each master wrap.
 

@@ -37,6 +37,20 @@ def _union_us(intervals) -> float:
     return total
 
 
+def device_summary(prof, top: int = 12):
+    """(device events, the card's busy microseconds, the top `top` kernel
+    names by device microseconds) of a torch.profiler trace."""
+    events = [e for e in prof.events() if e.device_type.name == "CUDA"]
+    busy_us = _union_us([(e.time_range.start, e.time_range.end)
+                         for e in events])
+    by_name: dict = {}
+    for e in events:
+        by_name[e.name] = by_name.get(e.name, 0.0) + (
+            e.time_range.end - e.time_range.start)
+    return events, busy_us, sorted(by_name.items(),
+                                   key=lambda kv: -kv[1])[:top]
+
+
 def main(argv=None) -> int:
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -71,18 +85,10 @@ def main(argv=None) -> int:
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
     chunks.close()
-    device_events = [e for e in prof.events()
-                     if e.device_type.name == "CUDA"]
-    intervals = [(e.time_range.start, e.time_range.end)
-                 for e in device_events]
-    busy_us = _union_us(intervals)
-    span_us = (max(b for _, b in intervals) - min(a for a, _ in intervals)
-               if intervals else 0.0)
-    by_name: dict = {}
-    for e in device_events:
-        by_name[e.name] = by_name.get(e.name, 0.0) + (
-            e.time_range.end - e.time_range.start)
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
+    device_events, busy_us, top = device_summary(prof)
+    span_us = (max(e.time_range.end for e in device_events)
+               - min(e.time_range.start for e in device_events)
+               if device_events else 0.0)
     own = {}
     for e in device_events:
         found = None if "at::" in e.name else OWN_KERNEL.search(e.name)

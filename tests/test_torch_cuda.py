@@ -12,8 +12,8 @@ K9, K2, K3 and K6 (static and per-sample) on their shared-memory tiles
 over block, tile and alignment edges, every in-block length, zero-stride
 and unaligned coefficients, rows cut into segments, a non-default stream
 and a captured graph, plus
-short renders of the slices and of a streamed Welsh song on
-the card against the same renders on the CPU.
+short renders of the slices, of a streamed Welsh song and of the same
+song offline on the card against the same renders on the CPU.
 
 These tests need an NVIDIA GPU (marker `cuda`; they skip without one) and
 import no jax, so the machine with the card runs them:
@@ -651,3 +651,20 @@ def test_welsh_stream_on_card_equals_cpu(cuda_device):
     one = -(-compiled.n_frames // 64) * 64
     assert np.array_equal(on_card, sliced(compiled, cuda_device, one).render(
         quantize=True))
+
+
+@pytest.mark.parametrize("cap", [None, 500_000], ids=["whole", "chunked"])
+def test_welsh_offline_on_card_equals_cpu(cuda_device, cap):
+    """A 2 s Welsh analogue offline on the card (whole buckets, or row
+    chunks of a small cap): the CPU twins' render with the same cap bit
+    for bit, with the planned K2/K3 launches."""
+    compiled = compile_song(SongSettings.from_json(
+        synth.welsh_project(2, 240.0)), Paths(roots=[]))
+    r = Renderer(compiled, cuda_device, note_chunk_elems=cap)
+    before = dict(iir_kernels.LAUNCHES)
+    on_card = r.render()
+    got = {k: iir_kernels.LAUNCHES[k] - before[k]
+           for k in ("lp24_refined", "lp24")}
+    assert got == r.welsh_launches() and sum(got.values()) >= 2
+    cpu = Renderer(compiled, "cpu", note_chunk_elems=r.note_chunk_elems)
+    assert np.array_equal(on_card, cpu.render())

@@ -220,7 +220,9 @@ def test_port_imports_and_renders_without_jax(assets, tmp_path):
     every module of groove_tpu_torch, renders the filter-bank analogue
     (about 1.3 s, every route of the effect filters) on the CPU and runs
     the CLI to a WAV, then streams a 1 s Welsh analogue (sliced, on the
-    stream kernels' twins) through the CLI's --stream --sliced."""
+    stream kernels' twins) through the CLI's --stream --sliced and
+    renders it offline through the CLI's --wav (whole-timeline Welsh
+    voices, on K2's and K3's twins)."""
     project = synth.write_project(tmp_path / "filter-bank.json",
                                   synth.filter_bank_project())
     welsh = synth.write_project(tmp_path / "welsh.json",
@@ -266,6 +268,12 @@ c = compile_song(SongSettings.from_project_file({str(welsh)!r}), Paths())
 qw = S(c, "cpu", 4096).render(quantize=True)
 assert w.shape == qw.shape and np.abs(qw).max() > 1000
 assert np.array_equal(np.round(w * 32768).astype(np.int16), qw)
+assert cli.main([{str(welsh)!r}, "--wav", "--device", "cpu",
+                 "--out-dir", {str(tmp_path / "offline")!r}]) == 0
+wo, rate = read_wav({str(tmp_path / "offline" / "welsh.wav")!r})
+qo = Renderer(c, "cpu").render_quantized()
+assert wo.shape == qw.shape and np.abs(qo).max() > 1000
+assert np.array_equal(np.round(wo * 32768).astype(np.int16), qo)
 assert not [m for m in sys.modules
             if m.split(".")[0] in ("jax", "jaxlib", "groove_tpu")]
 print("JAX-FREE OK", q.shape)
