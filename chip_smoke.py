@@ -4,9 +4,11 @@ segment-streamed render of sliced Welsh voices on one CUDA device,
 through the hand-written kernels
 K1 (drums), K2 (refined lp24), K3 (lp24, block-rate denominators), K6
 (lp24, per-sample or static denominators), K4/K5/K9 (one biquad section
-with block-rate, static or per-sample coefficients), the serial scan, and
+with block-rate, static or per-sample coefficients), the serial scan,
 K7/K8 (K3/K2 with carried state: the sliced Welsh cascades, one launch of
-csrc/lp24_stream.cu per call).
+csrc/lp24_stream.cu per call) and scan1 (csrc/scan1.cu, the first-order
+scans of the compressor's follower and the reverb's combs and
+all-passes).
 
     python3 chip_smoke.py
 
@@ -49,7 +51,15 @@ Phases, one JSON line each:
      to its twin on dense hits (every 64 frames, rows longer than a chunk:
      each tile's hit list overflows several times) at [2, 3 * 65536 + 64],
      and timed at the 3-minute size as a whole call (ms) and on the card
-     alone from a captured graph (device_ms);
+     alone from a captured graph (device_ms). scan1 is held to its twin
+     in both modes (max_decay, linear) with coefficients by value and per
+     sample, on the 10-second kitchen-sink analogue's drum bus [2, n]
+     (the compressor's follower), in block space at the shortest and
+     longest delay (D = 75: the 1.7 ms all-pass; D = 1927: the 43.7 ms
+     comb, automated gains) and at a length that is no multiple of its
+     chunk; then alone at the 3-minute size beside its bound, and torch's
+     prototype associative_scan timed on the linear mode's inputs
+     (library_ms, where it runs);
   4. the main path through the CLI (groove_tpu_torch.cli.main --wav
      --perf), each run with the launch counts set to 0 just before it and
      read just after: the 3-minute north-star analogue (K1 + K2), the same
@@ -68,7 +78,13 @@ Phases, one JSON line each:
      Renderer's plan gives, Renderer.welsh_launches, required to be one
      of each a render), and K2 and K3 alone on its packets (the render's
      own inputs, captured in a render of their own), beside their bounds
-     and held to their twins bit for bit on sampled rows. Render time, x
+     and held to their twins bit for bit on sampled rows; then the
+     3-minute kitchen-sink analogue (every effect kind: compressors,
+     delays, choruses, reverbs, the toy, the stateless chain and a static
+     lp24; K1, K6 and scan1 as PER_RENDER plans them) and the
+     3-minute perf-1 analogue (two Welsh voices, an arpeggiator and the
+     kit at 1024 bpm through gain, limiter, bitcrusher, lp24, reverb and
+     lp12 chains: K1, K2, K3, K5, K6 and scan1). Render time, x
      realtime, peak device memory, WAV size and peak, launch counts;
   5. outputs: each 3-minute WAV's shape and peak; the north-star and
      high-sweep WAVs against the CPU render of the same song (the twins)
@@ -79,7 +95,9 @@ Phases, one JSON line each:
      for bit), and its card WAV against the CPU twins' stream; the
      3-minute Welsh analogue offline against its stream (dBFS, within
      -80); the 10-second Welsh analogue offline on the card against the
-     CPU twins' offline render with the card's element cap, bit for bit.
+     CPU twins' offline render with the card's element cap, bit for bit;
+     10-second kitchen-sink and perf-1 analogues through the CLI against
+     the CPU twins' renders, bit for bit.
 Then the kernel summary line, the nvidia-smi line, and the result line.
 Without a CUDA device it exits non-zero before printing any result.
 Synthetic assets and outputs go to build/chip_smoke/ in this checkout.
@@ -91,6 +109,8 @@ data sheet); and the algorithm's serial dependency chain (chain_ms:
 dependent float operations, 4 cycles each at the SM clock that
 nvidia-smi reports as clocks.max.sm), which binds these few-row
 recurrences. bound_by is "bytes" when the first binds, else "operations".
+scan1's chain is the function's, not the kernel's: a scan of S steps
+combines in ceil(log2 S) levels of 2 dependent operations (scan_work).
 """
 
 import json
@@ -137,11 +157,14 @@ KERNELS = {
                     "groove_tpu/ops/pallas_iir.py:448"),
     "lp24_refined_stream": ("groove_tpu_torch/csrc/lp24_stream.cu",
                             "groove_tpu/ops/pallas_iir.py:1082"),
+    # iir.one_pole's associative scan (and dynamics.max_decay's, :46)
+    "scan1": ("groove_tpu_torch/csrc/scan1.cu",
+              "groove_tpu/ops/iir.py:630"),
 }
 KIND = {"lp24_refined": "K2", "lp24": "K3", "lp24_cascade": "K6",
         "biquad_blockrate": "K4", "biquad_scalar": "K5",
         "biquad_per_sample": "K9", "biquad_serial": "serial",
-        "lp24_stream": "K7", "lp24_refined_stream": "K8"}
+        "lp24_stream": "K7", "lp24_refined_stream": "K8", "scan1": "scan1"}
 STREAM_KERNELS = ("lp24_stream", "lp24_refined_stream")
 WELSH_SEGMENT = 4096  # the sliced render's segment (frames)
 WELSH_AT = 40        # the segment of the 10-second song held to the twins
@@ -152,7 +175,14 @@ PER_RENDER = {
     "high-sweep": {"drums": 1, "lp24": 1},
     "filter-bank": {"drums": 1, "biquad_scalar": 1, "biquad_blockrate": 5,
                     "biquad_serial": 1, "lp24_cascade": 1, "lp24": 1},
+    # scan1: two for each smoothing compressor, six for each reverb
+    # (2 and 2; 1 reverb); perf-1's K2/K3 come from its Welsh plan
+    "kitchen-sink": {"drums": 1, "lp24_cascade": 1, "scan1": 16},
+    "perf-1": {"drums": 1, "lp24_cascade": 1, "biquad_scalar": 1,
+               "scan1": 6},
 }
+PERF1_MEASURES = 768  # 3 minutes at 1024 bpm
+PERF1_CHECK_MEASURES = 43  # 10 s
 
 
 def emit(phase: str, **fields) -> None:
@@ -254,16 +284,23 @@ def iir_work(kind: str, rows: int, n: int, coef_bytes: float,
     return io, float(flops), float(chain)
 
 
+def distinct_bytes(c) -> float:
+    """Bytes of the distinct values of a coefficient tensor (dimensions
+    read with stride 0 count once; a number or a 0-dim tensor, passed by
+    value, counts 0)."""
+    import numpy as np
+    import torch
+
+    if not torch.is_tensor(c) or c.dim() == 0:
+        return 0.0
+    return 4.0 * float(np.prod([n for n, st in zip(c.shape, c.stride())
+                                if st != 0]))
+
+
 def coef_bytes(coefs) -> float:
     """Bytes of the distinct coefficient values a call reads (a row
     broadcast with stride 0 counts once; by-value scalars count 0)."""
-    import torch
-
-    total = 0.0
-    for c in coefs:
-        if torch.is_tensor(c) and c.dim() > 0:
-            total += float((c if c.stride()[0] else c[0]).numel() * 4)
-    return total
+    return sum(distinct_bytes(c) for c in coefs)
 
 
 def iir_call_work(name: str, x, coefs) -> tuple:
@@ -554,6 +591,95 @@ def dense_hits(n: int, device) -> list:
             for a in (drums.prepare_table(table), *meta)]
 
 
+def scan_work(x, a, b, axis: int, mode: int) -> tuple:
+    """(bytes, flops, chain ops) of one scan1 call: x read and y written
+    once, each coefficient's distinct values once; 3 float operations an
+    element in the linear mode (b x, a y, the add), 2 in max_decay (a y,
+    the max). The chain is the function's least, whatever algorithm the
+    kernel runs: an associative scan of S steps in ceil(log2 S) combine
+    levels, each 2 dependent operations (a multiply, then the add or the
+    max), after the linear mode's b x."""
+    import math
+
+    from groove_tpu_torch.ops.scan_kernels import LINEAR
+
+    steps = x.shape[axis]
+    linear = mode == LINEAR
+    io = 8.0 * x.numel() + distinct_bytes(a) + (distinct_bytes(b)
+                                                if linear else 0.0)
+    levels = math.ceil(math.log2(max(steps, 2)))
+    return (io, (3.0 if linear else 2.0) * x.numel(),
+            2.0 * levels + (1.0 if linear else 0.0))
+
+
+def scan_calls(r, bus) -> list:
+    """scan1's calls on a kitchen-sink analogue's drum bus, as its effects
+    make them: (label, x, a, b, axis, mode), scan1's arguments in order.
+    The compressor's follower on the time axis [2, n] (attack smoothing
+    with per-sample and number coefficients; peak hold with a number r
+    and with the release trip's per-sample r), an all-pass (D = 75) and
+    an automated comb (D = 1927) in block space, and a length that is no
+    multiple of the chunk. The first call is the one the kernels line
+    reports and torch's associative_scan is timed on (library_scan)."""
+    import numpy as np
+
+    from groove_tpu_torch.ops import delayfx, dynamics, iir
+    from groove_tpu_torch.ops.scan_kernels import LINEAR, MAX_DECAY
+
+    sr = float(r.c.sample_rate)
+    n = bus.shape[-1]
+    mag = bus.abs()
+    trip = iir.upsample_hold(r.inputs["comp-trip/auto/release"], n)
+    r_num = dynamics._follower_coef(0.25, sr)
+    r_ps = dynamics._follower_coef(trip, sr)
+    a_num = dynamics._follower_coef(0.01, sr)
+    a_ps = dynamics._follower_coef(trip * 0.1, sr)
+    ap, _ = delayfx._block_view(bus, 75)
+    comb, _ = delayfx._block_view(bus, 1927)
+    sec = iir.upsample_hold(r.inputs["reverb-trip/auto/seconds"], n)
+    gb, _ = delayfx._block_view(delayfx.reverb_comb_g(sec, 1927, sr), 1927)
+    odd = mag[:, :100003].contiguous()
+    one = np.float32(1.0)
+    return [
+        ("linear, per-sample a and b", mag, a_ps, 1.0 - a_ps, -1, LINEAR),
+        ("linear, number a and b", mag, a_num, one - a_num, -1, LINEAR),
+        ("max_decay, number r", mag, r_num, 1.0, -1, MAX_DECAY),
+        ("max_decay, per-sample r", mag, r_ps, 1.0, -1, MAX_DECAY),
+        ("linear, block space D = 75", ap, 0.7, 1.0, -2, LINEAR),
+        ("linear, block space D = 1927, per-sample a",
+         delayfx._shift_block(comb), gb, 1.0, -2, LINEAR),
+        ("max_decay, n = 100003", odd, r_num, 1.0, -1, MAX_DECAY),
+    ]
+
+
+def library_scan(x, a, b) -> dict:
+    """torch's prototype associative_scan (torch._higher_order_ops) on the
+    linear scan's inputs: one call over (a, b x) with the reference's
+    combine. combine_mode "pointwise" (compiled) where it runs, else
+    "generic". A yardstick only: the port never calls it."""
+    import torch
+
+    from torch._higher_order_ops import associative_scan
+
+    def combine(e1, e2):
+        return (e2[0] * e1[0], e2[0] * e1[1] + e2[1])
+
+    aa = (a if torch.is_tensor(a) else torch.full_like(x, float(a)))
+    aa = aa.expand_as(x).contiguous()
+    bx = b * x
+    errors = []
+    for mode in ("pointwise", "generic"):
+        try:
+            ms, y = cuda_ms(lambda m=mode: associative_scan(
+                combine, (aa, bx), dim=-1, combine_mode=m)[1], 5)
+            return {"library_ms": ms,
+                    "library_call": f"associative_scan ({mode})",
+                    "library_out": y}
+        except Exception as e:  # a prototype: record why it did not run
+            errors.append(f"{mode}: {type(e).__name__}: {str(e)[:300]}")
+    return {"library_ms": None, "library_errors": errors}
+
+
 def main() -> int:
     import torch
 
@@ -564,12 +690,12 @@ def main() -> int:
     from groove_tpu_torch.compiler.song import compile_song
     import numpy as np
 
-    from groove_tpu_torch.engine.render import Renderer
+    from groove_tpu_torch.engine.render import Renderer, note_chunk_cap
     from groove_tpu_torch.engine.stream import StreamingRenderer
     from groove_tpu_torch.io.wav import read_wav
     from groove_tpu_torch.kernels import build
     from groove_tpu_torch.ops import biquad_kernels as bk
-    from groove_tpu_torch.ops import drums, iir_kernels
+    from groove_tpu_torch.ops import drums, iir_kernels, scan_kernels
     from groove_tpu_torch.ops import iir as tiir
     from groove_tpu_torch.project.paths import Paths
     from groove_tpu_torch.project.schema import SongSettings
@@ -606,7 +732,8 @@ def main() -> int:
     shutil.rmtree(work, ignore_errors=True)
     assets = synth.write_assets(work / "assets")
     paths = Paths(roots=[assets])
-    counters = (drums.LAUNCHES, iir_kernels.LAUNCHES, bk.LAUNCHES)
+    counters = (drums.LAUNCHES, iir_kernels.LAUNCHES, bk.LAUNCHES,
+                scan_kernels.LAUNCHES)
 
     def launches() -> dict:
         return {k: v for c in counters for k, v in c.items()}
@@ -619,6 +746,12 @@ def main() -> int:
     def renderer(project, measures: int):
         song = SongSettings.from_json(project(measures, SONG_BPM))
         return Renderer(compile_song(song, paths), device=dev)
+
+    def scan_check(label, *call):
+        return {**compare(
+            "scan1", lambda: scan_kernels.scan1(*call),
+            lambda: scan_kernels.scan1_plain(*call), call[0].abs().max(),
+            scan_work(*call)), "call": label, "axis": call[3]}
 
     def drum_bus(r):
         hits = [r.inputs[f"drums/{k}"] for k in (
@@ -743,6 +876,26 @@ def main() -> int:
         tiled_kernel_check("lp24_cascade", *bank["lp24_cascade"][2:]),
         tiled_kernel_check("lp24_cascade", xps, ps)]
     del r, rb, hits, bus, bus_b, x, secs, x2, den, held, bank, xps, ps
+
+    # scan1 on the 10-second kitchen-sink analogue's drum bus: the
+    # compressor's follower, an all-pass and a comb in block space, a
+    # length off the chunk; torch's associative_scan on the first call's
+    # inputs (library_ms), the call whose result main_shape keeps
+    library = {}
+    rk = renderer(synth.kitchen_sink_project, CHECK_MEASURES)
+    _, bus_k = drum_bus(rk)
+    for i, (label, *call) in enumerate(scan_calls(rk, bus_k)):
+        results.append(scan_check(label, *call))
+        if i == 0:
+            lib = library_scan(*call[:3])
+            if lib["library_ms"] is not None:
+                y = scan_kernels.scan1(*call)
+                lib["library_max_abs_err_vs_kernel"] = float(
+                    (lib.pop("library_out") - y).abs().max())
+            emit("library", name="scan1", call=label,
+                 shape=list(call[0].shape), ms=results[-1]["ms"], **lib)
+            library["scan1"] = lib["library_ms"]
+    del rk, bus_k
 
     # [64, 65536]: many rows through sweeps that rest near 25 Hz
     g = torch.Generator().manual_seed(0)
@@ -945,6 +1098,19 @@ def main() -> int:
         extra = {"device_ms": graph_ms(fn)} if name == "drums" else {}
         emit("kernel_at_song_size", name=name, frames=n, ms=ms, **extra,
              **bounds(*wk))
+    # scan1 alone at the 3-minute size: the compressor's follower and the
+    # reverb's longest comb on the 3-minute kitchen-sink drum bus
+    rk = renderer(synth.kitchen_sink_project, SONG_MEASURES)
+    _, bus_k = drum_bus(rk)
+    for label, *call in scan_calls(rk, bus_k):
+        if label.endswith("100003") or label.endswith("D = 75"):
+            continue
+        fn = (lambda c=call: scan_kernels.scan1(*c))
+        ms, _ = cuda_ms(fn, 5)
+        emit("kernel_at_song_size", name="scan1", call=label,
+             shape=list(call[0].shape), frames=rk.c.n_frames, ms=ms,
+             device_ms=graph_ms(fn), **bounds(*scan_work(*call)))
+    del rk, bus_k
     # per-sample K6 alone and against its twin at the 3-minute size
     xps, ps = lp24_sweep(bus_b)
     ms, _ = cuda_ms(lambda: iir_kernels.lp24_cascade(xps, ps), 5)
@@ -996,6 +1162,17 @@ def main() -> int:
     files = {name: synth.write_project(work / f"{name}.json",
                                        make(SONG_MEASURES, SONG_BPM))
              for name, make in projects.items()}
+    files["kitchen-sink"] = synth.write_project(
+        work / "kitchen-sink.json",
+        synth.kitchen_sink_project(SONG_MEASURES, SONG_BPM))
+    files["perf-1"] = synth.write_project(
+        work / "perf-1.json", synth.perf1_project(PERF1_MEASURES))
+    # perf-1's Welsh cascades: its Renderer's plan
+    plan = Renderer(compile_song(SongSettings.from_project_file(
+        files["perf-1"]), paths), dev)
+    PER_RENDER["perf-1"] = {**PER_RENDER["perf-1"], **{
+        k: v for k, v in plan.welsh_launches().items() if v}}
+    del plan
     os.environ["GROOVE_ASSETS"] = str(assets)
     totals = dict.fromkeys(launches(), 0)
     per_song = {}
@@ -1163,6 +1340,12 @@ def main() -> int:
     checks["filter-bank-10s"] = synth.write_project(
         work / "filter-bank-10s.json",
         synth.filter_bank_project(CHECK_MEASURES, SONG_BPM))
+    checks["kitchen-sink-10s"] = synth.write_project(
+        work / "kitchen-sink-10s.json",
+        synth.kitchen_sink_project(CHECK_MEASURES, SONG_BPM))
+    checks["perf-1-10s"] = synth.write_project(
+        work / "perf-1-10s.json", synth.perf1_project(PERF1_CHECK_MEASURES))
+    card_cap = note_chunk_cap(dev)  # it decides how Welsh sums group
     for name, path in checks.items():
         if name in per_song:
             audio = per_song[name][1]
@@ -1175,8 +1358,8 @@ def main() -> int:
             audio = read_wav(Path(perf[0]["wav"]))[0]
         song = SongSettings.from_project_file(path)
         t0 = time.perf_counter()
-        q_cpu = Renderer(compile_song(song, paths),
-                         device="cpu").render_quantized()
+        q_cpu = Renderer(compile_song(song, paths), device="cpu",
+                         note_chunk_elems=card_cap).render_quantized()
         cpu_s = time.perf_counter() - t0
         q_gpu = (audio * 32768.0).round().astype(q_cpu.dtype)
         diff = int(abs(q_gpu.astype("int32") - q_cpu).max())
@@ -1250,7 +1433,7 @@ def main() -> int:
             "launches": totals[name], "max_abs_err": res["max_abs_err"],
             "ms": res["ms"], "plain_ms": res["plain_ms"],
             "bound_ms": res["bound_ms"], "bound_by": res["bound_by"],
-            "library_ms": None})
+            "library_ms": library.get(name)})
     print(json.dumps({"kernels": kernels}))
     print(name_power)
     print(json.dumps({"ok": True, "device": {

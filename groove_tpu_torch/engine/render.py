@@ -25,12 +25,15 @@ one-block delay, reproduced by shifting the derived per-block curve right
 by one block.
 
 Ported so far: drumkits at the song's sample rate; welsh and welsh-raw
-voices (a voice-less device renders silence); mixer, passthrough, gain,
-limiter, bitcrusher, and every filter-* effect — static, automated
+voices (a voice-less device renders silence); every effect kind of the
+reference: mixer, passthrough, gain, limiter, bitcrusher, compressor,
+delay, chorus, reverb, toy, and every filter-* effect — static, automated
 (host-designed coefficient curves) or sidechain-driven (coefficients
-designed on the device from the sidechain's per-block values). Every
-other instrument or effect kind raises NotImplementedError: nothing
-falls silent.
+designed on the device from the sidechain's per-block values). The
+compressor's follower and the reverb's combs and all-passes run on the
+first-order scan kernel (ops/scan_kernels.py). An unknown effect kind
+warns and passes through, as the reference's does. Every other
+instrument kind raises NotImplementedError: nothing falls silent.
 """
 
 from __future__ import annotations
@@ -45,9 +48,10 @@ from groove_tpu_torch.compiler.song import MAIN_MIXER_UVID, CompiledSong, \
     DeviceIR
 from groove_tpu_torch.engine.params import inputs_from_numpy
 from groove_tpu_torch.io.wav import quantize_16bit
+from groove_tpu_torch.models import simple as simple_model
 from groove_tpu_torch.models import welsh as welsh_model
 from groove_tpu_torch.models.voices import bucket_notes, scatter_notes
-from groove_tpu_torch.ops import drums, effects, iir
+from groove_tpu_torch.ops import delayfx, drums, dynamics, effects, iir
 from groove_tpu_torch.ops.dca import pan_gains
 
 BLOCK = SAMPLE_BUFFER_SIZE
@@ -59,6 +63,12 @@ WELSH = ("welsh", "welsh-raw")
 STATIC_ONLY_PARAMS = {
     ("toy", "my-value"),
 }
+
+# A sidechain (signal-passthrough) value has no compile-time maximum, so
+# the delay-type seconds it drives (compressor attack/release, delay,
+# chorus delay-seconds) clamp to this bound. Trip curves keep their exact
+# maxima.
+SIDECHAIN_SECONDS_MAX = 1.0
 
 
 def warn_static_only(dev) -> None:
@@ -533,9 +543,98 @@ class Renderer:
                 else:
                     bits = float(dev.params.get("bits", 8))
             return effects.bitcrusher(x, bits)
+        if k == "compressor":
+            return self._apply_compressor(dev, x, overrides, P)
+        if k == "delay":
+            return self._apply_delay(inputs, dev, x, overrides)
+        if k == "chorus":
+            return self._apply_chorus(inputs, dev, x, overrides, P)
+        if k == "reverb":
+            return self._apply_reverb(inputs, dev, x, overrides, P)
+        if k == "toy":
+            return simple_model.toy_effect(x)
         if k.startswith("filter-"):
             return self._apply_filter(inputs, dev, x, overrides)
-        raise not_ported(k)
+        warn(f"unknown effect kind {k}; passthrough")
+        return x
+
+    def _apply_compressor(self, dev: DeviceIR, x, overrides, P):
+        """Instantaneous at attack = release = 0 (static), else the
+        smoothed follower (groove_tpu/engine/render.py:840-858).
+        Sidechain-driven seconds clamp to SIDECHAIN_SECONDS_MAX."""
+        sr = float(self.c.sample_rate)
+        thr = P("threshold", 1.0)
+        ratio = P("ratio", 1.0)
+        att = overrides.get((dev.uvid, "attack"))
+        att = (torch.clamp(att, 0.0, SIDECHAIN_SECONDS_MAX)
+               if att is not None else P("attack", 0.0))
+        rel = overrides.get((dev.uvid, "release"))
+        rel = (torch.clamp(rel, 0.0, SIDECHAIN_SECONDS_MAX)
+               if rel is not None else P("release", 0.0))
+        if isinstance(att, float) and isinstance(rel, float) \
+                and att <= 0.0 and rel <= 0.0:
+            return dynamics.compressor(x, thr, ratio)
+        return dynamics.compressor_smoothed(x, thr, ratio, att, rel, sr)
+
+    def _apply_delay(self, inputs, dev: DeviceIR, x, overrides):
+        """A sidechain override (a 64-sample hold: [::BLOCK] recovers its
+        block-rate curve) wins over a trip; either gathers per-block taps
+        (render.py:859-873)."""
+        sr = float(self.c.sample_rate)
+        ov = overrides.get((dev.uvid, "delay"))
+        if ov is not None:
+            return delayfx.delay_automated(
+                x, torch.clamp(ov[::BLOCK], 0.0, SIDECHAIN_SECONDS_MAX), sr)
+        key = f"{dev.uvid}/auto/delay"
+        if key in inputs:
+            return delayfx.delay_automated(x, inputs[key], sr)
+        return delayfx.delay(x, float(dev.params.get("delay", 0.0)), sr)
+
+    def _apply_chorus(self, inputs, dev: DeviceIR, x, overrides, P):
+        """Automated total delay and/or tap count: per-block gather taps,
+        the tap loop bounded by the voices curve's host maximum for a trip,
+        the configured static count for a sidechain (render.py:874-910)."""
+        sr = float(self.c.sample_rate)
+        u = dev.uvid
+        dkey, vkey = f"{u}/auto/delay-seconds", f"{u}/auto/voices"
+        ov_d = overrides.get((u, "delay-seconds"))
+        ov_v = overrides.get((u, "voices"))
+        voices = int(dev.params.get("voices", 1))
+        if ov_d is None and ov_v is None and dkey not in inputs \
+                and vkey not in inputs:
+            return delayfx.chorus(
+                x, voices, float(dev.params.get("delay-seconds", 0.0)), sr,
+                wet_dry_mix=P("wet-dry-mix", 1.0))
+        if ov_v is not None:
+            voices_b, maxv = ov_v[::BLOCK], max(1, voices)
+        elif vkey in inputs:
+            voices_b = inputs[vkey]
+            maxv = delayfx.chorus_curve_max_voices(dev.automation["voices"])
+        else:
+            voices_b, maxv = None, None
+        if ov_d is not None:
+            delay_b = torch.clamp(ov_d[::BLOCK], 0.0, SIDECHAIN_SECONDS_MAX)
+        elif dkey in inputs:
+            delay_b = inputs[dkey]
+        else:
+            delay_b = float(dev.params.get("delay-seconds", 0.0))
+        return delayfx.chorus_automated(
+            x, voices, delay_b, sr, wet_dry_mix=P("wet-dry-mix", 1.0),
+            voices_b=voices_b, max_voices=maxv)
+
+    def _apply_reverb(self, inputs, dev: DeviceIR, x, overrides, P):
+        """attenuation is a per-sample output gain; `seconds` drives the
+        comb gains at block cadence when automated or sidechain-driven
+        (render.py:911-928)."""
+        sr = float(self.c.sample_rate)
+        ov = overrides.get((dev.uvid, "seconds"))
+        key = f"{dev.uvid}/auto/seconds"
+        if ov is not None or key in inputs:
+            seconds_b = ov[::BLOCK] if ov is not None else inputs[key]
+            return delayfx.reverb_automated(x, P("attenuation", 1.0),
+                                            seconds_b, sr)
+        return delayfx.reverb(x, P("attenuation", 1.0),
+                              float(dev.params.get("seconds", 0.0)), sr)
 
     def _apply_filter(self, inputs, dev: DeviceIR, x, overrides):
         """Every filter-* effect, at the reference's 64-frame control

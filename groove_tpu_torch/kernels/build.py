@@ -51,6 +51,8 @@ SIGNATURES = {
     "biquad_serial_scan": ([_I] + [_P] * 6 + [_F] * 5 + [_I64] * 3 + [_P]
                            + [_I, _I64, _I64, _P]),
     "drums_accumulate": [_P, _I] + [_P] * 6 + [_I, _I, _I, _P, _I64, _P],
+    "scan1": ([_I, _P] + [_I64] * 3 + ([_P, _F] + [_I64] * 3) * 2
+              + [_P, _P] + [_I64] * 4 + [_P]),
 }
 
 _lib = None

@@ -24,7 +24,8 @@ ops/biquad_kernels.py (one section: K4, K5, K9 and the serial scan):
     refined sections (K4 x 4) or K6; block-rate cutoffs ->
     lp24_apply_blockrate_sections (K2 or K3);
   - lp24_apply: cutoff/q per sample or static -> K6 (both sections in one
-    call); along another axis -> biquad_best per section.
+    call); along another axis -> biquad_best per section;
+  - one_pole: the first-order scan (ops/scan_kernels.py, csrc/scan1.cu).
 
 TDF2 biquad with a0 == 1:
     y[n]  = b0 x[n] + s1[n-1]
@@ -39,7 +40,7 @@ import math
 import numpy as np
 import torch
 
-from groove_tpu_torch.ops import biquad_kernels, iir_kernels
+from groove_tpu_torch.ops import biquad_kernels, iir_kernels, scan_kernels
 from groove_tpu_torch.ops.iir_kernels import as_f32, is_scalar
 
 CONTROL_BLOCK = 64  # the reference's handle_work cadence (SAMPLE_BUFFER_SIZE)
@@ -77,6 +78,21 @@ def upsample_hold(c: torch.Tensor, n: int,
     nb = c.shape[-1]
     out = c.unsqueeze(-1).expand(*c.shape, cblock)
     return out.reshape(*c.shape[:-1], nb * cblock)[..., :n]
+
+
+def one_pole(x: torch.Tensor, a, b, axis: int = -1) -> torch.Tensor:
+    """y[n] = a[n] * y[n-1] + b[n] * x[n] along `axis`, zero initial
+    state (the reference's iir.one_pole, an XLA associative scan there),
+    on the first-order scan kernel (ops/scan_kernels.py). a and b are
+    numbers or tensors that broadcast, as the reference's do, against x
+    with `axis` moved last; b * x is formed first. Along axis -2 the
+    block-space combs' [..., nb, D] scan over nb without a copy (the
+    coefficients too are moved back as views)."""
+    if axis % x.dim() != x.dim() - 1:
+        moved = x.movedim(axis, -1).shape
+        a, b = (c.expand(moved).movedim(-1, axis) if torch.is_tensor(c)
+                else c for c in (a, b))
+    return scan_kernels.scan1(x, a, b, axis=axis, mode=scan_kernels.LINEAR)
 
 
 def _static_poles(coefs):
@@ -315,6 +331,10 @@ class _Torch:
     @staticmethod
     def pow10(e):
         return torch.pow(10.0, e.double()).float()
+
+    @staticmethod
+    def exp(v):
+        return torch.exp(v.double()).float()
 
     @staticmethod
     def maximum(v, lo):

@@ -1,9 +1,12 @@
-"""Where the time of the offline Welsh render goes, on one CUDA card.
+"""Where the time of an offline render goes, on one CUDA card.
 
-    python -m groove_tpu_torch.profile_offline [--measures 90]
+    python -m groove_tpu_torch.profile_offline [--song welsh] [--measures N]
 
-Renders the Welsh analogue (testing/synth.welsh_project, 90 measures at
-120 bpm: 3 minutes) offline to int16 on the card, once to warm up, then:
+Renders a 3-minute analogue of testing/synth offline to int16 on the
+card: --song welsh (welsh_project, 90 measures at 120 bpm; the default),
+kitchen-sink (kitchen_sink_project, 90 at 120) or perf-1 (perf1_project,
+768 at 1024), with the synthetic 707 kit written under
+build/profile_offline. Once to warm up, then:
 
   1. one steady render_quantized traced with torch.profiler: wall time,
      the card's busy time (the union of its kernel and copy intervals),
@@ -14,7 +17,9 @@ Renders the Welsh analogue (testing/synth.welsh_project, 90 measures at
      K2/K3), the timeline scatter (voices.scatter_notes, one in-place add
      per note) and the rest (the voice and synth DCA, the mix, the int16
      quantizer and the fetch), with the steady unsynchronised render's
-     time beside them.
+     time beside them; the instruments' DCA and drums
+     (Renderer._render_instrument) and each effect kind
+     (Renderer._apply_effect) are stages of their own.
 
 Prints one JSON line. Needs a CUDA device; exits non-zero without one.
 """
@@ -26,29 +31,39 @@ import json
 import sys
 import time
 from contextlib import contextmanager
+from pathlib import Path
+
+
+ROOT = Path(__file__).resolve().parents[1]
+# --song -> (testing/synth maker, measures for 3 minutes, bpm)
+SONGS = {"welsh": ("welsh_project", 90, 120.0),
+         "kitchen-sink": ("kitchen_sink_project", 90, 120.0),
+         "perf-1": ("perf1_project", 768, 1024.0)}
 
 
 @contextmanager
-def _timed(stages: dict, module, name: str, key: str):
-    """While active, every call of module.name is synchronised on both
-    sides and its host seconds added to stages[key]."""
+def _timed(stages: dict, owner, name: str, key):
+    """While active, every call of owner.name is synchronised on both
+    sides and its host seconds added to stages[key] (key a string, or a
+    function of the call's arguments)."""
     import torch
 
-    fn = getattr(module, name)
+    fn = getattr(owner, name)
 
     def call(*a, **kw):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         out = fn(*a, **kw)
         torch.cuda.synchronize()
-        stages[key] += time.perf_counter() - t0
+        k = key(a) if callable(key) else key
+        stages[k] = stages.get(k, 0.0) + time.perf_counter() - t0
         return out
 
-    setattr(module, name, call)
+    setattr(owner, name, call)
     try:
         yield
     finally:
-        setattr(module, name, fn)
+        setattr(owner, name, fn)
 
 
 def main(argv=None) -> int:
@@ -56,7 +71,8 @@ def main(argv=None) -> int:
     from torch.profiler import ProfilerActivity, profile
 
     args = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    args.add_argument("--measures", type=int, default=90)
+    args.add_argument("--song", choices=sorted(SONGS), default="welsh")
+    args.add_argument("--measures", type=int, default=None)
     a = args.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_offline: no CUDA device", file=sys.stderr)
@@ -69,8 +85,10 @@ def main(argv=None) -> int:
     from groove_tpu_torch.project.schema import SongSettings
     from groove_tpu_torch.testing import synth
 
-    compiled = compile_song(SongSettings.from_json(
-        synth.welsh_project(a.measures, 120.0)), Paths(roots=[]))
+    make, measures, bpm = SONGS[a.song]
+    assets = synth.write_assets(ROOT / "build" / "profile_offline")
+    compiled = compile_song(SongSettings.from_json(getattr(synth, make)(
+        a.measures or measures, bpm)), Paths(roots=[assets]))
     r = render.Renderer(compiled, "cuda")
     r.render_quantized()  # warm-up: kernel build, allocator
     torch.cuda.synchronize()
@@ -86,17 +104,20 @@ def main(argv=None) -> int:
         wall_s = time.perf_counter() - t0
     device_events, busy_us, top = device_summary(prof)
 
-    stages = dict.fromkeys(("voices", "cascade", "scatter"), 0.0)
+    stages = dict.fromkeys(("voices", "cascade", "scatter",
+                             "instruments"), 0.0)
     with _timed(stages, welsh, "render_notes_parts", "voices"), \
             _timed(stages, welsh, "apply_cascade", "cascade"), \
-            _timed(stages, render, "scatter_notes", "scatter"):
+            _timed(stages, render, "scatter_notes", "scatter"), \
+            _timed(stages, r, "_render_instrument", "instruments"), \
+            _timed(stages, r, "_apply_effect", lambda a: a[1].kind):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         r.render_quantized()
         staged_s = time.perf_counter() - t0
     stages["rest"] = staged_s - sum(stages.values())
     print(json.dumps({
-        "frames": compiled.n_frames, "plan": r._wm_plan,
+        "song": a.song, "frames": compiled.n_frames, "plan": r._wm_plan,
         "device": torch.cuda.get_device_name(0),
         "steady_ms": steady_s * 1e3,
         "traced_wall_ms": wall_s * 1e3, "device_busy_ms": busy_us / 1e3,

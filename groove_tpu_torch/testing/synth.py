@@ -21,7 +21,22 @@ filters (FILTER_BANK).
 welsh_project is an analogue of a Welsh-voice song (scale-c4-major's
 kind): two inline welsh-raw voices, a refined-cascade pad and a
 single-pass lead with noise and an amplitude LFO (WELSH_PAD,
-WELSH_LEAD)."""
+WELSH_LEAD).
+
+kitchen_sink_project is an analogue of kitchen-sink ("every effect +
+trips"): the kit drives one parallel chain per effect route (KITCHEN_SINK:
+compressors instantaneous, smoothed, with a release trip and with a
+sidechain-driven threshold; delays static, with a trip and
+sidechain-driven; choruses static and with voices and delay-seconds
+trips; reverbs static and with a seconds trip; the toy; gain, limiter,
+bitcrusher and a static 24 dB filter in one chain), summed by a gain into
+the main mixer.
+
+perf1_project is an analogue of perf-1 (BASELINE.md: two Welsh synths, a
+drumkit and an arpeggiator at BPM 1024 through gain, limiter, reverb,
+bitcrusher and filter chains): two inline welsh-raw voices with short
+envelopes (PERF1_PAD, PERF1_LEAD), the lead played by an arpeggiator
+over held chords."""
 
 from __future__ import annotations
 
@@ -277,6 +292,147 @@ def welsh_project(measures: int = 1, bpm: float = 120.0) -> dict:
              "patterns": [f"pad-{k % 4}" for k in range(measures)]},
             {"id": "lead-track", "midi-channel": 1,
              "patterns": [f"lead-{k % 4}" for k in range(measures)]},
+        ],
+    }
+
+
+# kitchen-sink route -> (effect kind, static params, trip targets: param
+# -> (trip value at the start, at the end), driven by the sidechain)
+KITCHEN_SINK = {
+    "comp-inst": ("compressor", {"threshold": 0.15, "ratio": 0.25,
+                                 "attack": 0.0, "release": 0.0}, {}, None),
+    "comp-smooth": ("compressor", {"threshold": 0.1, "ratio": 0.3,
+                                   "attack": 0.01, "release": 0.25}, {},
+                    None),
+    "comp-trip": ("compressor", {"threshold": 0.1, "ratio": 0.3,
+                                 "attack": 0.005, "release": 0.1},
+                  {"release": (0.05, 0.5)}, None),
+    "comp-sc": ("compressor", {"threshold": 0.5, "ratio": 0.25,
+                               "attack": 0.0, "release": 0.0}, {},
+                "threshold"),
+    "delay-static": ("delay", {"delay": 0.125}, {}, None),
+    "delay-trip": ("delay", {"delay": 0.05}, {"delay": (0.01, 0.25)}, None),
+    "delay-sc": ("delay", {"delay": 0.0}, {}, "delay"),
+    "chorus-static": ("chorus", {"voices": 3, "delay-seconds": 0.02}, {},
+                      None),
+    "chorus-trip": ("chorus", {"voices": 2, "delay-seconds": 0.01},
+                    {"voices": (1.0, 4.0), "delay-seconds": (0.005, 0.03)},
+                    None),
+    "reverb-static": ("reverb", {"attenuation": 0.5, "seconds": 1.5}, {},
+                      None),
+    "reverb-trip": ("reverb", {"attenuation": 0.5, "seconds": 1.0},
+                    {"seconds": (0.3, 2.0)}, None),
+    "toy": ("toy", {"my-value": 0.0}, {}, None),
+}
+# the stateless chain, in order, then a static 24 dB filter (K6)
+KITCHEN_STATELESS = (
+    ("st-gain", "gain", {"ceiling": 0.8}),
+    ("st-limiter", "limiter", {"minimum": 0.0, "maximum": 0.25}),
+    ("st-crusher", "bitcrusher", {"bits": 6}),
+    ("st-lp24", "filter-low-pass-24db",
+     {"cutoff": 4000.0, "passband-ripple": 0.707}),
+)
+KITCHEN_LEVEL = 0.12  # the bank gain: the 3-minute song's peak about 0.5
+
+
+def kitchen_sink_project(measures: int = 1, bpm: float = 120.0) -> dict:
+    """The drums -> one chain per effect route (KITCHEN_SINK,
+    KITCHEN_STATELESS) -> gain `bank` -> main-mixer project. A
+    passthrough controller on the drums (its own chain into the bank)
+    drives the sidechain routes; each trip rises once over the song."""
+    p = north_star_project(measures, bpm)
+    devices = p["devices"][:1] + [
+        {"controller": [SIDECHAIN_UVID,
+                        {"signal-passthrough-controller": [{}]}]},
+        {"effect": ["bank", {"gain": {"ceiling": KITCHEN_LEVEL}}]},
+    ]
+    cables = [["bank", "main-mixer"], ["drums", SIDECHAIN_UVID, "bank"]]
+    paths, trips, controls = [], [], []
+    for uvid, (kind, params, trip, sidechain) in KITCHEN_SINK.items():
+        devices.append({"effect": [uvid, {kind: dict(params)}]})
+        cables.append(["drums", uvid, "bank"])
+        for param, (low, high) in trip.items():
+            pid = f"{uvid}-{param}"
+            paths.append(_rise(pid, low, high, measures))
+            trips.append({"id": f"trip-{pid}", "paths": [pid],
+                          "target": {"id": uvid, "param": param}})
+        if sidechain is not None:
+            controls.append({"id": f"sc-{uvid}", "source": SIDECHAIN_UVID,
+                             "target": {"id": uvid, "param": sidechain}})
+    for uvid, kind, params in KITCHEN_STATELESS:
+        devices.append({"effect": [uvid, {kind: dict(params)}]})
+    cables.append(["drums", *(u for u, _, _ in KITCHEN_STATELESS), "bank"])
+    p["title"] = "kitchen-sink analogue"
+    p["devices"] = devices
+    p["patch-cables"] = cables
+    p["paths"], p["trips"], p["controls"] = paths, trips, controls
+    return p
+
+
+# perf-1 analogue voices: the Welsh analogue's pad and lead with short
+# envelopes (a 0.05 s release), so that a BPM of 1024 keeps each note's
+# window a few thousand samples long
+_SHORT = {"attack": 0.005, "decay": 0.05, "sustain": 0.6, "release": 0.05}
+PERF1_PAD = {**WELSH_PAD, "filter-envelope": dict(_SHORT),
+             "amp-envelope": dict(_SHORT)}
+PERF1_LEAD = {**WELSH_LEAD, "filter-envelope": dict(_SHORT),
+              "amp-envelope": dict(_SHORT)}
+PERF1_BPM = 1024.0
+
+
+def perf1_project(measures: int = 1, bpm: float = PERF1_BPM) -> dict:
+    """Two welsh-raw voices, the 707 kit and an arpeggiator (midi 2 -> 1,
+    at the song's BPM, a held 3-note chord a measure) through three
+    chains into the main mixer: drums ->
+    gain -> limiter -> bitcrusher; pad -> static low-pass-24db (K6) ->
+    reverb; lead (the arpeggiated chords) -> low-pass-12db (K5) -> gain.
+    768 measures at 1024 bpm are 3 minutes."""
+    beat = north_star_project(1, bpm)["patterns"]
+    chords = [(48, 55, 60), (53, 57, 60), (45, 52, 57), (43, 50, 55)]
+    pads = [{"id": f"pad-{k}", "note-value": "whole",
+             "notes": [[c[i]] for i in range(3)]}
+            for k, c in enumerate(chords)]
+    # a chord held a measure, an octave above the pad: the arpeggiator
+    # cycles the held set, one note a sixteenth
+    held = [{"id": f"held-{k}", "note-value": "whole",
+             "notes": [[c[i] + 12] for i in range(3)]}
+            for k, c in enumerate(chords)]
+    return {
+        "title": "perf-1 analogue",
+        "clock": {"bpm": bpm, "time-signature": [4, 4]},
+        "devices": [
+            {"instrument": ["drums", {"drumkit": [{"midi-in": 9},
+                                                  {"name": "707"}]}]},
+            {"instrument": ["pad", {"welsh-raw": [
+                {"midi-in": 0, "gain": 0.08}, dict(PERF1_PAD)]}]},
+            {"instrument": ["lead", {"welsh-raw": [
+                {"midi-in": 1, "gain": 0.2}, dict(PERF1_LEAD)]}]},
+            {"controller": ["arp", {"arpeggiator": [
+                {"midi-in": 2, "midi-out": 1}, {"bpm": bpm}]}]},
+            {"effect": ["d-gain", {"gain": {"ceiling": 0.7}}]},
+            {"effect": ["d-limiter", {"limiter": {"minimum": 0.0,
+                                                  "maximum": 0.3}}]},
+            {"effect": ["d-crusher", {"bitcrusher": {"bits": 8}}]},
+            {"effect": ["p-lp24", {"filter-low-pass-24db": {
+                "cutoff": 3000.0, "passband-ripple": 0.707}}]},
+            {"effect": ["p-reverb", {"reverb": {"attenuation": 0.4,
+                                                "seconds": 1.2}}]},
+            {"effect": ["l-lp12", {"filter-low-pass-12db": {
+                "cutoff": 2500.0, "q": 0.9}}]},
+            {"effect": ["l-gain", {"gain": {"ceiling": 0.6}}]},
+        ],
+        "patch-cables": [["drums", "d-gain", "d-limiter", "d-crusher",
+                          "main-mixer"],
+                         ["pad", "p-lp24", "p-reverb", "main-mixer"],
+                         ["lead", "l-lp12", "l-gain", "main-mixer"]],
+        "patterns": beat + pads + held,
+        "tracks": [
+            {"id": "drum-track", "midi-channel": 9,
+             "patterns": ["beat"] * measures},
+            {"id": "pad-track", "midi-channel": 0,
+             "patterns": [f"pad-{k % 4}" for k in range(measures)]},
+            {"id": "arp-track", "midi-channel": 2,
+             "patterns": [f"held-{k % 4}" for k in range(measures)]},
         ],
     }
 

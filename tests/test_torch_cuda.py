@@ -11,9 +11,12 @@ K9, K2, K3 and K6 (static and per-sample) on their shared-memory tiles
 (csrc/tiled.cuh) against their twins and their earlier multi-launch routes
 over block, tile and alignment edges, every in-block length, zero-stride
 and unaligned coefficients, rows cut into segments, a non-default stream
-and a captured graph, plus
+and a captured graph, the first-order scan (csrc/scan1.cu: both modes,
+number, per-element and row-broadcast coefficients, the time axis and
+block space, lengths off its chunk), plus
 short renders of the slices, of a streamed Welsh song and of the same
-song offline on the card against the same renders on the CPU.
+song offline, and of the kitchen-sink and perf-1 analogues, on the card
+against the same renders on the CPU.
 
 These tests need an NVIDIA GPU (marker `cuda`; they skip without one) and
 import no jax, so the machine with the card runs them:
@@ -30,7 +33,8 @@ import torch
 from groove_tpu_torch.compiler.song import compile_song
 from groove_tpu_torch.engine.render import Renderer
 from groove_tpu_torch.engine.stream import StreamingRenderer
-from groove_tpu_torch.ops import biquad_kernels, drums, iir, iir_kernels
+from groove_tpu_torch.ops import (biquad_kernels, drums, iir, iir_kernels,
+                                  scan_kernels)
 from groove_tpu_torch.project.paths import Paths
 from groove_tpu_torch.project.schema import SongSettings
 from groove_tpu_torch.testing import synth
@@ -668,3 +672,65 @@ def test_welsh_offline_on_card_equals_cpu(cuda_device, cap):
     assert got == r.welsh_launches() and sum(got.values()) >= 2
     cpu = Renderer(compiled, "cpu", note_chunk_elems=r.note_chunk_elems)
     assert np.array_equal(on_card, cpu.render())
+
+
+# ---- the first-order scan (csrc/scan1.cu) ----------------------------------
+
+@pytest.mark.parametrize("mode", [scan_kernels.LINEAR, scan_kernels.MAX_DECAY],
+                         ids=["linear", "max-decay"])
+@pytest.mark.parametrize("coef", ["number", "per-element", "row-broadcast"])
+@pytest.mark.parametrize("shape,axis", [((2, 57216), -1), ((3, 5000), -1),
+                                        ((2, 4999), -1), ((2, 300, 75), -2),
+                                        ((2, 40, 1927), -2)])
+def test_scan1_kernel_matches_twin(cuda_device, mode, coef, shape, axis):
+    """The time axis with n a multiple of the chunk or not, and block
+    space [R, nb, D] scanned over nb (lanes x steps through strides);
+    coefficients by value, per element, or one row read with stride 0."""
+    rng = np.random.default_rng(11)
+    x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+    if mode == scan_kernels.MAX_DECAY:
+        x = x.abs()
+    if coef == "number":
+        a, b = 0.999, 0.25
+    else:
+        row = shape if coef == "per-element" else shape[1:]
+        a = torch.from_numpy(rng.uniform(0.9, 0.9999, row).astype(np.float32))
+        b = 1.0 - a
+        if coef == "row-broadcast":
+            a, b = a.expand(shape), b.expand(shape)
+    def on(v):
+        return v.to(cuda_device) if torch.is_tensor(v) else v
+    before = scan_kernels.LAUNCHES["scan1"]
+    y = scan_kernels.scan1(x.to(cuda_device), on(a), on(b), axis=axis,
+                           mode=mode)
+    torch.cuda.synchronize()
+    assert scan_kernels.LAUNCHES["scan1"] == before + 1
+    assert torch.equal(y.cpu(), scan_kernels.scan1(x, a, b, axis=axis,
+                                                   mode=mode))
+
+
+def test_scan1_wrapper_refuses_bad_inputs(cuda_device):
+    x = torch.ones(2, 4096, device=cuda_device)
+    with pytest.raises(TypeError):
+        scan_kernels.scan1(x.double(), 0.5)
+    with pytest.raises(ValueError):
+        scan_kernels.scan1(x, torch.full((4096,), 0.5))  # a on the CPU
+
+
+@pytest.mark.parametrize("make, scans",
+                         [(lambda: synth.kitchen_sink_project(1), 16),
+                          (lambda: synth.perf1_project(8), 6)],
+                         ids=["kitchen-sink", "perf-1"])
+def test_effect_analogues_on_card_equal_cpu(cuda_device, tmp_path, make,
+                                            scans):
+    """About 2 s of each analogue: every effect kind on the card, the
+    scans launched as planned (two for each smoothing compressor, six for
+    each reverb), = the CPU twins' render bit for bit."""
+    assets = synth.write_assets(tmp_path, max_seconds=0.4)
+    compiled = compile_song(SongSettings.from_json(make()),
+                            Paths(roots=[assets]))
+    r = Renderer(compiled, cuda_device)
+    before = scan_kernels.LAUNCHES["scan1"]
+    on_card = r.render()
+    assert scan_kernels.LAUNCHES["scan1"] - before == scans
+    assert np.array_equal(on_card, Renderer(compiled, "cpu").render())

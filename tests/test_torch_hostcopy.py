@@ -75,6 +75,42 @@ def test_port_imports_neither_groove_tpu_nor_jax():
     assert not bad, bad
 
 
+def test_import_walk_covers_the_effect_layer():
+    """The walk above reads the effect layer's modules and the scan
+    kernel's wrapper, as it reads every module of the port."""
+    files = {p.relative_to(PORT).as_posix() for p in _port_files()
+             if p.is_relative_to(PORT)}
+    assert {"ops/dynamics.py", "ops/delayfx.py", "ops/scan_kernels.py",
+            "models/simple.py", "engine/render.py"} <= files
+
+
+def _function(path: Path, name: str) -> str:
+    tree = ast.parse(path.read_text())
+    (fn,) = [n for n in tree.body
+             if isinstance(n, ast.FunctionDef) and n.name == name]
+    return ast.dump(fn)
+
+
+def test_effect_host_copies_are_the_originals():
+    """The effect layer's host code and constants: chorus_curve_max_voices
+    statement for statement, the reverb's delays and all-pass gain, and
+    the sidechain's seconds bound."""
+    from groove_tpu.engine import render as jrender
+    from groove_tpu.ops import delayfx as jdelayfx
+    from groove_tpu_torch.engine import render as trender
+    from groove_tpu_torch.ops import delayfx as tdelayfx
+
+    assert _function(PORT / "ops/delayfx.py", "chorus_curve_max_voices") \
+        == _function(REPO / "groove_tpu/ops/delayfx.py",
+                     "chorus_curve_max_voices")
+    for name in ("COMB_DELAYS_S", "ALLPASS_DELAYS_S", "ALLPASS_G"):
+        assert getattr(tdelayfx, name) == getattr(jdelayfx, name), name
+    assert trender.SIDECHAIN_SECONDS_MAX == jrender.SIDECHAIN_SECONDS_MAX
+    for curve in ([0.2, 3.6, 2.0], np.array([1.5, 2.5], np.float32), [0.0]):
+        assert tdelayfx.chorus_curve_max_voices(curve) \
+            == jdelayfx.chorus_curve_max_voices(curve)
+
+
 class _Rename(ast.NodeTransformer):
     """groove_tpu.x imports -> groove_tpu_torch.x."""
 

@@ -363,29 +363,33 @@ def test_pointwise_effects_match(param):
 
 # ---- what is not ported raises --------------------------------------------
 
-def _with_device(p, index, device):
-    p["devices"][index] = device
-    return p
-
-
 @pytest.mark.parametrize("case", ["oscillator", "reverb", "compressor"])
 def test_unported_parts_raise(assets, case):
-    p = synth.north_star_project()
+    """An oscillator instrument offline, and the stateful effects in a
+    streamed render (their streamed forms are not ported; offline they
+    render, tests/test_torch_effects.py)."""
     if case == "oscillator":
+        p = synth.north_star_project()
         p["devices"].append({"instrument": ["osc", {"oscillator": {
             "waveform": "sine", "frequency": 220.0}}]})
         p["patch-cables"].append(["osc", "main-mixer"])
-    elif case == "reverb":
-        _with_device(p, 1, {"effect": [synth.FILTER_UVID, {"reverb": {
-            "attenuation": 0.5, "seconds": 0.2}}]})
-        p["trips"] = []
-    else:
-        _with_device(p, 1, {"effect": [synth.FILTER_UVID, {"compressor": {
-            "threshold": 0.5, "ratio": 4.0}}]})
-        p["trips"] = []
-    song = SongSettings.from_json(p)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        Renderer(compile_song(song, Paths(roots=[assets])), "cpu").render()
+        song = SongSettings.from_json(p)
+        with pytest.raises(NotImplementedError, match="not ported yet"):
+            Renderer(compile_song(song, Paths(roots=[assets])),
+                     "cpu").render()
+        return
+    from groove_tpu_torch.engine.stream import StreamingRenderer
+
+    p = synth.welsh_project(1, 240.0)
+    params = ({"attenuation": 0.5, "seconds": 0.2} if case == "reverb"
+              else {"threshold": 0.5, "ratio": 4.0})
+    p["devices"].append({"effect": ["fx", {case: params}]})
+    p["patch-cables"] = [["pad", "fx", "main-mixer"], ["lead", "main-mixer"]]
+    sliced = type("Sliced", (StreamingRenderer,), {"WELSH_SLICED": True})
+    c = compile_song(SongSettings.from_json(p), Paths())
+    with pytest.raises(NotImplementedError,
+                       match=f"{case} in a streamed render: not ported yet"):
+        sliced(c, "cpu", 4096)
 
 
 @pytest.mark.parametrize("flag", [["--play"], ["--loop", "0", "4"],
@@ -397,13 +401,14 @@ def test_cli_refuses_unported_flags(flag):
 
 def test_cli_reports_unported_project(assets, tmp_path, monkeypatch,
                                       capsys):
-    p = _with_device(synth.north_star_project(), 1, {"effect": [
-        synth.FILTER_UVID, {"delay": {"delay": 0.1}}]})
-    p["trips"] = []
-    path = synth.write_project(tmp_path / "delay.json", p)
+    p = synth.north_star_project()
+    p["devices"].append({"instrument": ["osc", {"oscillator": {
+        "waveform": "sine", "frequency": 220.0}}]})
+    p["patch-cables"].append(["osc", "main-mixer"])
+    path = synth.write_project(tmp_path / "oscillator.json", p)
     monkeypatch.setenv("GROOVE_ASSETS", str(assets))
     assert cli.main([str(path), "--device", "cpu"]) == 1
-    assert "delay: not ported yet" in capsys.readouterr().err
+    assert "oscillator: not ported yet" in capsys.readouterr().err
 
 
 def test_cli_writes_the_render(assets, tmp_path, monkeypatch):
