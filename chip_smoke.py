@@ -57,8 +57,10 @@ Phases, one JSON line each:
      (the compressor's follower), in block space at the shortest and
      longest delay (D = 75: the 1.7 ms all-pass; D = 1927: the 43.7 ms
      comb, automated gains) and at a length that is no multiple of its
-     chunk; then alone at the 3-minute size beside its bound, and torch's
-     prototype associative_scan timed on the linear mode's inputs
+     chunk; then alone at the 3-minute size beside its bound (the
+     per-sample follower and the D = 1927 comb held to the twin bit for
+     bit there too), and torch's prototype associative_scan timed on the
+     linear mode's per-sample inputs at 10 s and at 3 minutes
      (library_ms, where it runs);
   4. the main path through the CLI (groove_tpu_torch.cli.main --wav
      --perf), each run with the launch counts set to 0 just before it and
@@ -1099,17 +1101,33 @@ def main() -> int:
         emit("kernel_at_song_size", name=name, frames=n, ms=ms, **extra,
              **bounds(*wk))
     # scan1 alone at the 3-minute size: the compressor's follower and the
-    # reverb's longest comb on the 3-minute kitchen-sink drum bus
+    # reverb's longest comb on the 3-minute kitchen-sink drum bus; the
+    # per-sample follower and the comb also against the twin on the card,
+    # and torch's associative_scan on the follower's inputs
     rk = renderer(synth.kitchen_sink_project, SONG_MEASURES)
     _, bus_k = drum_bus(rk)
-    for label, *call in scan_calls(rk, bus_k):
+    for i, (label, *call) in enumerate(scan_calls(rk, bus_k)):
         if label.endswith("100003") or label.endswith("D = 75"):
             continue
         fn = (lambda c=call: scan_kernels.scan1(*c))
-        ms, _ = cuda_ms(fn, 5)
-        emit("kernel_at_song_size", name="scan1", call=label,
-             shape=list(call[0].shape), frames=rk.c.n_frames, ms=ms,
-             device_ms=graph_ms(fn), **bounds(*scan_work(*call)))
+        if label.startswith("linear, per-sample") or "1927" in label:
+            res = {**scan_check(label, *call), "frames": rk.c.n_frames,
+                   "device_ms": graph_ms(fn)}
+            emit("kernel_at_song_size", **res)
+            require(res["bitwise"], f"scan1 differs from its twin at 3 "
+                    f"minutes ({label}): {res['max_abs_err']}")
+        else:
+            ms, _ = cuda_ms(fn, 5)
+            emit("kernel_at_song_size", name="scan1", call=label,
+                 shape=list(call[0].shape), frames=rk.c.n_frames, ms=ms,
+                 device_ms=graph_ms(fn), **bounds(*scan_work(*call)))
+        if i == 0:
+            lib = library_scan(*call[:3])
+            if lib["library_ms"] is not None:
+                lib["library_max_abs_err_vs_kernel"] = float(
+                    (lib.pop("library_out") - fn()).abs().max())
+            emit("library", name="scan1", call=label, frames=rk.c.n_frames,
+                 shape=list(call[0].shape), **lib)
     del rk, bus_k
     # per-sample K6 alone and against its twin at the 3-minute size
     xps, ps = lp24_sweep(bus_b)

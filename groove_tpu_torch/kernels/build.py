@@ -51,8 +51,9 @@ SIGNATURES = {
     "biquad_serial_scan": ([_I] + [_P] * 6 + [_F] * 5 + [_I64] * 3 + [_P]
                            + [_I, _I64, _I64, _P]),
     "drums_accumulate": [_P, _I] + [_P] * 6 + [_I, _I, _I, _P, _I64, _P],
+    "scan1_init": [_I],
     "scan1": ([_I, _P] + [_I64] * 3 + ([_P, _F] + [_I64] * 3) * 2
-              + [_P, _P] + [_I64] * 4 + [_P]),
+              + [_P, _P] + [_I64] * 4 + [_I] * 3 + [_P]),
 }
 
 _lib = None
@@ -123,11 +124,13 @@ def build() -> dict:
 
 def library() -> ctypes.CDLL:
     """The loaded kernel library (built on first use). Loading it allows
-    the stream kernels their dynamic shared memory, once, so that no call
-    has to (csrc/lp24_stream.cu lp24_stream_init)."""
+    the stream kernels and scan1's time-axis kernel their dynamic shared
+    memory, once, so that no call has to (csrc/lp24_stream.cu
+    lp24_stream_init, csrc/scan1.cu scan1_init)."""
     global _lib
     if _lib is None:
         from groove_tpu_torch.ops.iir_kernels import stream_smem_bytes
+        from groove_tpu_torch.ops.scan_kernels import STAGE_BYTES
 
         lib = ctypes.CDLL(build()["path"])
         for name, argtypes in SIGNATURES.items():
@@ -138,6 +141,9 @@ def library() -> ctypes.CDLL:
                                    stream_smem_bytes(True))
         if err:
             raise RuntimeError(f"lp24_stream_init failed: CUDA error {err}")
+        err = lib.scan1_init(STAGE_BYTES)
+        if err:
+            raise RuntimeError(f"scan1_init failed: CUDA error {err}")
         _lib = lib
     return _lib
 

@@ -21,9 +21,11 @@ value; (2) each lane walks its chunks in order for every chunk's carry-in;
 of a: y += P * carry (max_decay: y = max(y, P * carry)). scan1_plain is
 the twin: the same decomposition in the same operation order, each
 multiply and add rounded on its own, so kernel and twin agree bit for bit
-(the build's -fmad=false). Neither keeps the reference's operation order,
-which is XLA's associative_scan tree: against groove_tpu the scans are
-held to a dBFS bar set from measurement (tests/test_torch_effects.py), not
+(the build's -fmad=false). The kernel runs all three in one launch: spans
+of chunks, one thread block each, hand the carry on in lane order (plan;
+csrc/scan1.cu). Neither keeps the reference's operation order, which is
+XLA's associative_scan tree: against groove_tpu the scans are held to a
+dBFS bar set from measurement (tests/test_torch_effects.py), not
 bitwise. Products of a underflow toward 0 over long runs by design; both
 keep denormals (no flush to zero).
 
@@ -32,7 +34,9 @@ counts its calls); there is no fallback."""
 
 from __future__ import annotations
 
+import functools
 import math
+from dataclasses import dataclass
 
 import numpy as np
 import torch
@@ -40,17 +44,68 @@ import torch
 from groove_tpu_torch.ops.iir_kernels import dispatch, ptr, stream_of
 
 LINEAR, MAX_DECAY = 0, 1  # csrc/scan1.cu Mode
+TIME, LANES = 0, 1        # csrc/scan1.cu Layout
+TILE = 32                 # kTile: steps of a chunk's row per ring stage
+TIME_THREADS = 128        # kTimeThreads: chunks of a time-axis block
+LANE_THREADS = 512        # kLaneThreads: 32 lanes x 16 chunks, at most
+MAX_STAGES = 6            # kMaxStages
+STAGE_BYTES = 98304       # kStageBytes: a time-axis block's ring, at most
+ALIGN = 1024              # kAlign: the ring starts on it (TMA's swizzle)
 LAUNCHES = {"scan1": 0}
 
 
 def chunk_for(steps: int) -> int:
     """The chunk C: the power of two nearest above sqrt(steps / 8), within
-    [32, 2048]. A thread walks 2C steps in passes 1 and 3 and a warp
-    S / C aggregates in pass 2."""
+    [32, 2048]. A thread walks C steps twice (for the aggregate, then for
+    y) and a lane folds its S / C aggregates in order."""
     c = 32
     while c < 2048 and c * c * 8 < steps:
         c *= 2
     return c
+
+
+@dataclass(frozen=True)
+class Plan:
+    """One kernel call's launch (csrc/scan1.cu): chunk C and the chunks
+    of a lane; the layout (TIME: a block stages `per_block` =
+    TIME_THREADS chunks of one lane through a ring of `stages` tiles of
+    `streams` streams, `smem_bytes` of dynamic shared memory; LANES: a
+    block is 32 neighbouring lanes times `per_block` chunks, a warp a
+    chunk, nothing staged); `spans` blocks a lane chained one after the
+    other, `blocks` in all; `scratch_words` 64-bit words of ticket and
+    flags."""
+
+    layout: int
+    chunk: int
+    chunks: int
+    threads: int
+    per_block: int
+    spans: int
+    blocks: int
+    stages: int
+    streams: int
+    smem_bytes: int
+    scratch_words: int
+
+
+@functools.lru_cache(maxsize=256)
+def plan(R: int, S: int, D: int, streams: int) -> Plan:
+    """The launch for x seen as [R, S, D] with `streams` streams to stage
+    on the time axis (x, and a and b where they are tensors; max_decay
+    reads no b). Block space when 32 lanes or more sit side by side."""
+    C = chunk_for(S)
+    nc = -(-S // C)
+    if D >= 32:
+        layout, K, stages, smem = LANES, min(LANE_THREADS // 32, nc), 0, 0
+        threads, groups = 32 * K, R * -(-D // 32)
+    else:
+        layout, K, threads, groups = TIME, TIME_THREADS, TIME_THREADS, R * D
+        per_stage = streams * TIME_THREADS * TILE * 4
+        stages = min(MAX_STAGES, STAGE_BYTES // per_stage)
+        smem = stages * per_stage + ALIGN
+    spans = -(-nc // K)
+    return Plan(layout, C, nc, threads, K, spans, groups * spans, stages,
+                streams, smem, 1 + R * D * spans)
 
 
 def _canonical(shape, axis: int):
@@ -133,14 +188,15 @@ def _launch(xv: torch.Tensor, ca: _Coef, cb: _Coef,
     from groove_tpu_torch.kernels.build import library
 
     R, S, D = xv.shape
-    C = chunk_for(S)
-    nc = -(-S // C)
+    streams = 1 + (ca.view is not None) + (mode == LINEAR
+                                           and cb.view is not None)
+    p = plan(R, S, D, streams)
     y = torch.empty((R, S, D), dtype=torch.float32, device=xv.device)
-    scratch = torch.empty((2 * R * D * nc,), dtype=torch.float32,
+    scratch = torch.empty((p.scratch_words,), dtype=torch.int64,
                           device=xv.device)
     err = library().scan1(mode, ptr(xv), *xv.stride(), *ca.args(),
-                          *cb.args(), ptr(y), ptr(scratch), R, S, D, C,
-                          stream_of(xv))
+                          *cb.args(), ptr(y), ptr(scratch), R, S, D, p.chunk,
+                          p.layout, p.threads, p.stages, stream_of(xv))
     if err:
         raise RuntimeError(f"scan1 kernel launch failed: CUDA error {err}")
     return y

@@ -13,7 +13,9 @@ over block, tile and alignment edges, every in-block length, zero-stride
 and unaligned coefficients, rows cut into segments, a non-default stream
 and a captured graph, the first-order scan (csrc/scan1.cu: both modes,
 number, per-element and row-broadcast coefficients, the time axis and
-block space, lengths off its chunk), plus
+block space, lengths off its chunk, a lane of many chained blocks, products
+of a through denormals, lane counts on both sides of the layouts' border,
+calls queued back to back, a captured graph replayed), plus
 short renders of the slices, of a streamed Welsh song and of the same
 song offline, and of the kitchen-sink and perf-1 analogues, on the card
 against the same renders on the CPU.
@@ -707,6 +709,114 @@ def test_scan1_kernel_matches_twin(cuda_device, mode, coef, shape, axis):
     assert scan_kernels.LAUNCHES["scan1"] == before + 1
     assert torch.equal(y.cpu(), scan_kernels.scan1(x, a, b, axis=axis,
                                                    mode=mode))
+
+
+def _scan_inputs(shape, mode, low, seed):
+    """x (|x| for max_decay) and per-element a in [low, 0.99999), b = 1 - a:
+    with low 0.3 the products of a pass through denormals to 0 within a
+    chunk."""
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+    if mode == scan_kernels.MAX_DECAY:
+        x = x.abs()
+    a = torch.from_numpy(rng.uniform(low, 0.99999, shape).astype(np.float32))
+    return x, a, 1.0 - a
+
+
+def _scan_on_card(cuda_device, x, a, b, axis, mode):
+    before = scan_kernels.LAUNCHES["scan1"]
+    y = scan_kernels.scan1(x.to(cuda_device), a.to(cuda_device),
+                           b.to(cuda_device), axis=axis, mode=mode)
+    torch.cuda.synchronize()
+    assert scan_kernels.LAUNCHES["scan1"] == before + 1
+    return y.cpu()
+
+
+@pytest.mark.parametrize("mode", [scan_kernels.LINEAR, scan_kernels.MAX_DECAY],
+                         ids=["linear", "max-decay"])
+@pytest.mark.parametrize("low", [0.99, 0.3], ids=["slow", "denormal"])
+def test_scan1_kernel_chains_many_blocks(cuda_device, mode, low):
+    """A lane long enough for many chained blocks ([2, 2**21 + 37]: 2,049
+    chunks of 1,024, 17 spans a lane, the last chunk short) with
+    per-sample coefficients = the twin bit for bit."""
+    n = 2**21 + 37
+    p = scan_kernels.plan(2, n, 1, 3)
+    assert p.layout == scan_kernels.TIME and p.spans == 17
+    x, a, b = _scan_inputs((2, n), mode, low, seed=21)
+    assert torch.equal(_scan_on_card(cuda_device, x, a, b, -1, mode),
+                       scan_kernels.scan1(x, a, b, mode=mode))
+
+
+@pytest.mark.parametrize("mode", [scan_kernels.LINEAR, scan_kernels.MAX_DECAY],
+                         ids=["linear", "max-decay"])
+@pytest.mark.parametrize("shape,axis", [
+    ((1, 20000), -1), ((2, 20000), -1), ((3, 20000), -1), ((31, 9000), -1),
+    ((1, 20000, 2), -2), ((1, 20000, 31), -2), ((1, 2000, 32), -2),
+    ((1, 2000, 75), -2)])
+def test_scan1_kernel_lane_counts(cuda_device, mode, shape, axis):
+    """R * D lanes in {1, 2, 3, 31, 32, 75} on both sides of the layouts'
+    border (time axis below 32 lanes side by side: [R, n] rows, or D
+    lanes read step stride D; block space from 32), every lane several
+    spans long, per-element coefficients, = the twin bit for bit."""
+    x, a, b = _scan_inputs(shape, mode, 0.9, seed=sum(shape))
+    rsd = (shape[0], shape[1], shape[2] if len(shape) == 3 else 1)
+    p = scan_kernels.plan(*rsd, 3)
+    assert p.spans >= 2
+    assert p.layout == (scan_kernels.LANES if rsd[2] >= 32
+                        else scan_kernels.TIME)
+    assert torch.equal(_scan_on_card(cuda_device, x, a, b, axis, mode),
+                       scan_kernels.scan1(x, a, b, axis=axis, mode=mode))
+
+
+def test_scan1_back_to_back_calls(cuda_device):
+    """Calls queued one after the other on one stream, no synchronisation
+    between them (each resets its own ticket and flags on the stream; a
+    later call may reuse an earlier call's scratch), = their twins."""
+    cases = [(scan_kernels.LINEAR, (2, 300000), -1),
+             (scan_kernels.MAX_DECAY, (2, 300000), -1),
+             (scan_kernels.LINEAR, (2, 4000, 75), -2),
+             (scan_kernels.LINEAR, (2, 300000), -1)]
+    inputs = [(mode, axis, *_scan_inputs(shape, mode, 0.95, seed=i))
+              for i, (mode, shape, axis) in enumerate(cases)]
+    outs = []
+    for mode, axis, x, a, b in inputs:
+        outs.append(scan_kernels.scan1(
+            x.to(cuda_device), a.to(cuda_device), b.to(cuda_device),
+            axis=axis, mode=mode))
+    torch.cuda.synchronize()
+    for (mode, axis, x, a, b), y in zip(inputs, outs):
+        assert torch.equal(y.cpu(), scan_kernels.scan1(x, a, b, axis=axis,
+                                                       mode=mode))
+
+
+def test_scan1_graph_replay_equals_eager(cuda_device):
+    """Two calls (time axis and block space) captured in one CUDA graph,
+    replayed twice on new inputs: each replay = the eager calls on the
+    same inputs (the memset before each launch is part of the graph)."""
+    mode = scan_kernels.LINEAR
+    x, a, b = (t.to(cuda_device) for t in _scan_inputs((2, 400000), mode,
+                                                       0.95, seed=5))
+    xb, ab, bb = (t.to(cuda_device) for t in _scan_inputs((2, 3000, 1927),
+                                                          mode, 0.9, seed=6))
+
+    def calls():
+        return (scan_kernels.scan1(x, a, b, mode=mode),
+                scan_kernels.scan1(xb, ab, bb, axis=-2, mode=mode))
+
+    calls()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        y, yb = calls()
+    for scale in (0.5, -2.0):
+        x.mul_(scale)
+        xb.mul_(scale)
+        g.replay()
+        torch.cuda.synchronize()
+        want, want_b = calls()
+        assert torch.equal(y, want) and torch.equal(yb, want_b)
+        assert torch.equal(y.cpu(), scan_kernels.scan1(
+            x.cpu(), a.cpu(), b.cpu(), mode=mode))
 
 
 def test_scan1_wrapper_refuses_bad_inputs(cuda_device):
