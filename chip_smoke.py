@@ -1,14 +1,16 @@
 """On-card smoke run of groove_tpu_torch: the offline render (drumkit ->
-effect filters -> mix -> 16-bit WAV; whole-timeline Welsh voices) and the
-segment-streamed render of sliced Welsh voices on one CUDA device,
+effect filters -> mix -> 16-bit WAV; whole-timeline Welsh and FM voices,
+the sampler, calculator, resampled drumkit, oscillators, envelope and toy
+instruments; a MIDI file) and the segment-streamed render of sliced
+Welsh voices on one CUDA device,
 through the hand-written kernels
 K1 (drums), K2 (refined lp24), K3 (lp24, block-rate denominators), K6
 (lp24, per-sample or static denominators), K4/K5/K9 (one biquad section
 with block-rate, static or per-sample coefficients), the serial scan,
 K7/K8 (K3/K2 with carried state: the sliced Welsh cascades, one launch of
 csrc/lp24_stream.cu per call) and scan1 (csrc/scan1.cu, the first-order
-scans of the compressor's follower and the reverb's combs and
-all-passes).
+scans of the compressor's follower, the reverb's combs and all-passes,
+and FM's automated modulator phase).
 
     python3 chip_smoke.py
 
@@ -61,7 +63,11 @@ Phases, one JSON line each:
      per-sample follower and the D = 1927 comb held to the twin bit for
      bit there too), and torch's prototype associative_scan timed on the
      linear mode's per-sample inputs at 10 s and at 3 minutes
-     (library_ms, where it runs);
+     (library_ms, where it runs); scan1 at the FM analogue's
+     modulator-phase shapes (the ratio voice's in-block sums [rows, 64,
+     nb] along axis 1, its block prefix [rows, nb], and the in-block sums
+     on the layout not taken, [rows, nb, 64] along its last axis) against
+     its twin bit for bit at 10 s and 3 minutes, beside its bound;
   4. the main path through the CLI (groove_tpu_torch.cli.main --wav
      --perf), each run with the launch counts set to 0 just before it and
      read just after: the 3-minute north-star analogue (K1 + K2), the same
@@ -86,8 +92,22 @@ Phases, one JSON line each:
      lp24; K1, K6 and scan1 as PER_RENDER plans them) and the
      3-minute perf-1 analogue (two Welsh voices, an arpeggiator and the
      kit at 1024 bpm through gain, limiter, bitcrusher, lp24, reverb and
-     lp12 chains: K1, K2, K3, K5, K6 and scan1). Render time, x
-     realtime, peak device memory, WAV size and peak, launch counts;
+     lp12 chains: K1, K2, K3, K5, K6 and scan1); the 3-minute FM
+     analogue (a pad under a beta trip on traced phases, a lead under a
+     depth trip on host phase tables, a voice under a ratio trip on
+     scan1: fm_routes prints which bucket takes which route), the
+     3-minute instruments analogue (the 707 kit at 48 kHz, a sampler on
+     a 48 kHz WAV, the calculator, four oscillators, the envelope
+     instrument, the toy: no kernel) and a 162-second MIDI file (a drum
+     channel on K1, two GM programs on Welsh patches: K2/K3), each with
+     its launches against PER_RENDER (the Renderers' fm_launches and
+     welsh_launches plans). Render time, x realtime, peak device memory,
+     WAV size and peak, launch counts; the FM analogue's steady render
+     in synchronised stages (profile_offline.staged_render: the
+     scatter's share); an unknown instrument kind warns and renders
+     silence; each note batch's own peak bytes per element (bucket_peaks)
+     of the FM, Welsh and MIDI songs, held under the card's element cap
+     (engine/render.NOTE_PEAK_BYTES_PER_ELEM);
   5. outputs: each 3-minute WAV's shape and peak; the north-star and
      high-sweep WAVs against the CPU render of the same song (the twins)
      bit for bit, and a 10-second filter-bank render through the CLI
@@ -98,8 +118,9 @@ Phases, one JSON line each:
      3-minute Welsh analogue offline against its stream (dBFS, within
      -80); the 10-second Welsh analogue offline on the card against the
      CPU twins' offline render with the card's element cap, bit for bit;
-     10-second kitchen-sink and perf-1 analogues through the CLI against
-     the CPU twins' renders, bit for bit.
+     10-second kitchen-sink, perf-1, FM and instruments analogues and an
+     8-second MIDI file through the CLI against the CPU twins' renders,
+     bit for bit.
 Then the kernel summary line, the nvidia-smi line, and the result line.
 Without a CUDA device it exits non-zero before printing any result.
 Synthetic assets and outputs go to build/chip_smoke/ in this checkout.
@@ -115,6 +136,8 @@ scan1's chain is the function's, not the kernel's: a scan of S steps
 combines in ceil(log2 S) levels of 2 dependent operations (scan_work).
 """
 
+import contextlib
+import io
 import json
 import os
 import shutil
@@ -185,6 +208,11 @@ PER_RENDER = {
 }
 PERF1_MEASURES = 768  # 3 minutes at 1024 bpm
 PERF1_CHECK_MEASURES = 43  # 10 s
+# FM's, the instruments' and the MIDI file's plans are their Renderers'
+# (fm_launches, welsh_launches); the instruments launch no kernel
+PER_RENDER["instruments"] = {}
+MIDI_MEASURES = 90  # 162 s: 45 measures at 120 bpm, 45 at 150
+MIDI_CHECK_MEASURES = 4  # 8 s
 
 
 def emit(phase: str, **fields) -> None:
@@ -682,17 +710,101 @@ def library_scan(x, a, b) -> dict:
     return {"library_ms": None, "library_errors": errors}
 
 
+def fm_phase_calls(r) -> list:
+    """scan1's calls for the FM analogue's automated modulator phase, as
+    models/fm.modulator_phase makes them on the ratio voice's bucket:
+    (label, x, a, b, axis, mode). The in-block sums of [rows, nb, 64]
+    handed over as [rows, 64, nb] along axis 1 (block space) and the
+    block prefix [rows, nb] on the time axis; then the in-block sums on
+    the layout not taken, [rows, nb, 64] along its last axis (one
+    64-step lane a thread block), for the record."""
+    import torch
+
+    from groove_tpu_torch.models import fm
+    from groove_tpu_torch.ops.scan_kernels import LINEAR, scan1
+
+    u, b = "ratio-voice", "ratio-voice/b0"
+    span = r._buckets[u][0]
+    dev = r.device
+    ratio = fm._note_curve(r.inputs[f"{u}/auto/ratio"],
+                           r._host_on[f"{b}/on"], span)
+    f_c = r.inputs[f"{b}/hc/f1"][:, None]
+    inc = torch.div(ratio * f_c, torch.full((), float(r.c.sample_rate),
+                                            device=dev))
+    rows = inc.shape[0]
+    inc3 = inc.reshape(rows, span // fm.CBLOCK, fm.CBLOCK)
+    incl = fm.in_block_sums(inc3)
+    blk = incl[..., -1].contiguous()
+    return [
+        ("fm in-block sums, [rows, 64, nb] on axis 1",
+         inc3.transpose(1, 2), 1.0, 1.0, 1, LINEAR),
+        ("fm block prefix, [rows, nb]", blk, 1.0, 1.0, -1, LINEAR),
+        ("fm in-block sums, [rows, nb, 64] on its last axis (not taken)",
+         inc3, 1.0, 1.0, -1, LINEAR),
+    ]
+
+
+def fm_routes(r) -> list:
+    """Each FM bucket's phase route in Renderer r's plan: the ratio curve
+    (scan1), host phase tables, or traced phases past the tables' cap."""
+    out = []
+    for u, spans in r._buckets.items():
+        for j, span in enumerate(spans):
+            b = f"{u}/b{j}"
+            route = ("ratio curve (scan1)"
+                     if "ratio" in r.c.devices[u].automation
+                     else "host phase tables" if f"{b}/hc/phm" in r.inputs
+                     else "traced, past the tables' cap")
+            out.append({"device": u, "bucket": j, "span": span,
+                        "rows": int(r._host_on[f"{b}/on"].shape[0]),
+                        "route": route})
+    return out
+
+
+def bucket_peaks(r) -> list:
+    """Each note batch's own peak device bytes in one render of Renderer r
+    (its packet's or chunk's live intermediates, the synchronised peak
+    above what was allocated before it), over its elements (rows x
+    span): the quantity NOTE_PEAK_BYTES_PER_ELEM bounds."""
+    import torch
+
+    out = []
+    for name in ("_cascade_packet", "_chunked_mono"):
+        fn = getattr(r, name)
+
+        def call(inputs, b, *a, _fn=fn, _name=name, **kw):
+            span = a[1] if _name == "_cascade_packet" else a[0]
+            rows = int(r._host_on[f"{b}/on"].shape[0])
+            rows = min(rows, max(1, r.note_chunk_elems // span))
+            torch.cuda.synchronize(r.device)
+            torch.cuda.reset_peak_memory_stats(r.device)
+            base = torch.cuda.memory_allocated(r.device)
+            y = _fn(inputs, b, *a, **kw)
+            torch.cuda.synchronize(r.device)
+            peak = torch.cuda.max_memory_allocated(r.device) - base
+            out.append({"batch": b, "rows": rows, "span": span,
+                        "peak_bytes": peak,
+                        "bytes_per_element": peak / (rows * span)})
+            return y
+
+        setattr(r, name, call)
+    r.render()
+    return out
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 1
-    from groove_tpu_torch import cli
-    from groove_tpu_torch.compiler.song import compile_song
+    from groove_tpu_torch import cli, profile_offline
+    from groove_tpu_torch.compiler.song import compile_midi_file, \
+        compile_song
     import numpy as np
 
-    from groove_tpu_torch.engine.render import Renderer, note_chunk_cap
+    from groove_tpu_torch.engine.render import (NOTE_PEAK_BYTES_PER_ELEM,
+                                                Renderer, note_chunk_cap)
     from groove_tpu_torch.engine.stream import StreamingRenderer
     from groove_tpu_torch.io.wav import read_wav
     from groove_tpu_torch.kernels import build
@@ -733,6 +845,8 @@ def main() -> int:
     work = ROOT / "build" / "chip_smoke"
     shutil.rmtree(work, ignore_errors=True)
     assets = synth.write_assets(work / "assets")
+    synth.write_instrument_assets(assets)
+    synth.write_welsh_patches(assets)
     paths = Paths(roots=[assets])
     counters = (drums.LAUNCHES, iir_kernels.LAUNCHES, bk.LAUNCHES,
                 scan_kernels.LAUNCHES)
@@ -898,6 +1012,11 @@ def main() -> int:
                  shape=list(call[0].shape), ms=results[-1]["ms"], **lib)
             library["scan1"] = lib["library_ms"]
     del rk, bus_k
+    # scan1 at the 10-second FM analogue's modulator-phase shapes
+    rf = renderer(synth.fm_project, CHECK_MEASURES)
+    for label, *call in fm_phase_calls(rf):
+        results.append(scan_check(label, *call))
+    del rf
 
     # [64, 65536]: many rows through sweeps that rest near 25 Hz
     g = torch.Generator().manual_seed(0)
@@ -1129,6 +1248,16 @@ def main() -> int:
             emit("library", name="scan1", call=label, frames=rk.c.n_frames,
                  shape=list(call[0].shape), **lib)
     del rk, bus_k
+    # scan1 at the 3-minute FM analogue's modulator-phase shapes, against
+    # the twin too
+    rf = renderer(synth.fm_project, SONG_MEASURES)
+    for label, *call in fm_phase_calls(rf):
+        res = {**scan_check(label, *call), "frames": rf.c.n_frames,
+               "device_ms": graph_ms(lambda c=call: scan_kernels.scan1(*c))}
+        emit("kernel_at_song_size", **res)
+        require(res["bitwise"], f"scan1 differs from its twin at 3 "
+                f"minutes ({label}): {res['max_abs_err']}")
+    del rf
     # per-sample K6 alone and against its twin at the 3-minute size
     xps, ps = lp24_sweep(bus_b)
     ms, _ = cuda_ms(lambda: iir_kernels.lp24_cascade(xps, ps), 5)
@@ -1185,15 +1314,36 @@ def main() -> int:
         synth.kitchen_sink_project(SONG_MEASURES, SONG_BPM))
     files["perf-1"] = synth.write_project(
         work / "perf-1.json", synth.perf1_project(PERF1_MEASURES))
+    files["fm"] = synth.write_project(
+        work / "fm.json", synth.fm_project(SONG_MEASURES, SONG_BPM))
+    files["instruments"] = synth.write_project(
+        work / "instruments.json",
+        synth.instruments_project(SONG_MEASURES, SONG_BPM))
+    files["midi"] = work / "midi.mid"
+    files["midi"].write_bytes(synth.midi_song(MIDI_MEASURES, SONG_BPM))
     # perf-1's Welsh cascades: its Renderer's plan
     plan = Renderer(compile_song(SongSettings.from_project_file(
         files["perf-1"]), paths), dev)
     PER_RENDER["perf-1"] = {**PER_RENDER["perf-1"], **{
         k: v for k, v in plan.welsh_launches().items() if v}}
+    # FM's modulator-phase scans and each bucket's phase route
+    plan = Renderer(compile_song(SongSettings.from_project_file(
+        files["fm"]), paths), dev)
+    PER_RENDER["fm"] = plan.fm_launches()
+    routes = fm_routes(plan)
+    emit("fm_routes", buckets=routes, planned_per_render=PER_RENDER["fm"])
+    require({e["route"] for e in routes} == {
+        "ratio curve (scan1)", "host phase tables",
+        "traced, past the tables' cap"}, f"fm routes: {routes}")
+    # the MIDI file: K1 for the drum channel, its Welsh patches' cascades
+    plan = Renderer(compile_midi_file(files["midi"], paths), dev)
+    PER_RENDER["midi"] = {"drums": 1, **{
+        k: v for k, v in plan.welsh_launches().items() if v}}
     del plan
     os.environ["GROOVE_ASSETS"] = str(assets)
     totals = dict.fromkeys(launches(), 0)
     per_song = {}
+    peak_per_elem = {}  # song -> bucket_peaks of its note batches
     for name, path in files.items():
         zero_launches()
         torch.cuda.reset_peak_memory_stats(dev)
@@ -1208,18 +1358,52 @@ def main() -> int:
         wav = Path(perf[0]["wav"])
         audio, rate = read_wav(wav)
         per_song[name] = (perf[0], audio)
+        peak = torch.cuda.max_memory_allocated(dev)
         emit("slice", project=name, frames=perf[0]["frames"],
              seconds_of_audio=perf[0]["frames"] / rate,
              setup_s=perf[0]["setup_s"],
              first_render_s=perf[0]["first_render_s"],
              render_s=perf[0]["render_s"], xrt=perf[0]["xrt"],
-             max_memory_allocated=torch.cuda.max_memory_allocated(dev),
+             max_memory_allocated=peak,
              wav_bytes=wav.stat().st_size,
              wav_peak=float(abs(audio).max()),
-             launches={k: v for k, v in got.items() if v})
+             launches={k: v for k, v in got.items() if v},
+             planned_per_render=PER_RENDER[name])
         # --perf renders twice: once cold, once steady
         want = {k: 2 * PER_RENDER[name].get(k, 0) for k in got}
         require(got == want, f"{name} launched {got}, planned {want}")
+    # the FM analogue's steady render in synchronised stages (the
+    # scatter's share), as profile_offline stages it
+    fm_song = compile_song(SongSettings.from_project_file(files["fm"]), paths)
+    rf = Renderer(fm_song, dev)
+    rf.render_quantized()
+    staged_s, stages = profile_offline.staged_render(rf)
+    emit("stages", project="fm", staged_ms=staged_s * 1e3,
+         stages_ms={k: v * 1e3 for k, v in stages.items()},
+         scatter_share=stages["scatter"] / staged_s)
+    del rf
+    # each note batch's own peak bytes per element, of the FM analogue's
+    # and the MIDI file's buckets
+    for name, song in (("fm", fm_song),
+                       ("midi", compile_midi_file(files["midi"], paths))):
+        peak_per_elem[name] = bucket_peaks(Renderer(song, dev))
+        emit("bucket_peaks", project=name, batches=peak_per_elem[name])
+    # an instrument of a kind no renderer knows: a warning and silence
+    # (the device's toy plays 0.0, so the song is the CLI's WAV)
+    ri = Renderer(synth.unknown_instrument(compile_song(
+        SongSettings.from_project_file(files["instruments"]), paths)), dev)
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err):
+        q = ri.render_quantized()
+    warned = "unknown instrument kind mystery-instrument; silent" \
+        in err.getvalue()
+    same = bool(np.array_equal(
+        q, (per_song["instruments"][1] * 32768.0).round().astype(q.dtype)))
+    emit("check", project="instruments, an unknown instrument kind",
+         warned=warned, equals_the_cli_wav=same)
+    require(warned and same, "an unknown instrument kind did not warn "
+            "and render silence")
+    del ri, q
     # K9 is on no render path: the ops entry point iir.biquad_best with
     # per-sample coefficients, on the filter bank's output
     out = torch.from_numpy(per_song["filter-bank"][1].T.copy()).to(dev)
@@ -1317,18 +1501,25 @@ def main() -> int:
     wav = Path(perf[0]["wav"])
     audio, rate = read_wav(wav)
     per_song["welsh-offline"] = (perf[0], audio)
+    pad_elems = max(span * sum(c for _, c in members)
+                    for span, members in Renderer(wc, "cpu")._wm_plan)
     emit("slice", project="welsh-offline", frames=perf[0]["frames"],
          seconds_of_audio=perf[0]["frames"] / rate,
          setup_s=perf[0]["setup_s"],
          first_render_s=perf[0]["first_render_s"],
          render_s=perf[0]["render_s"], xrt=perf[0]["xrt"],
          max_memory_allocated=peak_bytes,
+         largest_bucket_elements=pad_elems,
+         peak_over_largest_bucket_elements=peak_bytes / pad_elems,
          wav_bytes=wav.stat().st_size, wav_peak=float(abs(audio).max()),
          launches={k: v for k, v in got.items() if v},
          planned_per_render=planned)
     # --perf renders twice: once cold, once steady
     want = {k: 2 * planned.get(k, 0) for k in got}
     require(got == want, f"welsh offline launched {got}, planned {want}")
+    peak_per_elem["welsh"] = bucket_peaks(Renderer(wc, dev))
+    emit("bucket_peaks", project="welsh-offline",
+         batches=peak_per_elem["welsh"])
     # K2 and K3 alone on the inputs of the song's packets, captured in a
     # render of their own (the copies stay out of the render's peak): the
     # whole call timed, and sampled rows held to the twin bit for bit
@@ -1348,6 +1539,17 @@ def main() -> int:
                 f"sampled rows differ from the twin: {res}")
     del cap, x, secs, y
 
+    # the card's element cap: NOTE_PEAK_BYTES_PER_ELEM must cover the
+    # largest bucket's peak bytes per element of every song measured
+    largest = {name: max(b["bytes_per_element"] for b in batches)
+               for name, batches in peak_per_elem.items()}
+    emit("element_cap", largest_bytes_per_element=largest,
+         note_peak_bytes_per_elem=NOTE_PEAK_BYTES_PER_ELEM,
+         note_chunk_elems=note_chunk_cap(dev))
+    require(max(largest.values()) <= NOTE_PEAK_BYTES_PER_ELEM,
+            f"peak bytes per element {largest} above the cap's "
+            f"{NOTE_PEAK_BYTES_PER_ELEM}")
+
     # ---- 5. outputs: right shape, audible, equal to the twins' render -----
     for name, (perf, audio) in per_song.items():
         require(audio.shape == (perf["frames"], 2),
@@ -1363,6 +1565,14 @@ def main() -> int:
         synth.kitchen_sink_project(CHECK_MEASURES, SONG_BPM))
     checks["perf-1-10s"] = synth.write_project(
         work / "perf-1-10s.json", synth.perf1_project(PERF1_CHECK_MEASURES))
+    checks["fm-10s"] = synth.write_project(
+        work / "fm-10s.json", synth.fm_project(CHECK_MEASURES, SONG_BPM))
+    checks["instruments-10s"] = synth.write_project(
+        work / "instruments-10s.json",
+        synth.instruments_project(CHECK_MEASURES, SONG_BPM))
+    checks["midi-10s"] = work / "midi-10s.mid"
+    checks["midi-10s"].write_bytes(synth.midi_song(MIDI_CHECK_MEASURES,
+                                                   SONG_BPM))
     card_cap = note_chunk_cap(dev)  # it decides how Welsh sums group
     for name, path in checks.items():
         if name in per_song:
@@ -1374,9 +1584,10 @@ def main() -> int:
                           perf_out=perf)
             require(rc == 0, f"cli failed on {name}")
             audio = read_wav(Path(perf[0]["wav"]))[0]
-        song = SongSettings.from_project_file(path)
+        compiled = compile_midi_file(path, paths) if path.suffix == ".mid" \
+            else compile_song(SongSettings.from_project_file(path), paths)
         t0 = time.perf_counter()
-        q_cpu = Renderer(compile_song(song, paths), device="cpu",
+        q_cpu = Renderer(compiled, device="cpu",
                          note_chunk_elems=card_cap).render_quantized()
         cpu_s = time.perf_counter() - t0
         q_gpu = (audio * 32768.0).round().astype(q_cpu.dtype)

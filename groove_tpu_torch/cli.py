@@ -5,15 +5,17 @@
     python -m groove_tpu_torch.cli <project> --wav --perf --stream \
         --sliced [--segment-frames 4096] [--stream-batch 8]
 
-The whole-timeline path of groove_tpu/cli.py: compile_song -> Renderer ->
+The whole-timeline path of groove_tpu/cli.py: compile_song (or, for a
+.mid/.midi input, compile_midi_file: channel 10 on the 707 drumkit, the
+other channels on Welsh patches by GM program) -> Renderer ->
 render_quantized -> 16-bit WAV, named like the input with .wav and placed
-next to it (or in --out-dir): drumkits and Welsh voices (welsh,
-welsh-raw) through the filter and stateless effects. --stream renders
-segment by segment (engine/stream.StreamingRenderer, int16 quantized on
-the device) and writes each segment into the WAV as it arrives; --sliced
-routes Welsh
+next to it (or in --out-dir): every instrument and effect kind of the
+reference. --stream renders segment by segment
+(engine/stream.StreamingRenderer, int16 quantized on the device) and
+writes each segment into the WAV as it arrives; --sliced routes Welsh
 voices to sliced rendering where it wins (the only streamed Welsh path
-ported). Assets are found through groove_tpu_torch.project.paths.Paths
+ported; other instruments and the stateful effects refuse a stream).
+Assets are found through groove_tpu_torch.project.paths.Paths
 ($GROOVE_ASSETS first). The reference CLI's other flags exit with "not
 ported yet".
 """
@@ -39,7 +41,8 @@ def build_parser() -> argparse.ArgumentParser:
         prog="groove-tpu-torch",
         description="Render Groove project files to WAV with PyTorch/CUDA.",
     )
-    p.add_argument("input", nargs="*", help="project files (JSON or JSON5)")
+    p.add_argument("input", nargs="*",
+                   help="project files (JSON, JSON5) or MIDI files")
     p.add_argument("-w", "--wav", action="store_true",
                    help="render as WAVE file(s) (appears next to source)")
     p.add_argument("-p", "--perf", action="store_true",
@@ -98,11 +101,6 @@ def main(argv=None, perf_out: list | None = None) -> int:
     paths = Paths()
     rc = 0
     for input_filename in args.input:
-        if input_filename.endswith((".mid", ".midi")):
-            print(f"error: {input_filename}: MIDI file import is not ported "
-                  "yet, see ROADMAP.md", file=sys.stderr)
-            rc = 1
-            continue
         try:
             perf = _process_file(input_filename, paths, args)
         except (OSError, ValueError, NotImplementedError) as e:
@@ -125,13 +123,18 @@ def _sync(device) -> None:
 
 def _process_file(input_filename: str, paths, args) -> dict:
     from groove_tpu_torch.project.schema import SongSettings
-    from groove_tpu_torch.compiler.song import compile_song
+    from groove_tpu_torch.compiler.song import compile_midi_file, \
+        compile_song
     from groove_tpu_torch.engine.render import Renderer
     from groove_tpu_torch.io.wav import write_wav_16bit_stereo
 
     t0 = time.perf_counter()
-    song = SongSettings.from_project_file(Path(input_filename))
-    compiled = compile_song(song, paths, sample_rate=args.sample_rate)
+    if input_filename.endswith((".mid", ".midi")):
+        compiled = compile_midi_file(Path(input_filename), paths,
+                                     sample_rate=args.sample_rate)
+    else:
+        song = SongSettings.from_project_file(Path(input_filename))
+        compiled = compile_song(song, paths, sample_rate=args.sample_rate)
     if args.stream:
         return _render_streamed(compiled, input_filename, args, t0)
     renderer = Renderer(compiled, device=args.device)

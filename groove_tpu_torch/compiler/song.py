@@ -4,8 +4,8 @@ Port of groove_tpu/compiler/song.py. The reference module imports
 models/sampler.py and models/voices.py, which import jax at the top, so
 this package carries its own copy: the same code over this package's
 copies of the host modules (compiler.events/automation/params, core,
-project) and its own sampler/voices. Standard MIDI File import
-(compile_midi_file) is not ported yet.
+project, io.midi_smf) and its own sampler/voices, Standard MIDI File
+import (compile_midi_file) included.
 
 This replaces the reference Orchestrator's dynamic entity store, MIDI bus,
 and control-link dispatch (orchestration/src/orchestrator.rs:34-775) with a
@@ -495,6 +495,48 @@ def compile_song(
         sidechain=sidechain,
         sends=sends,
     )
+
+
+def compile_midi_file(
+    path,
+    paths: Optional[Paths] = None,
+    sample_rate: int = 44100,
+) -> CompiledSong:
+    """Compile a Standard MIDI File into a renderable song.
+
+    The reference CLI accepts MIDI inputs (groove-cli.rs:27); instruments
+    follow GM conventions: channel 10 (0-based 9) -> 707 drumkit, other
+    channels -> Welsh patches via the GM program table
+    (settings/src/patches.rs:336-689 equivalent, io/midi_smf.py)."""
+    from groove_tpu_torch.io import midi_smf
+
+    smf = midi_smf.parse_smf(path)
+    events = midi_smf.smf_to_note_events(smf)
+    channels = sorted({e.channel for e in events})
+    devices = []
+    cables = []
+    for ch in channels:
+        uvid = f"midi-ch-{ch}"
+        if ch == 9:
+            devices.append({"instrument": [
+                uvid, {"drumkit": [{"midi-in": ch}, {"name": "707"}]}
+            ]})
+        else:
+            patch = midi_smf.gm_program_to_patch(smf.programs.get(ch, 0))
+            devices.append({"instrument": [
+                uvid, {"welsh": [{"midi-in": ch}, {"name": patch}]}
+            ]})
+        cables.append([uvid, "main-mixer"])
+    song = SongSettings.from_json({
+        "title": str(path),
+        "clock": {
+            "bpm": smf.bpm,
+            "time-signature": list(smf.time_signature),
+        },
+        "devices": devices,
+        "patch-cables": cables,
+    })
+    return compile_song(song, paths, sample_rate, events_override=events)
 
 
 def _topo_order(devices, sinks, sidechain, sends=()) -> list:

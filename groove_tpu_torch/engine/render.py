@@ -24,16 +24,29 @@ audio during buffer b and emits its control value in buffer b + 1 — a
 one-block delay, reproduced by shifting the derived per-block curve right
 by one block.
 
-Ported so far: drumkits at the song's sample rate; welsh and welsh-raw
-voices (a voice-less device renders silence); every effect kind of the
-reference: mixer, passthrough, gain, limiter, bitcrusher, compressor,
-delay, chorus, reverb, toy, and every filter-* effect — static, automated
+FM voices render the same way without a cascade: each device's notes
+are bucketed by span, each bucket renders its windows (models/fm.py; a
+`ratio` curve integrates the modulator phase on the first-order scan
+kernel) in row chunks of the element cap and sums them into the
+timeline; the carrier frequencies and, where no `ratio` curve varies the
+modulator and a bucket is within fm.HOST_PHASE_MAX_ELEMS, the mod-1
+phase tables are host data. The sampler, the calculator and a drumkit at
+another sample rate resample their table rows into [notes, 2, span]
+windows (models/sampler.render_notes); the envelope instrument renders
+[notes, span] sine windows; the oscillator and the toy instrument play
+for the whole song (models/simple.py).
+
+Every instrument and effect kind of the reference renders: drumkits
+(K1 at the song's rate), Welsh and FM voices, the sampler, the
+calculator, the oscillator, the envelope and toy instruments; mixer,
+passthrough, gain, limiter, bitcrusher, compressor, delay, chorus,
+reverb, toy, and every filter-* effect — static, automated
 (host-designed coefficient curves) or sidechain-driven (coefficients
 designed on the device from the sidechain's per-block values). The
 compressor's follower and the reverb's combs and all-passes run on the
-first-order scan kernel (ops/scan_kernels.py). An unknown effect kind
-warns and passes through, as the reference's does. Every other
-instrument kind raises NotImplementedError: nothing falls silent.
+first-order scan kernel (ops/scan_kernels.py). An unknown instrument
+kind warns and renders silence, an unknown effect kind warns and passes
+through, as the reference's do.
 """
 
 from __future__ import annotations
@@ -48,10 +61,15 @@ from groove_tpu_torch.compiler.song import MAIN_MIXER_UVID, CompiledSong, \
     DeviceIR
 from groove_tpu_torch.engine.params import inputs_from_numpy
 from groove_tpu_torch.io.wav import quantize_16bit
+from groove_tpu_torch.models import fm as fm_model
+from groove_tpu_torch.models import sampler as sampler_model
 from groove_tpu_torch.models import simple as simple_model
 from groove_tpu_torch.models import welsh as welsh_model
-from groove_tpu_torch.models.voices import bucket_notes, scatter_notes
+from groove_tpu_torch.models.voices import (bucket_notes, note_freqs,
+                                            scatter_notes, span_for,
+                                            time_base)
 from groove_tpu_torch.ops import delayfx, drums, dynamics, effects, iir
+from groove_tpu_torch.ops import oscillator as osc_ops
 from groove_tpu_torch.ops.dca import pan_gains
 
 BLOCK = SAMPLE_BUFFER_SIZE
@@ -81,10 +99,6 @@ def warn_static_only(dev) -> None:
         if str(wf) == "noise":
             warn(f"automation of oscillator.frequency ({dev.uvid}) has no "
                  f"effect on the noise waveform; the trip is ignored")
-
-
-def not_ported(kind: str) -> NotImplementedError:
-    return NotImplementedError(f"{kind}: not ported yet, see ROADMAP.md")
 
 
 def _upsample_block(curve: torch.Tensor, n: int) -> torch.Tensor:
@@ -190,26 +204,28 @@ def compute_filter_fidelity(compiled) -> dict:
     return out
 
 
-# The element cap of one Welsh voice batch (rows x span): it bounds the
-# voice pipeline's peak memory, and it decides how the timeline's sums
+# The element cap of one Welsh or FM note batch (rows x span): it bounds
+# the voice pipeline's peak memory, and it decides how the timeline's sums
 # group (a bucket over it renders in row chunks, each chunk's scatter
 # added in turn). The CPU keeps the reference's CPU cap, so the twins
 # group exactly as groove_tpu's CPU run does. A card gets a quarter of its
-# memory over NOTE_PEAK_BYTES_PER_ELEM, the peak device bytes per element
-# of the largest bucket of a render (its live [rows, span] intermediates:
-# phases, waveforms, the float64 sine, the mix, the gained input, the
-# cascade's output and scratch, the amp envelope): measured 49.0 on an
-# H100 (4.05 GB for the 3-minute Welsh analogue's 720 x 114816 pad bucket,
-# chip_smoke.py's welsh-offline line). That holds a whole bucket of a
-# long song in one launch (some 430M elements on an 80 GB card). The
-# reference sizes its accelerator cap the same way for its own memory (12
-# x 16M elements x ~5 live arrays, a quarter of a 16 GB card).
+# memory over NOTE_PEAK_BYTES_PER_ELEM, the largest peak device bytes per
+# element that one batch's own live intermediates reach above what was
+# allocated before it (chip_smoke.py's bucket_peaks), measured on an
+# NVIDIA H100 80GB HBM3 at 700.00 W: a Welsh voice with noise 72.0 (the
+# Welsh analogue's lead, 629 x 81664, and the MIDI analogue's, 720 x
+# 80768: the threefry noise's int64 words), a Welsh voice without 28.0
+# (the pad, 720 x 114816), FM 32.0 (each bucket of the FM analogue, the
+# largest 360 x 123648). That holds a whole bucket of a long song in one
+# launch (some 290M elements on an 80 GB card). The reference sizes its
+# accelerator cap the same way for its own memory (12 x 16M elements x ~5
+# live arrays, a quarter of a 16 GB card).
 NOTE_CHUNK_ELEMS_CPU = 16_000_000
-NOTE_PEAK_BYTES_PER_ELEM = 49
+NOTE_PEAK_BYTES_PER_ELEM = 73
 
 
 def note_chunk_cap(device) -> int:
-    """The Welsh batch cap for `device` (see NOTE_PEAK_BYTES_PER_ELEM)."""
+    """The note-batch cap for `device` (see NOTE_PEAK_BYTES_PER_ELEM)."""
     device = torch.device(device)
     if device.type != "cuda":
         return NOTE_CHUNK_ELEMS_CPU
@@ -223,8 +239,8 @@ class Renderer:
     inputs: optional host (numpy) input dict to render from instead of
     this Renderer's own collection — e.g. groove_tpu's Renderer.inputs
     converted to numpy; see engine/params.inputs_from_numpy.
-    note_chunk_elems: the element cap of one Welsh voice batch (rows x
-    span); None takes note_chunk_cap(device)."""
+    note_chunk_elems: the element cap of one Welsh or FM note batch (rows
+    x span); None takes note_chunk_cap(device)."""
 
     def __init__(self, compiled: CompiledSong, device, inputs=None,
                  note_chunk_elems: int | None = None):
@@ -234,6 +250,9 @@ class Renderer:
                                     if note_chunk_elems is None
                                     else note_chunk_elems)
         self.host_inputs: dict[str, np.ndarray] = {}
+        self._spans: dict[str, int] = {}
+        self._buckets: dict[str, list] = {}
+        self._osc_phase: dict[str, np.ndarray] = {}
         self._collect_inputs()
         self._collect_effect_filters()
         self._plan_filters()
@@ -241,8 +260,11 @@ class Renderer:
         # note-on frames stay on the host too: the timeline scatter loops
         # over them without waiting for the device
         self._host_on = {k: np.asarray(v) for k, v in source.items()
-                         if k.startswith("wm/") and k.endswith("/on")}
+                         if k.endswith("/on")}
         self.inputs = inputs_from_numpy(source, self.device)
+        # host constants the reference traces into its program rather
+        # than ship as inputs: automated oscillators' integrated phases
+        self._consts = inputs_from_numpy(self._osc_phase, self.device)
 
     # ---- host-side input collection --------------------------------------
 
@@ -259,7 +281,15 @@ class Renderer:
             warn_static_only(dev)
             for pname, curve in dev.automation.items():
                 if dev.kind == "oscillator" and pname == "frequency":
-                    continue  # consumed host-side by the reference
+                    # consumed host-side: the integrated phase (a no-op
+                    # for noise), not an input
+                    wf, _ = osc_ops.parse_waveform(dev.params)
+                    if wf != "noise":
+                        self._osc_phase[dev.uvid] = \
+                            simple_model.oscillator_phase_automated(
+                                curve, self.c.n_frames,
+                                float(self.c.sample_rate))
+                    continue
                 self.host_inputs[f"{dev.uvid}/auto/{pname}"] = curve
         self._collect_welsh_merged(welsh_devs)
 
@@ -338,38 +368,103 @@ class Renderer:
             else:
                 self.host_inputs[f"{u}/fc/coefs"] = np.stack(designed[1])
 
+    def _tail_seconds(self, dev: DeviceIR) -> float:
+        """How long a note of `dev` sounds past its gate (reference
+        :380-392)."""
+        if dev.kind in WELSH and dev.voice is not None:
+            return welsh_model.tail_seconds(dev.voice)
+        if dev.kind == "fm-synthesizer":
+            return fm_model.tail_seconds(dev.voice)
+        if dev.kind in ("drumkit", "calculator"):
+            # one-shots play to the sample end regardless of gate
+            return float(dev.sample_table.lengths.max()) / self.c.sample_rate
+        if dev.kind == "envelope":
+            return float(dev.params.get("release", 0.0))
+        return 0.0  # the sampler is gated; other kinds have no tail
+
     def _collect_instrument(self, dev: DeviceIR) -> None:
-        if dev.kind != "drumkit" and dev.kind not in WELSH:
-            raise not_ported(dev.kind)
+        """The host inputs of an instrument outside the merged-Welsh path
+        (groove_tpu/engine/render.py:373-470), key for key and bit for
+        bit: its note columns, window span, FM span buckets with their
+        host frequencies and phase tables, sample tables and ratios, the
+        at-rate drumkit's K1 layout, the envelope's host frequencies."""
         notes = dev.notes
         if notes.count == 0:
             return
         sr = self.c.sample_rate
-        if dev.kind == "drumkit" \
-                and not all(int(x) == sr for x in dev.sample_table.rates):
-            raise not_ported("drumkit with a sample rate other than the "
-                             "song's")
         gate = notes.off_frames - notes.on_frames
+        tail = self._tail_seconds(dev)
+        span = span_for(int(gate.max()), tail, sr)
+        # a window never usefully exceeds the timeline (scatter_notes
+        # crops past n_frames)
+        span = min(span, -(-self.c.n_frames // 128) * 128)
         u = dev.uvid
+        self._spans[u] = span
         h = self.host_inputs
+        if dev.kind == "fm-synthesizer" and dev.voice is not None:
+            self._collect_fm(dev, gate, tail)
+            return
         h[f"{u}/keys"] = notes.keys
         h[f"{u}/vels"] = notes.vels
         h[f"{u}/on"] = notes.on_frames
         h[f"{u}/gate"] = gate.astype(np.int32)
-        if dev.kind in WELSH:
-            return  # a Welsh device without a voice: silence
+        if dev.kind == "envelope":
+            h[f"{u}/hc/f1"] = np.asarray(note_freqs(notes.keys), np.float32)
+        if dev.sample_table is None:
+            return
         h[f"{u}/table"] = dev.sample_table.data
         h[f"{u}/lengths"] = dev.sample_table.lengths
         h[f"{u}/rates"] = dev.sample_table.rates
         h[f"{u}/slots"] = dev.slots
-        h[f"{u}/ptable"] = drums.prepare_table(dev.sample_table.data)
-        one_shot = np.full(notes.count, 2**30, np.int64)
-        meta = drums.prepare_hits(dev.slots, notes.on_frames, one_shot,
-                                  notes.vels, dev.sample_table.lengths,
-                                  self.c.n_frames)
-        for name, arr in zip(("hcounts", "hslots", "hstarts", "hshifts",
-                              "hlimits", "hvels"), meta):
-            h[f"{u}/{name}"] = arr
+        if dev.kind == "sampler":
+            h[f"{u}/ratios"] = np.asarray(sampler_model.sampler_ratios(
+                notes.keys, float(dev.params.get("root", 440.0))),
+                np.float32)
+        if self._at_rate_kit(dev):
+            h[f"{u}/ptable"] = drums.prepare_table(dev.sample_table.data)
+            one_shot = np.full(notes.count, 2**30, np.int64)
+            meta = drums.prepare_hits(dev.slots, notes.on_frames, one_shot,
+                                      notes.vels, dev.sample_table.lengths,
+                                      self.c.n_frames)
+            for name, arr in zip(("hcounts", "hslots", "hstarts",
+                                  "hshifts", "hlimits", "hvels"), meta):
+                h[f"{u}/{name}"] = arr
+
+    def _at_rate_kit(self, dev: DeviceIR) -> bool:
+        """A drumkit whose every sample is at the song's rate: its hits
+        sum straight into the timeline on K1."""
+        return dev.kind == "drumkit" and all(
+            int(r) == self.c.sample_rate for r in dev.sample_table.rates)
+
+    def _collect_fm(self, dev: DeviceIR, gate, tail: float) -> None:
+        """FM's per-device span buckets (a drone must not make every
+        short note render a drone-length window): each bucket's note
+        columns, its global note ids, host carrier Hz and, without a
+        `ratio` curve, host phase tables at the BUCKET's span (reference
+        :402-435)."""
+        notes = dev.notes
+        sr = self.c.sample_rate
+        u = dev.uvid
+        h = self.host_inputs
+        need = gate.astype(np.int64) + int(np.ceil(tail * sr)) + 1
+        buckets = bucket_notes(need, self.c.n_frames,
+                               launch_rows=self.WELSH_LAUNCH_ROWS)
+        self._buckets[u] = [s for s, _ in buckets]
+        for j, (bspan, idx) in enumerate(buckets):
+            b = f"{u}/b{j}"
+            h[f"{b}/keys"] = notes.keys[idx]
+            h[f"{b}/vels"] = notes.vels[idx]
+            h[f"{b}/on"] = notes.on_frames[idx]
+            h[f"{b}/gate"] = gate[idx].astype(np.int32)
+            h[f"{b}/ids"] = idx.astype(np.int32)
+            h[f"{b}/hc/f1"] = np.asarray(
+                note_freqs(np.asarray(notes.keys[idx])), np.float32)
+            if "ratio" not in dev.automation:
+                php = fm_model.host_phases(dev.voice, notes.keys[idx],
+                                           int(bspan), float(sr))
+                if php is not None:
+                    for nm, arr in php.items():
+                        h[f"{b}/hc/{nm}"] = arr
 
     def _plan_filters(self) -> None:
         self._filter_modes = compute_filter_fidelity(self.c)
@@ -421,7 +516,7 @@ class Renderer:
             b = f"wm/b{j}/{uvid}"
             mono = self._cascade_packet(inputs, b, uvid, span, fid, n) \
                 if kind == "packet" \
-                else self._chunked_mono(inputs, b, uvid, span, fid, n)
+                else self._welsh_chunked(inputs, b, uvid, span, fid, n)
             monos[uvid] = monos.get(uvid, self._mono_zeros(n)) + mono
         return monos
 
@@ -432,38 +527,47 @@ class Renderer:
               if k.startswith(prefix)}
         return hc or None
 
-    def _chunked_mono(self, inputs, b: str, uvid: str, span: int, fid,
-                      n: int) -> torch.Tensor:
+    def _chunked_mono(self, inputs, b: str, span: int, n: int,
+                      render) -> torch.Tensor:
         """Render one bucket's notes in row chunks of the cap and sum each
-        chunk's scatter into the timeline (the reference's chunk scan; its
-        padded last chunk adds exact zeros, a short one here adds none).
-        Per-note host-control rows chunk with the notes, tables pass
-        whole."""
-        dev = self.c.devices[uvid]
-        sr = float(self.c.sample_rate)
+        chunk's scatter into the timeline (the reference's chunk scan;
+        its padded last chunk adds exact zeros, a short one here adds
+        none). render(lo, hi, hc) -> mono windows [hi - lo, span] of rows
+        lo:hi, hc the bucket's host-control arrays with their per-note
+        rows cut to lo:hi (tables pass whole)."""
         ctl = self._hc_for(inputs, b) or {}
-        prev = inputs.get(f"{b}/prev")
         on = self._host_on[f"{b}/on"]
         chunks = self._chunk_rows(int(on.shape[0]), span)
 
-        def render(lo: int, hi: int) -> torch.Tensor:
+        def one(lo: int, hi: int) -> torch.Tensor:
             hc = {k: v[lo:hi] if k in welsh_model.HOST_CTL_PER_NOTE else v
                   for k, v in ctl.items()}
-            notes = welsh_model.render_notes(
-                dev.voice, inputs[f"{b}/keys"][lo:hi],
+            return scatter_notes(render(lo, hi, hc or None), on[lo:hi], n)
+
+        if len(chunks) == 1:
+            return one(*chunks[0])
+        mono = self._mono_zeros(n)
+        for lo, hi in chunks:
+            mono = mono + one(lo, hi)
+        return mono
+
+    def _welsh_chunked(self, inputs, b: str, uvid: str, span: int, fid,
+                       n: int) -> torch.Tensor:
+        """A Welsh bucket over the cap: whole render_notes per chunk."""
+        voice = self.c.devices[uvid].voice
+        sr = float(self.c.sample_rate)
+        prev = inputs.get(f"{b}/prev")
+
+        def render(lo: int, hi: int, hc) -> torch.Tensor:
+            return welsh_model.render_notes(
+                voice, inputs[f"{b}/keys"][lo:hi],
                 inputs[f"{b}/vels"][lo:hi], inputs[f"{b}/gate"][lo:hi],
                 span, sr, refine_filter=fid,
                 note_ids=inputs[f"{b}/ids"][lo:hi],
                 prev_keys=None if prev is None else prev[lo:hi],
-                host_ctl=hc or None)
-            return scatter_notes(notes, on[lo:hi], n)
+                host_ctl=hc)
 
-        if len(chunks) == 1:
-            return render(*chunks[0])
-        mono = self._mono_zeros(n)
-        for lo, hi in chunks:
-            mono = mono + render(lo, hi)
-        return mono
+        return self._chunked_mono(inputs, b, span, n, render)
 
     def _cascade_packet(self, inputs, b: str, uvid: str, span: int, fid,
                         n: int) -> torch.Tensor:
@@ -499,14 +603,28 @@ class Renderer:
 
     def _render_instrument(self, inputs, dev: DeviceIR, n: int,
                            welsh_monos: dict):
-        if dev.kind != "drumkit" and dev.kind not in WELSH:
-            raise not_ported(dev.kind)
+        """One instrument -> stereo [2, n] (groove_tpu/engine/render.py:
+        675-816)."""
+        if dev.kind == "oscillator":
+            mono = self._render_oscillator(dev, n)
+            return torch.stack([mono, mono])
+        if dev.kind == "toy-instrument":
+            mono = simple_model.toy_instrument(
+                float(dev.params.get("fake-value", 0.0)), n, self.device)
+            return torch.stack([mono, mono])
         if dev.notes is None or dev.notes.count == 0:
             return self._zeros(n)
         u = dev.uvid
-        if dev.kind in WELSH:
+        if dev.kind in WELSH or dev.kind == "fm-synthesizer":
             if dev.voice is None:
                 return self._zeros(n)
+            if dev.kind == "fm-synthesizer":
+                mono = self._render_fm(inputs, dev, n)
+                left, right = pan_gains(
+                    self._param(inputs, dev, "pan", dev.voice.pan, n),
+                    self.device)
+                g = self._param(inputs, dev, "gain", dev.voice.gain, n)
+                return torch.stack([mono * left * g, mono * right * g])
             mono = welsh_monos.get(u, self._mono_zeros(n))
             # the voice DCA (centre pan) then the synth DCA with its
             # pan/gain automation
@@ -515,11 +633,101 @@ class Renderer:
                                self.device)
             g = self._param(inputs, dev, "gain", 1.0, n)
             return torch.stack([mono * lv * ls * g, mono * rv * rs * g])
-        return drums.accumulate_hits(
-            inputs[f"{u}/ptable"], inputs[f"{u}/hcounts"],
-            inputs[f"{u}/hslots"], inputs[f"{u}/hstarts"],
-            inputs[f"{u}/hshifts"], inputs[f"{u}/hlimits"],
-            inputs[f"{u}/hvels"], n_frames=n)
+        sr = float(self.c.sample_rate)
+        span = self._spans[u]
+        on = self._host_on[f"{u}/on"]
+        if dev.kind in ("drumkit", "sampler", "calculator"):
+            if self._at_rate_kit(dev):
+                return drums.accumulate_hits(
+                    inputs[f"{u}/ptable"], inputs[f"{u}/hcounts"],
+                    inputs[f"{u}/hslots"], inputs[f"{u}/hstarts"],
+                    inputs[f"{u}/hshifts"], inputs[f"{u}/hlimits"],
+                    inputs[f"{u}/hvels"], n_frames=n)
+            gate = inputs[f"{u}/gate"]
+            if dev.kind == "sampler":
+                ratios = inputs[f"{u}/ratios"]
+            else:
+                gate = torch.full_like(gate, span)  # one-shot
+                ratios = inputs.get(f"{u}/ratios")
+                if ratios is None:
+                    ratios = torch.ones(dev.notes.count, dtype=torch.float32,
+                                        device=self.device)
+            stereo_notes = sampler_model.render_notes(
+                inputs[f"{u}/table"], inputs[f"{u}/lengths"],
+                inputs[f"{u}/rates"], inputs[f"{u}/slots"], ratios, gate,
+                inputs[f"{u}/vels"], span, sr)
+            return scatter_notes(stereo_notes, on, n)
+        if dev.kind == "envelope":
+            adsr = (float(dev.params.get("attack", 0.0)),
+                    float(dev.params.get("decay", 0.0)),
+                    float(dev.params.get("sustain", 1.0)),
+                    float(dev.params.get("release", 0.0)))
+            mono_notes = simple_model.envelope_instrument(
+                adsr, inputs[f"{u}/keys"], inputs[f"{u}/vels"],
+                inputs[f"{u}/gate"], span, sr,
+                freqs=inputs.get(f"{u}/hc/f1"))
+            mono = scatter_notes(mono_notes, on, n)
+            return torch.stack([mono, mono])
+        warn(f"unknown instrument kind {dev.kind}; silent")
+        return self._zeros(n)
+
+    def _render_oscillator(self, dev: DeviceIR, n: int) -> torch.Tensor:
+        """The always-on oscillator -> mono [n]: the integrated host phase
+        of an automated frequency (a no-op for noise), else the static
+        frequency on the host time base; noise from ops/prng.py."""
+        sr = float(self.c.sample_rate)
+        wf, pw = osc_ops.parse_waveform(dev.params)
+        if dev.uvid in self._consts:
+            phase = self._consts[dev.uvid]
+            return osc_ops.pulse_width(phase, pw) if wf == "pulse-width" \
+                else osc_ops.evaluate(wf, phase)
+        freq = float(dev.params.get("frequency", 440.0))
+        if wf == "pulse-width":
+            t = time_base(n, sr, self.device)
+            return osc_ops.pulse_width(freq * t, pw)
+        return simple_model.oscillator_instrument(wf, freq, n, sr,
+                                                  device=self.device)
+
+    def _render_fm(self, inputs, dev: DeviceIR, n: int) -> torch.Tensor:
+        """One FM device -> mono [n]: each span bucket in row chunks of the
+        cap (_chunked_mono), its ratio/depth/beta automation sliced at
+        each note's absolute position, the host carrier Hz and phase
+        tables where shipped."""
+        u = dev.uvid
+        sr = float(self.c.sample_rate)
+        ac = {nm: inputs[f"{u}/auto/{nm}"] for nm in ("ratio", "depth", "beta")
+              if f"{u}/auto/{nm}" in inputs}
+        mono = self._mono_zeros(n)
+        for j, span in enumerate(self._buckets[u]):
+            b = f"{u}/b{j}"
+            on = self._host_on[f"{b}/on"]
+
+            def render(lo: int, hi: int, hc, b=b, span=span, on=on):
+                return fm_model.render_notes(
+                    dev.voice, inputs[f"{b}/keys"][lo:hi],
+                    inputs[f"{b}/vels"][lo:hi], inputs[f"{b}/gate"][lo:hi],
+                    span, sr, on_frames=on[lo:hi], ratio_b=ac.get("ratio"),
+                    depth_b=ac.get("depth"), beta_b=ac.get("beta"),
+                    freqs=None if hc is None else hc.get("f1"),
+                    phases=hc if hc and "phm" in hc else None)
+
+            mono = mono + self._chunked_mono(inputs, b, span, n, render)
+        return mono
+
+    def fm_launches(self) -> dict:
+        """scan1 launches of one render by the FM voices, from the plan:
+        a device with a `ratio` curve integrates its modulator phase in
+        each chunk of each bucket, two launches where the span is a
+        multiple of 64 (every planned span is), else one."""
+        count = 0
+        for u, spans in self._buckets.items():
+            if "ratio" not in self.c.devices[u].automation:
+                continue
+            for j, span in enumerate(spans):
+                rows = int(self._host_on[f"{u}/b{j}/on"].shape[0])
+                per = 2 if span % fm_model.CBLOCK == 0 else 1
+                count += per * len(self._chunk_rows(rows, span))
+        return {"scan1": count}
 
     def _apply_effect(self, inputs, dev: DeviceIR, x, n: int, overrides):
         k = dev.kind

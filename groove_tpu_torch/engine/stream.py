@@ -37,7 +37,6 @@ from groove_tpu_torch.compiler.song import CompiledSong, DeviceIR, \
     MAIN_MIXER_UVID
 from groove_tpu_torch.core.time import SAMPLE_BUFFER_SIZE
 from groove_tpu_torch.engine.params import inputs_from_numpy
-from groove_tpu_torch.engine.render import not_ported
 from groove_tpu_torch.io.wav import quantize_16bit
 from groove_tpu_torch.models import welsh as welsh_model
 from groove_tpu_torch.ops import effects, iir, prng
@@ -50,6 +49,10 @@ STATELESS_EFFECTS = ("mixer", "signal-passthrough-controller", "gain",
                      "limiter", "bitcrusher")
 # state layout -> the stream kernel that carries it (iir_kernels.LAUNCHES)
 STATE_KERNEL = {"p4": "lp24_stream", "p20": "lp24_refined_stream"}
+
+
+def not_ported(kind: str) -> NotImplementedError:
+    return NotImplementedError(f"{kind}: not ported yet, see ROADMAP.md")
 
 
 def channel_symmetric(c: "CompiledSong") -> bool:

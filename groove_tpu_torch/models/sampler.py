@@ -1,11 +1,20 @@
-"""Sampler and drumkit host loaders (port of groove_tpu/models/sampler.py).
+"""Sampler and drumkit: pitched and one-shot sample playback (port of
+groove_tpu/models/sampler.py, its offline half).
 
-A kit's samples live in one [slots, 2, max_len] f32 table; each hit
-plays its slot's row from its note-on frame, masked at the sample's
-length and scaled by velocity / 127. The loaders are numpy (host data
-for compile_song); accumulate_oneshots is the plain torch timeline sum.
-On the render path the drumkit goes through the hand kernel instead
-(ops/drums.py)."""
+A kit's samples live in one [slots, 2, max_len] f32 table. A drumkit at
+the song's rate plays each hit's row from its note-on frame, masked at
+the sample's length and scaled by velocity / 127: accumulate_oneshots is
+the plain torch timeline sum, and the render path takes the hand kernel
+instead (ops/drums.py). The sampler, the calculator and a drumkit at
+another rate resample: render_notes gathers every note's table row and
+reads it at pos = j * ratio * rate / sample_rate with linear
+interpolation -> [notes, 2, span] windows, as the reference does. The
+loaders and sampler_ratios are numpy (host data for compile_song and the
+Renderer's inputs).
+
+Device-independent bits: the rate correction is a true division by a
+float32 tensor and the velocity scale divides the same way; the rest is
+float32 multiplies, adds and integer gathers."""
 
 from __future__ import annotations
 
@@ -122,6 +131,59 @@ def assign_drum_slots(keys: np.ndarray, note_slots: dict) -> np.ndarray:
         slots[i] = rr[c % len(rr)]
         counters[k] = c + 1
     return slots
+
+
+def render_notes(table_data: torch.Tensor, table_lengths: torch.Tensor,
+                 table_rates: torch.Tensor, slots, ratios, gate_frames, vels,
+                 span: int, sample_rate: float) -> torch.Tensor:
+    """Resampled playback -> stereo [n_notes, 2, span] on table_data's
+    device. slots [n] (-1 is silent), ratios [n] playback-rate ratios,
+    gate_frames [n] (a one-shot passes span), vels [n]. Each note gathers
+    its table row [2, max_len], then its window at the interpolation
+    positions."""
+    device = table_data.device
+    slots = torch.as_tensor(slots).to(device=device, dtype=torch.int64)
+    safe = torch.clamp_min(slots, 0)
+    ratios = torch.as_tensor(ratios).to(device=device, dtype=torch.float32)
+    sr = torch.full((), float(np.float32(sample_rate)), dtype=torch.float32,
+                    device=device)
+    # source-rate correction: a sample recorded at 48k played in a 44.1k
+    # render steps faster through the table
+    rate_fix = torch.div(table_rates[safe].to(torch.float32), sr)
+    step = (ratios * rate_fix)[:, None]                         # [n, 1]
+    t_idx = torch.arange(span, dtype=torch.float32, device=device)[None, :]
+    pos = t_idx * step                                          # [n, span]
+    i0 = torch.floor(pos).to(torch.int64)
+    frac = (pos - i0.to(torch.float32))[:, None, :]             # [n, 1, span]
+    del pos
+    length = table_lengths[safe].to(torch.int64)[:, None]       # [n, 1]
+    valid = (i0 + 1 < length) & (slots[:, None] >= 0)           # [n, span]
+    gate = t_idx < torch.as_tensor(gate_frames).to(
+        device=device, dtype=torch.float32)[:, None]
+    mask = (valid & gate)[:, None, :]                           # [n, 1, span]
+    del valid, gate
+    i0c = torch.clamp(i0, 0, table_data.shape[-1] - 2)
+    del i0
+    per_note = table_data[safe]                                 # [n, 2, max_len]
+    idx = i0c[:, None, :].expand(slots.shape[0], 2, span)       # [n, 2, span]
+    a = torch.gather(per_note, -1, idx)
+    b = torch.gather(per_note, -1, idx + 1)
+    del per_note, idx, i0c
+    out = a * (1.0 - frac) + b * frac
+    del a, b, frac
+    out = out * mask
+    v = torch.as_tensor(vels).to(device=device, dtype=torch.float32)
+    return out * torch.div(v, torch.full((), 127.0, dtype=torch.float32,
+                                         device=device))[:, None, None]
+
+
+def sampler_ratios(keys, root: float) -> np.ndarray:
+    """Playback-rate ratios [n] f32 of MIDI keys against the root (Hz, or
+    a MIDI note below 128), host numpy float64 rounded once: the
+    reference's arithmetic exactly."""
+    keys = np.asarray(keys, np.float64)
+    freqs = 440.0 * np.exp2((keys - 69.0) / 12.0)  # voices.note_freqs
+    return (freqs / root_frequency(root)).astype(np.float32)
 
 
 def accumulate_oneshots(table_data: torch.Tensor, table_lengths, slots,

@@ -2,12 +2,31 @@
 
 The host helpers compile_song needs are numpy and copy the reference's
 arithmetic exactly; scatter_notes is the torch form of the timeline
-scatter."""
+scatter; f32 and time_base give the voices their true divisors and host
+time bases on the device."""
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+
+def f32(v, device) -> torch.Tensor:
+    """A float32 tensor on `device` (a Python number becomes a 0-dim
+    tensor: a true divisor on every device)."""
+    if torch.is_tensor(v):
+        return v.to(device=device, dtype=torch.float32)
+    if np.ndim(v):
+        return torch.as_tensor(np.asarray(v, np.float32), device=device)
+    return torch.full((), float(np.float32(v)), dtype=torch.float32,
+                      device=device)
+
+
+def time_base(n: int, sample_rate: float, device) -> torch.Tensor:
+    """[n] seconds: the host literal np.arange(n) / np.float32(sr), as a
+    true division on the device (its bits)."""
+    return torch.div(torch.arange(n, dtype=torch.float32, device=device),
+                     f32(sample_rate, device))
 
 
 def note_freqs(keys):

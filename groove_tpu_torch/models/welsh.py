@@ -50,7 +50,7 @@ from groove_tpu_torch.ops import iir_kernels
 from groove_tpu_torch.ops import oscillator as osc_ops
 from groove_tpu_torch.ops import prng
 from groove_tpu_torch.project.patches import WelshVoiceParams
-from groove_tpu_torch.models.voices import note_freqs
+from groove_tpu_torch.models.voices import f32 as _f32, note_freqs
 
 LN_BASE = float(np.log(T.FREQUENCY_TO_LINEAR_BASE))
 LN_COEF = float(np.log(T.FREQUENCY_TO_LINEAR_COEFFICIENT))
@@ -423,17 +423,6 @@ def _sh_cycles(lfo, span: int, sample_rate: float) -> int:
 
 # ---------------------------------------------------------------------------
 # Shared voice-formula terms (torch, on the render's device)
-
-
-def _f32(v, device) -> torch.Tensor:
-    """A float32 tensor on `device` (a Python number becomes a 0-dim
-    tensor: a true divisor on every device)."""
-    if torch.is_tensor(v):
-        return v.to(device=device, dtype=torch.float32)
-    if np.ndim(v):
-        return torch.as_tensor(np.asarray(v, np.float32), device=device)
-    return torch.full((), float(np.float32(v)), dtype=torch.float32,
-                      device=device)
 
 
 def _make_lfo_value(lfo, n_cycles: int, noise_seed: int, device):

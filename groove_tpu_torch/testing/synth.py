@@ -36,12 +36,34 @@ perf1_project is an analogue of perf-1 (BASELINE.md: two Welsh synths, a
 drumkit and an arpeggiator at BPM 1024 through gain, limiter, reverb,
 bitcrusher and filter chains): two inline welsh-raw voices with short
 envelopes (PERF1_PAD, PERF1_LEAD), the lead played by an arpeggiator
-over held chords."""
+over held chords.
+
+fm_project is an analogue of the FM synth demos
+(fm-synthesizer-beta-*.json): three inline FM voices, a pad of chords
+under a beta trip, a sparse lead under a depth trip and a voice in
+quarters under a ratio trip, which between them take the three routes of
+the modulator phase (FM_PAD, FM_LEAD, FM_RATIO).
+
+instruments_project is an analogue of the instrument demos: every other
+instrument kind into the main mixer through gains (INSTRUMENT_LEVELS):
+the 707 kit written at 48 kHz (write_assets(kit=KIT_48K,
+sample_rate=48000)), a sampler on a 48 kHz WAV (write_sampler_wav), the
+calculator on a synthetic pocket-calculator-24 bank
+(write_calculator_bank), sine, sawtooth with a frequency trip,
+pulse-width and noise oscillators, an envelope chord line, the toy
+instrument, and UNKNOWN_UVID, a silent toy instrument with notes whose
+kind a caller may replace by an unknown one (unknown_instrument).
+
+smf_bytes writes a Standard MIDI File (format 0 or 1) from tracks of
+(tick, event bytes); midi_song is an analogue of a MIDI file import: a
+drum channel and two GM programs with a tempo change, whose programs
+map to the Welsh patches write_welsh_patches writes (MIDI_PATCHES)."""
 
 from __future__ import annotations
 
 import json
 import math
+import struct
 from pathlib import Path
 
 import numpy as np
@@ -75,10 +97,11 @@ def _burst(rng, name: str, n: int, sample_rate: int) -> np.ndarray:
 
 
 def write_assets(root, seed: int = 0, sample_rate: int = 44100,
-                 max_seconds: float = 1.5) -> Path:
-    """Write the synthetic 707 kit under `root`; returns `root`."""
+                 max_seconds: float = 1.5, kit: str = "707") -> Path:
+    """Write the synthetic 707 kit under `root` as drumkit `kit` (its
+    WAVs at `sample_rate`); returns `root`."""
     root = Path(root)
-    kit = root / KIT_DIR
+    kit = root / KIT_DIR.parent / kit
     kit.mkdir(parents=True, exist_ok=True)
     rng = np.random.default_rng(seed)
     for name in sorted(set(GM_707_MAP.values())):
@@ -441,3 +464,312 @@ def write_project(path, project: dict) -> Path:
     path = Path(path)
     path.write_text(json.dumps(project, indent=1))
     return path
+
+
+# ---- FM analogue -----------------------------------------------------------
+
+def _fm_voice(ratio: float, depth: float, beta: float, gain: float,
+              carrier: dict, modulator: dict) -> dict:
+    return {"gain": gain, "pan": 0.0, "ratio": ratio, "depth": depth,
+            "beta": beta, "carrier-envelope": carrier,
+            "modulator-envelope": modulator}
+
+
+# pad: chords under a beta trip 0 -> 20; lead: sparse eighths under a depth
+# trip; ratio voice: quarters under a ratio trip 1 -> 3.5
+FM_PAD = _fm_voice(2.0, 1.0, 0.0, 0.05,
+                   {"attack": 0.05, "decay": 0.6, "sustain": 0.7,
+                    "release": 0.8},
+                   {"attack": 0.2, "decay": 1.0, "sustain": 0.5,
+                    "release": 0.8})
+FM_LEAD = _fm_voice(3.0, 0.5, 4.0, 0.12,
+                    {"attack": 0.005, "decay": 0.1, "sustain": 0.6,
+                     "release": 0.1},
+                    {"attack": 0.01, "decay": 0.2, "sustain": 0.4,
+                     "release": 0.1})
+FM_RATIO = _fm_voice(1.0, 1.0, 2.5, 0.1,
+                     {"attack": 0.01, "decay": 0.2, "sustain": 0.5,
+                      "release": 0.3},
+                     {"attack": 0.01, "decay": 0.3, "sustain": 0.6,
+                      "release": 0.3})
+FM_TRIPS = {"pad": ("beta", 0.0, 20.0), "lead": ("depth", 0.1, 1.5),
+            "ratio-voice": ("ratio", 1.0, 3.5)}
+
+
+def _path(path_id: str, low: float, high: float, measures: int,
+          kind: str = "slope") -> dict:
+    """A path from `low` to `high` over the song, one step a measure."""
+    return {"id": path_id, "note-value": "whole", "steps": [
+        {kind: {"start": low + (high - low) * k / measures,
+                "end": low + (high - low) * (k + 1) / measures}}
+        for k in range(measures)]}
+
+
+def _song(title: str, bpm: float, devices, cables, patterns, tracks,
+          trips=()) -> dict:
+    paths, trip_list = [], []
+    for uvid, (param, low, high, measures) in trips:
+        pid = f"{uvid}-{param}"
+        paths.append(_path(pid, low, high, measures))
+        trip_list.append({"id": f"trip-{pid}", "paths": [pid],
+                          "target": {"id": uvid, "param": param}})
+    return {"title": title, "clock": {"bpm": bpm, "time-signature": [4, 4]},
+            "devices": devices, "patch-cables": cables,
+            "patterns": patterns, "tracks": tracks, "paths": paths,
+            "trips": trip_list}
+
+
+def fm_project(measures: int = 1, bpm: float = 120.0) -> dict:
+    """Three fm-synthesizer voices into the main mixer: the pad (4-note
+    chords, a whole note each, channel 0) under a beta trip, the lead
+    (eighths on the first half of each measure, channel 1) under a depth
+    trip, and the ratio voice (quarters, channel 2) under a ratio trip.
+    At 90 measures the pad's one span bucket is past
+    fm.HOST_PHASE_MAX_ELEMS (its phases are traced), the lead's is within
+    it (host phase tables) and the ratio voice integrates its modulator
+    phase; at a few measures both the pad and the lead ship tables."""
+    rng = np.random.default_rng(1)
+    chords = [(48, 55, 60, 64), (53, 57, 60, 65), (45, 52, 57, 60),
+              (43, 50, 55, 59)]
+    scale = [60, 62, 64, 67, 69, 72, 74, 76]
+    patterns = []
+    for k, c in enumerate(chords):
+        patterns.append({"id": f"fm-pad-{k}", "note-value": "whole",
+                         "notes": [[key] for key in c]})
+        line = [int(x) for x in rng.choice(scale, 4)] + [0] * 4
+        patterns.append({"id": f"fm-lead-{k}", "note-value": "eighth",
+                         "notes": [line]})
+        patterns.append({"id": f"fm-ratio-{k}", "note-value": "quarter",
+                         "notes": [[int(x) - 12 for x in
+                                    rng.choice(scale, 4)]]})
+    voices = {"pad": (0, FM_PAD), "lead": (1, FM_LEAD),
+              "ratio-voice": (2, FM_RATIO)}
+    devices = [{"instrument": [uvid, {"fm-synthesizer": [
+        {"midi-in": ch}, dict(voice)]}]}
+        for uvid, (ch, voice) in voices.items()]
+    cables = [[uvid, "main-mixer"] for uvid in voices]
+    names = {"pad": "fm-pad", "lead": "fm-lead", "ratio-voice": "fm-ratio"}
+    tracks = [{"id": f"{uvid}-track", "midi-channel": ch,
+               "patterns": [f"{names[uvid]}-{k % 4}"
+                            for k in range(measures)]}
+              for uvid, (ch, _) in voices.items()]
+    trips = [(uvid, (param, low, high, measures))
+             for uvid, (param, low, high) in FM_TRIPS.items()]
+    return _song("fm analogue", bpm, devices, cables, patterns, tracks,
+                 trips)
+
+
+# ---- instruments analogue --------------------------------------------------
+
+KIT_48K = "707-48k"
+CALCULATOR_DIR = Path("samples") / "pocket-calculator-24"
+SAMPLER_WAV = "synthetic-sampler-48k.wav"
+UNKNOWN_UVID = "mystery"
+# device -> the gain its chain takes into the main mixer
+INSTRUMENT_LEVELS = {
+    "kit48": 0.6, "sampler": 0.3, "calculator": 0.3, "osc-sine": 0.02,
+    "osc-saw": 0.015, "osc-pulse": 0.01, "osc-noise": 0.01,
+    "envelope": 0.08, "toy": 0.5, UNKNOWN_UVID: 1.0,
+}
+
+
+def write_calculator_bank(root, seed: int = 2, sample_rate: int = 44100,
+                          sounds: int = 24) -> Path:
+    """A synthetic pocket-calculator-24 bank under `root`: `sounds` short
+    beeps (0.05-0.25 s, 400-2400 Hz) named in sorted order."""
+    root = Path(root)
+    bank = root / CALCULATOR_DIR
+    bank.mkdir(parents=True, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    for i in range(sounds):
+        n = int(rng.uniform(0.05, 0.25) * sample_rate)
+        t = np.arange(n) / sample_rate
+        tone = np.sin(2.0 * np.pi * rng.uniform(400.0, 2400.0) * t)
+        x = (0.4 * tone * np.exp(-t * 12.0))[:, None].repeat(2, 1)
+        write_wav_16bit_stereo(bank / f"beep-{i:02d}.wav",
+                               x.astype(np.float32), sample_rate)
+    return root
+
+
+def write_sampler_wav(root, seed: int = 3, sample_rate: int = 48000,
+                      seconds: float = 1.2) -> str:
+    """A decaying harmonic tone at A4 under `root`/samples, recorded at
+    `sample_rate`; returns its name for a sampler's `filename`."""
+    path = Path(root) / "samples" / SAMPLER_WAV
+    path.parent.mkdir(parents=True, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    n = int(seconds * sample_rate)
+    t = np.arange(n) / sample_rate
+    x = sum(rng.uniform(0.2, 1.0) / h * np.sin(2.0 * np.pi * 440.0 * h * t)
+            for h in range(1, 6))
+    x = x * np.exp(-t * 2.5)
+    x = 0.5 * x / np.max(np.abs(x))
+    stereo = np.stack([x, 0.9 * x], 1).astype(np.float32)
+    write_wav_16bit_stereo(path, stereo, sample_rate)
+    return SAMPLER_WAV
+
+
+def write_instrument_assets(root, seed: int = 1) -> Path:
+    """The instruments analogue's assets under `root`: the 707 kit at 48
+    kHz (KIT_48K), the calculator bank and the sampler WAV."""
+    write_assets(root, seed, sample_rate=48000, max_seconds=0.6,
+                 kit=KIT_48K)
+    write_calculator_bank(root)
+    write_sampler_wav(root)
+    return Path(root)
+
+
+def instruments_project(measures: int = 1, bpm: float = 120.0) -> dict:
+    """Every instrument kind but the Welsh and FM voices, each through a
+    gain (INSTRUMENT_LEVELS) into the main mixer: the 48 kHz kit
+    (channel 9, the north star's beat), the sampler (channel 2, quarters
+    around its root), the calculator (its own jingle on channel 4), the
+    sine (220 Hz), sawtooth (frequency trip 100 -> 400 Hz), pulse-width
+    (0.3 at 330 Hz) and noise oscillators, the envelope instrument (3-note
+    chords in half notes, channel 3), the toy instrument, and the silent
+    UNKNOWN_UVID toy with notes on channel 6."""
+    beat = north_star_project(1, bpm)["patterns"][0]
+    rng = np.random.default_rng(4)
+    patterns = [beat,
+                {"id": "samp", "note-value": "quarter",
+                 "notes": [[int(x) for x in rng.choice(
+                     [57, 60, 64, 67, 69, 72], 4)]]},
+                {"id": "env", "note-value": "half",
+                 "notes": [[60, 65], [64, 69], [67, 72]]},
+                {"id": "myst", "note-value": "half",
+                 "notes": [[60, 62]]}]
+    inst = {
+        "kit48": {"drumkit": [{"midi-in": 9}, {"name": KIT_48K}]},
+        "sampler": {"sampler": [{"midi-in": 2},
+                                {"filename": SAMPLER_WAV, "root": 69}]},
+        "osc-sine": {"oscillator": {"waveform": "sine", "frequency": 220.0,
+                                    "midi-in": 7}},
+        "osc-saw": {"oscillator": {"waveform": "sawtooth",
+                                   "frequency": 150.0, "midi-in": 7}},
+        "osc-pulse": {"oscillator": {"waveform": {"pulse-width": 0.3},
+                                     "frequency": 330.0, "midi-in": 7}},
+        "osc-noise": {"oscillator": {"waveform": "noise", "midi-in": 7}},
+        "envelope": {"envelope": {"attack": 0.05, "decay": 0.2,
+                                  "sustain": 0.6, "release": 0.4,
+                                  "midi-in": 3}},
+        "toy": {"toy-instrument": {"fake-value": 0.05, "midi-in": 8}},
+        UNKNOWN_UVID: {"toy-instrument": {"fake-value": 0.0,
+                                          "midi-in": 6}},
+    }
+    devices = [{"instrument": [u, body]} for u, body in inst.items()]
+    devices.append({"controller": ["calculator", {"calculator": [
+        {"midi-in": 4, "midi-out": 4}, {"clock": {"bpm": bpm}}]}]})
+    cables = []
+    for uvid, level in INSTRUMENT_LEVELS.items():
+        devices.append({"effect": [f"{uvid}-level",
+                                   {"gain": {"ceiling": level}}]})
+        cables.append([uvid, f"{uvid}-level", "main-mixer"])
+    tracks = [{"id": "kit-track", "midi-channel": 9,
+               "patterns": ["beat"] * measures},
+              {"id": "samp-track", "midi-channel": 2,
+               "patterns": ["samp"] * measures},
+              {"id": "env-track", "midi-channel": 3,
+               "patterns": ["env"] * measures},
+              {"id": "myst-track", "midi-channel": 6,
+               "patterns": ["myst"] * measures}]
+    lo, hi = _trip_value(100.0), _trip_value(400.0)
+    trips = [("osc-saw", ("frequency", lo, hi, measures))]
+    return _song("instruments analogue", bpm, devices, cables, patterns,
+                 tracks, trips)
+
+
+def unknown_instrument(compiled, kind: str = "mystery-instrument"):
+    """Give UNKNOWN_UVID an instrument kind no renderer knows (a project
+    file cannot name one: the schema refuses it); returns `compiled`."""
+    compiled.devices[UNKNOWN_UVID].kind = kind
+    return compiled
+
+
+# ---- Standard MIDI Files ---------------------------------------------------
+
+def _varint(v: int) -> bytes:
+    out = [v & 0x7F]
+    v >>= 7
+    while v:
+        out.append(0x80 | (v & 0x7F))
+        v >>= 7
+    return bytes(reversed(out))
+
+
+def smf_bytes(tracks, division: int = 480, fmt: int = 1) -> bytes:
+    """A Standard MIDI File: tracks are lists of (absolute tick, event
+    bytes with their status byte); each track ends with End of Track."""
+    if fmt == 0 and len(tracks) != 1:
+        raise ValueError("a format-0 file holds one track")
+    out = b"MThd" + struct.pack(">IHHH", 6, fmt, len(tracks), division)
+    for track in tracks:
+        data, last = b"", 0
+        for tick, ev in sorted(track, key=lambda e: e[0]):
+            data += _varint(tick - last) + bytes(ev)
+            last = tick
+        data += _varint(0) + b"\xff\x2f\x00"
+        out += b"MTrk" + struct.pack(">I", len(data)) + data
+    return out
+
+
+def tempo_event(tick: int, bpm: float):
+    us = int(round(60_000_000 / bpm))
+    return tick, b"\xff\x51\x03" + us.to_bytes(3, "big")
+
+
+def note_events(channel: int, key: int, vel: int, on: int, off: int):
+    return [(on, bytes([0x90 | channel, key, vel])),
+            (off, bytes([0x80 | channel, key, 0]))]
+
+
+# GM programs of midi_song's two melodic channels -> the patches
+# gm_program_to_patch names for them, written by write_welsh_patches
+MIDI_PROGRAMS = {0: 0, 1: 81}   # channel -> program (piano, new-age-lead)
+MIDI_PATCHES = {"piano": WELSH_PAD, "new-age-lead": WELSH_LEAD}
+
+
+def write_welsh_patches(root, patches=None) -> Path:
+    """Welsh patch files patches/welsh/<name>.json under `root`."""
+    d = Path(root) / "patches" / "welsh"
+    d.mkdir(parents=True, exist_ok=True)
+    for name, voice in (patches or MIDI_PATCHES).items():
+        (d / f"{name}.json").write_text(json.dumps({"name": name,
+                                                    **voice}))
+    return Path(root)
+
+
+def midi_song(measures: int = 4, bpm: float = 120.0, fmt: int = 1,
+              division: int = 480) -> bytes:
+    """A MIDI file analogue: the north star's beat on channel 9, 3-note
+    chords (program 0) on channel 0 a half note each, a melody in eighths
+    (program 81) on channel 1, 4/4, and a tempo change to 1.25 x `bpm`
+    half-way. Format 1: a tempo track and one track a channel; format 0:
+    one track."""
+    q = division
+    tempo = [tempo_event(0, bpm), (0, b"\xff\x58\x04\x04\x02\x18\x08"),
+             tempo_event((measures // 2) * 4 * q, bpm * 1.25)]
+    drums, pads, lead = [], [], []
+    kick_snare_hat = {0: 36, 4: 42, 8: 38, 12: 42}
+    rng = np.random.default_rng(5)
+    chords = [(48, 55, 60), (53, 57, 60), (45, 52, 57), (43, 50, 55)]
+    for m in range(measures):
+        base = m * 4 * q
+        for step in range(16):
+            key = kick_snare_hat.get(step % 16, 42 if step % 2 == 0 else 0)
+            if key:
+                t = base + step * q // 4
+                drums += note_events(9, key, 100, t, t + q // 8)
+        for half in range(2):
+            t = base + half * 2 * q
+            for key in chords[(2 * m + half) % 4]:
+                pads += note_events(0, key, 10, t, t + 2 * q - 10)
+        for e in range(8):
+            t = base + e * q // 2
+            key = int(rng.choice([60, 62, 64, 67, 69, 72]))
+            lead += note_events(1, key, 25, t, t + q // 2 - 20)
+    progs = [(0, bytes([0xC0 | ch, prog]))
+             for ch, prog in MIDI_PROGRAMS.items()]
+    if fmt == 0:
+        return smf_bytes([tempo + progs + drums + pads + lead], division, 0)
+    return smf_bytes([tempo, [progs[0]] + pads, [progs[1]] + lead, drums],
+                     division, 1)

@@ -15,10 +15,11 @@ and a captured graph, the first-order scan (csrc/scan1.cu: both modes,
 number, per-element and row-broadcast coefficients, the time axis and
 block space, lengths off its chunk, a lane of many chained blocks, products
 of a through denormals, lane counts on both sides of the layouts' border,
-calls queued back to back, a captured graph replayed), plus
-short renders of the slices, of a streamed Welsh song and of the same
-song offline, and of the kitchen-sink and perf-1 analogues, on the card
-against the same renders on the CPU.
+calls queued back to back, a captured graph replayed; the FM modulator
+phase's shapes), plus short renders of the slices, of a streamed Welsh
+song and of the same song offline, of the kitchen-sink and perf-1
+analogues, of the FM and instruments analogues and of a MIDI file, on
+the card against the same renders on the CPU.
 
 These tests need an NVIDIA GPU (marker `cuda`; they skip without one) and
 import no jax, so the machine with the card runs them:
@@ -844,3 +845,75 @@ def test_effect_analogues_on_card_equal_cpu(cuda_device, tmp_path, make,
     on_card = r.render()
     assert scan_kernels.LAUNCHES["scan1"] - before == scans
     assert np.array_equal(on_card, Renderer(compiled, "cpu").render())
+
+
+# ---- FM, the other instruments and SMF import (offline) --------------------
+
+@pytest.mark.parametrize("shape,axis", [((6, 64, 553), 1), ((6, 553), -1),
+                                        ((1440, 64, 31), 1),
+                                        ((360, 40000), -1)],
+                         ids=["in-block", "block-prefix", "few-blocks",
+                              "flat"])
+def test_scan1_at_the_fm_phase_shapes(cuda_device, shape, axis):
+    """The modulator phase's sums (models/fm.modulator_phase): the in-block
+    sums of [rows, nb, 64] handed over as [rows, 64, nb] along axis 1
+    (block space; 31 blocks take the time axis), the block prefix
+    [rows, nb] and a flat row, with a = 1 by value: kernel = twin."""
+    rng = np.random.default_rng(13)
+    x = torch.from_numpy(rng.uniform(0.0, 0.05, shape).astype(np.float32))
+    if axis == 1:
+        x = x.transpose(1, 2).contiguous().transpose(1, 2)
+    before = scan_kernels.LAUNCHES["scan1"]
+    y = scan_kernels.scan1(x.to(cuda_device), 1.0, axis=axis)
+    torch.cuda.synchronize()
+    assert scan_kernels.LAUNCHES["scan1"] == before + 1
+    assert torch.equal(y.cpu(), scan_kernels.scan1(x, 1.0, axis=axis))
+
+
+def test_fm_render_with_a_ratio_curve_on_card_equals_cpu(cuda_device):
+    """The FM analogue (3 s: host tables, and a ratio curve integrated on
+    scan1) on the card, whole and in row chunks of a small cap: the CPU
+    twins' render bit for bit, scan1 launched as planned."""
+    compiled = compile_song(SongSettings.from_json(synth.fm_project(2)),
+                            Paths(roots=[]))
+    for cap in (None, 200_000):
+        r = Renderer(compiled, cuda_device, note_chunk_elems=cap)
+        before = scan_kernels.LAUNCHES["scan1"]
+        on_card = r.render()
+        assert scan_kernels.LAUNCHES["scan1"] - before == \
+            r.fm_launches()["scan1"] >= 2
+        cpu = Renderer(compiled, "cpu", note_chunk_elems=r.note_chunk_elems)
+        assert np.array_equal(on_card, cpu.render())
+
+
+def test_instruments_on_card_equal_cpu(cuda_device, tmp_path):
+    """The instruments analogue (4 s: the 48 kHz kit, sampler, calculator,
+    oscillators with a frequency trip and noise, envelope, toy) on the
+    card = the CPU twins' render bit for bit; K1 is not launched (the kit
+    resamples)."""
+    assets = synth.write_instrument_assets(tmp_path)
+    compiled = compile_song(SongSettings.from_json(
+        synth.instruments_project(2)), Paths(roots=[assets]))
+    before = drums.LAUNCHES["drums"]
+    on_card = Renderer(compiled, cuda_device).render()
+    assert drums.LAUNCHES["drums"] == before
+    assert np.abs(on_card).max() > 0.05
+    assert np.array_equal(on_card, Renderer(compiled, "cpu").render())
+
+
+def test_midi_file_on_card_equals_cpu(cuda_device, tmp_path):
+    """An 8 s MIDI file (drum channel: K1; two GM programs: Welsh patches
+    on K2/K3) on the card = the CPU twins' render bit for bit."""
+    from groove_tpu_torch.compiler.song import compile_midi_file
+
+    assets = synth.write_welsh_patches(synth.write_assets(
+        tmp_path, max_seconds=0.4))
+    path = tmp_path / "song.mid"
+    path.write_bytes(synth.midi_song(4))
+    compiled = compile_midi_file(path, Paths(roots=[assets]))
+    r = Renderer(compiled, cuda_device)
+    before = drums.LAUNCHES["drums"]
+    on_card = r.render()
+    assert drums.LAUNCHES["drums"] == before + 1
+    cpu = Renderer(compiled, "cpu", note_chunk_elems=r.note_chunk_elems)
+    assert np.array_equal(on_card, cpu.render())

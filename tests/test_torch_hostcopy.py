@@ -1,6 +1,6 @@
 """groove_tpu_torch imports nothing of groove_tpu or jax, and its copies of
 groove_tpu's host modules (core/, project/, the compiler's events,
-automation and params, io/wav's reader and writers) are held to their
+automation and params, io/midi_smf, io/wav's reader and writers) are held to their
 originals: the same code statement for statement (imports renamed, the
 documented departures listed below), and the same results on the same
 projects, patterns, automation and WAV files.
@@ -44,6 +44,7 @@ COPIES = {
     "compiler/events.py": (),
     "compiler/automation.py": (),
     "compiler/params.py": ("to_domain_array",),
+    "io/midi_smf.py": (),
 }
 WAV_FUNCTIONS = ("_chunk_to_i2", "write_wav_16bit_stereo",
                  "write_wav_16bit_stereo_stream", "read_wav")

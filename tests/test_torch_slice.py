@@ -363,28 +363,29 @@ def test_pointwise_effects_match(param):
 
 # ---- what is not ported raises --------------------------------------------
 
+def _with_oscillator(p: dict) -> dict:
+    p["devices"].append({"instrument": ["osc", {"oscillator": {
+        "waveform": "sine", "frequency": 220.0}}]})
+    p["patch-cables"].append(["osc", "main-mixer"])
+    return p
+
+
 @pytest.mark.parametrize("case", ["oscillator", "reverb", "compressor"])
 def test_unported_parts_raise(assets, case):
-    """An oscillator instrument offline, and the stateful effects in a
-    streamed render (their streamed forms are not ported; offline they
-    render, tests/test_torch_effects.py)."""
-    if case == "oscillator":
-        p = synth.north_star_project()
-        p["devices"].append({"instrument": ["osc", {"oscillator": {
-            "waveform": "sine", "frequency": 220.0}}]})
-        p["patch-cables"].append(["osc", "main-mixer"])
-        song = SongSettings.from_json(p)
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            Renderer(compile_song(song, Paths(roots=[assets])),
-                     "cpu").render()
-        return
+    """An oscillator instrument and the stateful effects in a streamed
+    render (their streamed forms are not ported; offline they render,
+    tests/test_torch_instruments.py and tests/test_torch_effects.py)."""
     from groove_tpu_torch.engine.stream import StreamingRenderer
 
     p = synth.welsh_project(1, 240.0)
-    params = ({"attenuation": 0.5, "seconds": 0.2} if case == "reverb"
-              else {"threshold": 0.5, "ratio": 4.0})
-    p["devices"].append({"effect": ["fx", {case: params}]})
-    p["patch-cables"] = [["pad", "fx", "main-mixer"], ["lead", "main-mixer"]]
+    p["patch-cables"] = [["pad", "main-mixer"], ["lead", "main-mixer"]]
+    if case == "oscillator":
+        p = _with_oscillator(p)
+    else:
+        params = ({"attenuation": 0.5, "seconds": 0.2} if case == "reverb"
+                  else {"threshold": 0.5, "ratio": 4.0})
+        p["devices"].append({"effect": ["fx", {case: params}]})
+        p["patch-cables"][0] = ["pad", "fx", "main-mixer"]
     sliced = type("Sliced", (StreamingRenderer,), {"WELSH_SLICED": True})
     c = compile_song(SongSettings.from_json(p), Paths())
     with pytest.raises(NotImplementedError,
@@ -401,14 +402,20 @@ def test_cli_refuses_unported_flags(flag):
 
 def test_cli_reports_unported_project(assets, tmp_path, monkeypatch,
                                       capsys):
-    p = synth.north_star_project()
-    p["devices"].append({"instrument": ["osc", {"oscillator": {
-        "waveform": "sine", "frequency": 220.0}}]})
-    p["patch-cables"].append(["osc", "main-mixer"])
+    """A streamed oscillator is not ported: the CLI reports it and goes
+    on (exit 1); offline the same project renders."""
+    p = _with_oscillator({
+        "title": "oscillator", "clock": {"bpm": 240.0},
+        "devices": [], "patch-cables": [],
+        "patterns": [{"id": "p", "note-value": "whole", "notes": [[60]]}],
+        "tracks": [{"id": "t", "midi-channel": 0, "patterns": ["p"]}]})
     path = synth.write_project(tmp_path / "oscillator.json", p)
     monkeypatch.setenv("GROOVE_ASSETS", str(assets))
-    assert cli.main([str(path), "--device", "cpu"]) == 1
-    assert "oscillator: not ported yet" in capsys.readouterr().err
+    assert cli.main([str(path), "--stream", "--sliced", "--device",
+                     "cpu"]) == 1
+    assert "oscillator in a streamed render: not ported yet" in \
+        capsys.readouterr().err
+    assert cli.main([str(path), "--device", "cpu"]) == 0
 
 
 def test_cli_writes_the_render(assets, tmp_path, monkeypatch):
