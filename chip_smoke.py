@@ -8,9 +8,14 @@ K1 (drums), K2 (refined lp24), K3 (lp24, block-rate denominators), K6
 (lp24, per-sample or static denominators), K4/K5/K9 (one biquad section
 with block-rate, static or per-sample coefficients), the serial scan,
 K7/K8 (K3/K2 with carried state: the sliced Welsh cascades, one launch of
-csrc/lp24_stream.cu per call) and scan1 (csrc/scan1.cu, the first-order
+csrc/lp24_stream.cu per call), scan1 (csrc/scan1.cu, the first-order
 scans of the compressor's follower, the reverb's combs and all-passes,
-and FM's automated modulator phase).
+and FM's automated modulator phase), and the unsliced segment-streamed
+render's carried-state kernels S1 (csrc/scan_stream.cu: the follower's
+peak hold and one-pole), S2 (csrc/comb_stream.cu: the reverb's combs and
+all-passes), S3 (csrc/biquad.cu biquad_tiled_state: one filter section
+at 64-frame blocks) and S4 (csrc/serial.cu biquad_serial_state: the
+serial scan), each with its state carried in and out.
 
     python3 chip_smoke.py
 
@@ -121,6 +126,21 @@ Phases, one JSON line each:
      10-second kitchen-sink, perf-1, FM and instruments analogues and an
      8-second MIDI file through the CLI against the CPU twins' renders,
      bit for bit.
+  6. (run before 5's checks, which include its WAVs) the unsliced
+     segment-streamed render (groove_tpu_torch.engine.stream,
+     every instrument and effect kind with its carried state): S1-S4
+     against their twins bit for bit at a 10-second and a 3-minute shape
+     (the 3-minute S4 against its twin on its last 10 seconds from the
+     state the kernel carried there), many chained calls equal to one
+     call, each alone beside its bound, torch's associative_scan beside
+     S1 (library); the 3-minute kitchen-sink and filter-bank analogues
+     through `cli --wav --perf --stream` at the default 262144-frame
+     segments (launches against the renderer's plan: x realtime, set-up,
+     peak device memory); the 10-second kitchen-sink, instruments, FM,
+     sidechain and filter-bank analogues streamed on the card at one
+     segment and at 4096-frame segments (the same bits), their CLI WAVs
+     equal to the CPU twins' (0 LSB); a `--loop` bounce on the card equal
+     to the CPU twins' bounce.
 Then the kernel summary line, the nvidia-smi line, and the result line.
 Without a CUDA device it exits non-zero before printing any result.
 Synthetic assets and outputs go to build/chip_smoke/ in this checkout.
@@ -185,11 +205,26 @@ KERNELS = {
     # iir.one_pole's associative scan (and dynamics.max_decay's, :46)
     "scan1": ("groove_tpu_torch/csrc/scan1.cu",
               "groove_tpu/ops/iir.py:630"),
+    # the XLA scans of groove_tpu/ops/stream.py (no Pallas kernel there):
+    # one_pole_stream (and max_decay_stream, :385), comb_feedback_stream
+    # (and its automated form, :275, and allpass_stream, :302),
+    # biquad_stream, biquad_serial_stream
+    "scan_stream": ("groove_tpu_torch/csrc/scan_stream.cu",
+                    "groove_tpu/ops/stream.py:114"),
+    "comb_stream": ("groove_tpu_torch/csrc/comb_stream.cu",
+                    "groove_tpu/ops/stream.py:253"),
+    "biquad_stream": ("groove_tpu_torch/csrc/biquad.cu",
+                      "groove_tpu/ops/stream.py:44"),
+    "biquad_serial_stream": ("groove_tpu_torch/csrc/serial.cu",
+                             "groove_tpu/ops/stream.py:63"),
 }
 KIND = {"lp24_refined": "K2", "lp24": "K3", "lp24_cascade": "K6",
         "biquad_blockrate": "K4", "biquad_scalar": "K5",
         "biquad_per_sample": "K9", "biquad_serial": "serial",
-        "lp24_stream": "K7", "lp24_refined_stream": "K8", "scan1": "scan1"}
+        "lp24_stream": "K7", "lp24_refined_stream": "K8", "scan1": "scan1",
+        "scan_stream": "S1", "comb_stream": "S2", "biquad_stream": "S3",
+        "biquad_serial_stream": "S4"}
+STREAM_SEGMENT = 262144  # the CLI's default segment (frames)
 STREAM_KERNELS = ("lp24_stream", "lp24_refined_stream")
 WELSH_SEGMENT = 4096  # the sliced render's segment (frames)
 WELSH_AT = 40        # the segment of the 10-second song held to the twins
@@ -291,7 +326,8 @@ def iir_work(kind: str, rows: int, n: int, coef_bytes: float,
     combine); per ln-block 8 in phase 2. A section's chain is 2 dependent
     operations per in-block step and 3 per phase-2 step; the serial
     scan's is 4 per sample (9 operations). K7 and K8 are K3 and K2 with
-    ln pinned to 64. A cascade's chains can run as a wavefront along time
+    ln pinned to 64, S3 is K4/K5 with ln pinned to 64 and S4 the serial
+    scan, both with the state (s1, s2) carried. A cascade's chains can run as a wavefront along time
     (chain j needs its predecessor only up to the block it has reached),
     so the function's dependency chain is one chain of nb steps and every
     pass's in-block scans, whatever the row's length and however a
@@ -299,14 +335,14 @@ def iir_work(kind: str, rows: int, n: int, coef_bytes: float,
     from groove_tpu_torch.ops.iir_kernels import CBLOCK, geometry
 
     io = 2.0 * rows * n * 4 + coef_bytes + 2.0 * rows * state_rows * 4
-    if kind == "serial":
+    if kind in ("serial", "S4"):
         return io, 9.0 * rows * n, 4.0 * n
-    if kind in ("K7", "K8"):
+    if kind in ("K7", "K8", "S3"):
         ln, nb = CBLOCK, n // CBLOCK
     else:
         ln, nb, _ = geometry(n, blockrate=kind in ("K2", "K3", "K4"))
     per_sample = {"K4": 19, "K5": 19, "K9": 19, "K3": 36, "K6": 36,
-                  "K2": 88, "K7": 36, "K8": 88}[kind]
+                  "K2": 88, "K7": 36, "K8": 88, "S3": 19}[kind]
     passes = (2 if kind in ("K2", "K3", "K6", "K7", "K8") else 1) \
         * (2 if kind in ("K2", "K8") else 1)
     flops = rows * (per_sample * n + 8 * nb * passes)
@@ -710,6 +746,151 @@ def library_scan(x, a, b) -> dict:
     return {"library_ms": None, "library_errors": errors}
 
 
+def stream_calls(bus, ks, fb, sr: float) -> list:
+    """S1-S4's calls as the unsliced stream makes them, on a drum bus
+    [2, n] (n a multiple of 64) of the kitchen-sink analogue's Renderer
+    `ks`, with the filter-bank analogue's Renderer `fb` for a block-rate
+    coefficient table: the follower's attack one-pole (per-sample a) and
+    its peak hold (number r), the automated reverb's longest comb (D =
+    1927, per-sample g) and its short all-pass (D = 75), the band-pass
+    sweep's table (S3 block-rate), a static peaking EQ (S3 scalar) and
+    the 40 Hz high-pass (S4), each from a nonzero carried state. Each
+    entry: (label, name, run, state0, work) with run(lo, hi, state,
+    plain) -> (y, state') over frames lo:hi, on the kernel or its twin
+    (S4's twin on the CPU: a loop over samples)."""
+    import math
+
+    import torch
+
+    from groove_tpu_torch.ops import delayfx, dynamics, iir
+    from groove_tpu_torch.ops import stream_kernels as sk
+    from groove_tpu_torch.ops.scan_kernels import LINEAR, MAX_DECAY
+
+    n = bus.shape[-1]
+    rows = bus.shape[0]
+    mag = bus.abs()
+    trip = iir.upsample_hold(ks.inputs["comp-trip/auto/release"], n)
+    a_ps = dynamics._follower_coef(trip * 0.1, sr)
+    r_num = dynamics._follower_coef(0.25, sr)
+    sec = iir.upsample_hold(ks.inputs["reverb-trip/auto/seconds"], n)
+    g = delayfx.reverb_comb_g(sec, 1927, sr)
+    co = fb.inputs["bp-sweep/fc/coefs"][:, :n // 64]
+    peq = iir.rbj_peaking_eq(1000.0, 1.5, 6.0, sr)
+    hp = iir.rbj_high_pass(40.0, 0.707, sr)
+    pair = (bus[:, 1] * 0.01, bus[:, 2] * 0.01)
+    hx = bus[:, 1000:1000 + 1927].contiguous()
+
+    def flat(y, st):
+        return (y, *st)
+
+    def s1(fn_a, mode):
+        def run(lo, hi, st, plain):
+            f = sk.scan_stream_plain if plain else sk.scan_stream
+            a = fn_a(lo, hi)
+            b = 1 - a if mode == LINEAR else 1.0
+            y, last = f(mag[:, lo:hi], a, b, st[0], mode)
+            return y, (last,)
+        return run
+
+    def comb(lo, hi, st, plain):
+        f = sk.comb_stream_plain if plain else sk.comb_stream
+        y, h1, h2 = f(bus[:, lo:hi], st[0], st[1], g[lo:hi])
+        return y, (h1, h2)
+
+    def allpass(lo, hi, st, plain):
+        f = sk.allpass_stream_plain if plain else sk.allpass_stream
+        y, h = f(bus[:, lo:hi], st[0], delayfx.ALLPASS_G)
+        return y, (h,)
+
+    def s3(coefs):
+        def run(lo, hi, st, plain):
+            f = sk.biquad_state_plain if plain else sk.biquad_state
+            c = [v[lo // 64:hi // 64] if torch.is_tensor(v) else v
+                 for v in coefs]
+            return f(bus[:, lo:hi], c, st)
+        return run
+
+    def s4(lo, hi, st, plain):
+        if not plain:
+            return sk.biquad_serial_state(bus[:, lo:hi], hp, st)
+        y, st2 = sk.biquad_serial_state_plain(
+            bus[:, lo:hi].cpu(), hp, tuple(t.cpu() for t in st))
+        return y.to(bus.device), tuple(t.to(bus.device) for t in st2)
+
+    numel = float(bus.numel())
+    comb_io = 8.0 * numel + distinct_bytes(g) + 2 * 2 * rows * 1927 * 4.0
+    ap_io = 8.0 * numel + 2 * rows * 75 * 4.0
+    return [
+        ("follower attack, per-sample a", "scan_stream",
+         s1(lambda lo, hi: a_ps[lo:hi], LINEAR), (mag[:, 0] * 0.5,),
+         scan_work(mag, a_ps, 1 - a_ps, -1, LINEAR)),
+        ("peak hold, number r", "scan_stream",
+         s1(lambda lo, hi: r_num, MAX_DECAY), (mag[:, 0] * 0.5,),
+         scan_work(mag, r_num, 1.0, -1, MAX_DECAY)),
+        ("comb D = 1927, per-sample g", "comb_stream", comb,
+         (hx, 0.5 * hx), (comb_io, 2.0 * numel,
+                          2.0 * math.ceil(math.log2(max(n // 1927, 2))))),
+        ("all-pass D = 75", "comb_stream", allpass,
+         (bus[:, 3000:3075].contiguous(),),
+         (ap_io, 5.0 * numel, 2.0 * math.ceil(math.log2(n // 75)) + 2.0)),
+        ("block-rate table (band-pass sweep)", "biquad_stream",
+         s3([co[j] for j in range(5)]), pair,
+         iir_work("S3", rows, n, coef_bytes([co[j] for j in range(5)]), 2)),
+        ("static (peaking EQ)", "biquad_stream", s3(peq), pair,
+         iir_work("S3", rows, n, 0.0, 2)),
+        ("serial (high-pass 40 Hz)", "biquad_serial_stream", s4, pair,
+         iir_work("S4", rows, n, 0.0, 2)),
+    ]
+
+
+def stream_call_check(call, cuts, twin_window: int | None = None,
+                      reps: int = 20) -> dict:
+    """One S1-S4 call (stream_calls) over its whole bus: against its twin
+    bit for bit (over the whole bus, or with twin_window, over its last
+    twin_window frames from the state the kernel's chained calls carried
+    to them), and chained calls cut at `cuts` (from the carried state)
+    equal to one call, y and state."""
+    import torch
+
+    label, name, run, st0, work = call
+    n = cuts[-1]
+
+    def flat(out):
+        return torch.cat([out[0].reshape(-1), *(t.reshape(-1)
+                                                for t in out[1])])
+
+    whole = run(0, n, st0, False)
+    ys, st, entry = [], st0, {}
+    for lo, hi in zip(cuts[:-1], cuts[1:]):
+        entry[lo] = st
+        y, st = run(lo, hi, st, False)
+        ys.append(y)
+    chained = bool(torch.equal(torch.cat(ys, -1), whole[0])
+                   and all(torch.equal(a, b) for a, b in zip(st, whole[1])))
+    if twin_window is None:
+        res = compare(name, lambda: flat(run(0, n, st0, False)),
+                      lambda: flat(run(0, n, st0, True)),
+                      whole[0].abs().max(), work, reps=reps)
+    else:
+        # from the state the kernel carried into frame lo
+        lo = max(0, n - twin_window) // 64 * 64
+        st_lo = run(0, lo, st0, False)[1] if lo else st0
+        tail = run(lo, n, st_lo, False)
+        t0 = time.perf_counter()
+        twin = run(lo, n, st_lo, True)
+        plain_s = time.perf_counter() - t0
+        ms, _ = cuda_ms(lambda: run(0, n, st0, False), reps)
+        a, b = flat(tail), flat(twin)
+        res = {"name": name, "shape": list(whole[0].shape),
+               "max_abs_err": float((a - b).abs().max()),
+               "bitwise": bool(torch.equal(a, b)) and bool(torch.equal(
+                   tail[0], whole[0][..., lo:])), "ms": ms,
+               "plain_ms": plain_s * 1e3,
+               "twin_window": [lo, n], **bounds(*work)}
+    return {**res, "shape": list(whole[0].shape), "call": label,
+            "chained_equal_one_call": chained, "cuts": len(cuts) - 1}
+
+
 def fm_phase_calls(r) -> list:
     """scan1's calls for the FM analogue's automated modulator phase, as
     models/fm.modulator_phase makes them on the ratio voice's bucket:
@@ -806,10 +987,11 @@ def main() -> int:
     from groove_tpu_torch.engine.render import (NOTE_PEAK_BYTES_PER_ELEM,
                                                 Renderer, note_chunk_cap)
     from groove_tpu_torch.engine.stream import StreamingRenderer
-    from groove_tpu_torch.io.wav import read_wav
+    from groove_tpu_torch.io.wav import quantize_16bit, read_wav
     from groove_tpu_torch.kernels import build
     from groove_tpu_torch.ops import biquad_kernels as bk
     from groove_tpu_torch.ops import drums, iir_kernels, scan_kernels
+    from groove_tpu_torch.ops import stream_kernels as sk
     from groove_tpu_torch.ops import iir as tiir
     from groove_tpu_torch.project.paths import Paths
     from groove_tpu_torch.project.schema import SongSettings
@@ -849,7 +1031,7 @@ def main() -> int:
     synth.write_welsh_patches(assets)
     paths = Paths(roots=[assets])
     counters = (drums.LAUNCHES, iir_kernels.LAUNCHES, bk.LAUNCHES,
-                scan_kernels.LAUNCHES)
+                scan_kernels.LAUNCHES, sk.LAUNCHES)
 
     def launches() -> dict:
         return {k: v for c in counters for k, v in c.items()}
@@ -1017,6 +1199,34 @@ def main() -> int:
     for label, *call in fm_phase_calls(rf):
         results.append(scan_check(label, *call))
     del rf
+    # S1-S4 on the 10-second kitchen-sink drum bus, from carried states:
+    # each against its twin bit for bit (S4's twin on the CPU), chained
+    # calls cut off the 64-frame grid's neighbours equal to one call;
+    # torch's associative_scan beside S1's first call (library)
+    rk = renderer(synth.kitchen_sink_project, CHECK_MEASURES)
+    rb = renderer(synth.filter_bank_project, CHECK_MEASURES)
+    _, bus_k = drum_bus(rk)
+    n10 = bus_k.shape[-1] // 64 * 64
+    bus_k = bus_k[:, :n10].contiguous()
+    cuts10 = [0, 64, 4096, 3 * 4096 + 64, n10 // 2 // 64 * 64, n10]
+    stream_checks = []
+    for i, call in enumerate(stream_calls(bus_k, rk, rb,
+                                          float(rk.c.sample_rate))):
+        res = stream_call_check(call, cuts10)
+        results.append(res)
+        stream_checks.append(res)
+        if i == 0:
+            x_s1 = bus_k.abs()
+            trip = tiir.upsample_hold(rk.inputs["comp-trip/auto/release"],
+                                      n10)
+            from groove_tpu_torch.ops import dynamics as tdyn
+            a_ps = tdyn._follower_coef(trip * 0.1, float(rk.c.sample_rate))
+            lib = library_scan(x_s1, a_ps, 1 - a_ps)
+            lib.pop("library_out", None)
+            emit("library", name="scan_stream", call=call[0],
+                 shape=list(x_s1.shape), ms=res["ms"], **lib)
+            library["scan_stream"] = lib["library_ms"]
+    del rk, rb, bus_k
 
     # [64, 65536]: many rows through sweeps that rest near 25 Hz
     g = torch.Generator().manual_seed(0)
@@ -1271,6 +1481,28 @@ def main() -> int:
     emit("kernel_vs_twin", **res)
     require(res["bitwise"], f"per-sample lp24_cascade differs from its twin "
             f"at {res['shape']}")
+    # S1-S4 alone at the 3-minute size, against their twins (S4's on its
+    # last 10 seconds from the state the kernel carried there) and chained
+    # at the CLI's 262144-frame segments
+    rk = renderer(synth.kitchen_sink_project, SONG_MEASURES)
+    _, bus_k = drum_bus(rk)
+    n3 = bus_k.shape[-1] // 64 * 64
+    bus_k = bus_k[:, :n3].contiguous()
+    cuts3 = [*range(0, n3, STREAM_SEGMENT), n3]
+    for call in stream_calls(bus_k, rk, rb, float(rk.c.sample_rate)):
+        window = 441000 if call[1] == "biquad_serial_stream" else None
+        res = stream_call_check(call, cuts3, twin_window=window, reps=5)
+        res["frames"] = n3
+        stream_checks.append(res)
+        emit("kernel_at_song_size", **res)
+    del rk, bus_k
+    for res in stream_checks:
+        emit("stream_kernel_check", **res)
+        require(res["bitwise"], f"{res['name']} ({res['call']}) differs "
+                f"from its twin at {res['shape']}: {res['max_abs_err']}")
+        require(res["chained_equal_one_call"], f"{res['name']} "
+                f"({res['call']}): chained calls differ from one call at "
+                f"{res['shape']}")
     bank = bank_calls(rb, bus_b)
     tiled_checks += [
         tiled_kernel_check("lp24_refined", x, secs),
@@ -1549,6 +1781,122 @@ def main() -> int:
     require(max(largest.values()) <= NOTE_PEAK_BYTES_PER_ELEM,
             f"peak bytes per element {largest} above the cap's "
             f"{NOTE_PEAK_BYTES_PER_ELEM}")
+
+    # ---- 6. the unsliced segment-streamed render ---------------------------
+    # the 3-minute kitchen-sink and filter-bank analogues through the CLI's
+    # --stream at its default 262144-frame segments, each run with the
+    # counts set to 0 just before it and read just after: S1-S4 launched
+    # as the renderer plans them
+    stream_got = dict.fromkeys(sk.LAUNCHES, 0)
+    for name in ("kitchen-sink", "filter-bank"):
+        zero_launches()
+        torch.cuda.reset_peak_memory_stats(dev)
+        perf = []
+        rc = cli.main([str(files[name]), "--wav", "--perf", "--stream",
+                       "--device", "cuda", "--out-dir",
+                       str(work / "out-stream")], perf_out=perf)
+        got = launches()
+        require(rc == 0 and len(perf) == 1, f"cli failed on {name} "
+                "streamed")
+        for k in totals:
+            totals[k] += got[k]
+        for k in stream_got:
+            stream_got[k] += got[k]
+        info = perf[0]["stream"]
+        wav = Path(perf[0]["wav"])
+        audio, rate = read_wav(wav)
+        per_song[f"{name}-stream"] = (perf[0], audio)
+        emit("slice", project=f"{name}-stream", frames=perf[0]["frames"],
+             seconds_of_audio=perf[0]["frames"] / rate,
+             setup_s=perf[0]["setup_s"], render_s=perf[0]["render_s"],
+             xrt=perf[0]["xrt"],
+             max_memory_allocated=torch.cuda.max_memory_allocated(dev),
+             wav_bytes=wav.stat().st_size, wav_peak=float(abs(audio).max()),
+             launches={k: v for k, v in got.items() if v},
+             offline_render_s=per_song[name][0]["render_s"], **info)
+        want = {k: info["planned_launches"].get(k, 0) for k in got}
+        require(got == want, f"{name} streamed launched {got}, planned "
+                f"{want}")
+        offline = per_song[name][1]
+        db = 20.0 * float(np.log10(abs(audio - offline).max()
+                                   / max(1.0, float(abs(offline).max()))
+                                   + 1e-30))
+        lsb = int(abs((audio * 32768.0).round()
+                      - (offline * 32768.0).round()).max())
+        emit("check", project=name, offline_vs_streamed_dbfs=db,
+             offline_vs_streamed_max_lsb=lsb)
+        if name == "kitchen-sink":
+            require(db <= -80.0, f"{name}: offline reads {db:.1f} dBFS "
+                    "against the stream")
+    require(all(v > 0 for v in stream_got.values()),
+            f"the streamed renders left a carried-state kernel unlaunched: "
+            f"{stream_got}")
+    # 10-second songs streamed unsliced on the card: the CLI's WAV at
+    # 4096-frame segments (launches as planned), equal to a one-segment
+    # render on the card and to the CPU twins' (one segment: the same bits
+    # at every segmentation) to the LSB
+    short = {"kitchen-sink": synth.kitchen_sink_project,
+             "instruments": synth.instruments_project,
+             "fm": synth.fm_project, "sidechain": synth.sidechain_project,
+             "filter-bank": synth.filter_bank_project,
+             "welsh-patches": synth.welsh_patch_project}
+    for name, make in short.items():
+        path = synth.write_project(work / f"{name}-10s-stream.json",
+                                   make(CHECK_MEASURES, SONG_BPM))
+        song = compile_song(SongSettings.from_project_file(path), paths)
+        zero_launches()
+        perf = []
+        rc = cli.main([str(path), "--wav", "--stream", "--segment-frames",
+                       "4096", "--device", "cuda", "--out-dir",
+                       str(work / "out-stream")], perf_out=perf)
+        got = launches()
+        require(rc == 0, f"cli failed on {name}-10s streamed")
+        for k in totals:
+            totals[k] += got[k]
+        want = {k: perf[0]["stream"]["planned_launches"].get(k, 0)
+                for k in got}
+        require(got == want, f"{name}-10s streamed launched {got}, planned "
+                f"{want}")
+        audio = read_wav(Path(perf[0]["wav"]))[0]
+        one_seg = -(-song.n_frames // 64) * 64
+        one = StreamingRenderer(song, dev, one_seg).render(quantize=True)
+        t0 = time.perf_counter()
+        q_cpu = StreamingRenderer(song, "cpu", one_seg).render(quantize=True)
+        cpu_s = time.perf_counter() - t0
+        q_gpu = (audio * 32768.0).round().astype(q_cpu.dtype)
+        diff = int(abs(q_gpu.astype("int32") - q_cpu).max())
+        one_equal = bool(np.array_equal(one, q_gpu))
+        emit("check", project=f"{name}-10s-stream", frames=len(q_cpu),
+             launches={k: v for k, v in got.items() if v},
+             one_segment_equals_4096_frame_segments=one_equal,
+             cpu_twin_render_s=cpu_s, max_lsb_diff_vs_cpu_twins=diff,
+             wav_peak=float(abs(audio).max()))
+        require(one_equal, f"{name}-10s: one segment differs from "
+                "4096-frame segments on the card")
+        require(diff == 0 and abs(q_gpu).max() > 300,
+                f"{name}-10s: card stream differs from the twins by {diff} "
+                "LSB")
+    # a loop bounce on the card: [0, 8 beats) then two passes of [2, 8)
+    # beats of the 10-second sidechain analogue, the CPU twins' bounce
+    loop_path = work / "sidechain-10s-stream.json"
+    perf = []
+    rc = cli.main([str(loop_path), "--loop", "2", "8", "--loop-iterations",
+                   "2", "--segment-frames", "16384", "--device", "cuda",
+                   "--out-dir", str(work / "out-loop")], perf_out=perf)
+    require(rc == 0 and perf[0]["frames"] == perf[0]["expected_frames"],
+            f"loop bounce: {perf}")
+    audio = read_wav(Path(perf[0]["wav"]))[0]
+    song = compile_song(SongSettings.from_project_file(loop_path), paths)
+    want = np.concatenate(list(StreamingRenderer(song, "cpu", 16384)
+                               .stream_loop(2, 8, iterations=2)))
+    q_cpu = quantize_16bit(torch.from_numpy(want)).numpy().astype(np.int32)
+    q_gpu = (audio * 32768.0).round().astype(np.int32)
+    diff = int(abs(q_gpu - q_cpu).max())
+    emit("check", project="sidechain-10s-loop", frames=perf[0]["frames"],
+         loop_frames=perf[0]["loop_frames"],
+         expected_frames=perf[0]["expected_frames"],
+         max_lsb_diff_vs_cpu_twins=diff)
+    require(diff == 0, f"loop bounce differs from the twins by {diff} LSB")
 
     # ---- 5. outputs: right shape, audible, equal to the twins' render -----
     for name, (perf, audio) in per_song.items():

@@ -3,7 +3,9 @@
     python -m groove_tpu_torch.cli <project.json[5]> --wav --perf \
         [--out-dir D] [--sample-rate 44100] [--device cuda]
     python -m groove_tpu_torch.cli <project> --wav --perf --stream \
-        --sliced [--segment-frames 4096] [--stream-batch 8]
+        [--sliced] [--segment-frames 4096] [--stream-batch 8]
+    python -m groove_tpu_torch.cli <project> --loop START END \
+        [--loop-iterations 4] [--segment-frames 4096]
 
 The whole-timeline path of groove_tpu/cli.py: compile_song (or, for a
 .mid/.midi input, compile_midi_file: channel 10 on the 707 drumkit, the
@@ -12,12 +14,14 @@ render_quantized -> 16-bit WAV, named like the input with .wav and placed
 next to it (or in --out-dir): every instrument and effect kind of the
 reference. --stream renders segment by segment
 (engine/stream.StreamingRenderer, int16 quantized on the device) and
-writes each segment into the WAV as it arrives; --sliced routes Welsh
-voices to sliced rendering where it wins (the only streamed Welsh path
-ported; other instruments and the stateful effects refuse a stream).
-Assets are found through groove_tpu_torch.project.paths.Paths
-($GROOVE_ASSETS first). The reference CLI's other flags exit with "not
-ported yet".
+writes each segment into the WAV as it arrives, every instrument and
+effect kind with its carried state; --sliced routes Welsh voices to
+sliced rendering where it wins. --loop START END bounces a loop range
+(beats): [0, END) then --loop-iterations passes of [START, END), the
+effects' state carried across every seam (a sliced device refuses a
+loop, as the reference's does). Assets are found through
+groove_tpu_torch.project.paths.Paths ($GROOVE_ASSETS first). The
+reference CLI's other flags exit with "not ported yet".
 """
 
 from __future__ import annotations
@@ -32,7 +36,7 @@ from pathlib import Path
 NOT_PORTED = (
     ("-m", "--mp3"), ("-d", "--debug"), ("-q", "--quiet"),
     ("-v", "--version"), ("--play",), ("--multidevice",), ("--mesh",),
-    ("--live",), ("--midi-out",), ("--loop",), ("--loop-iterations",),
+    ("--live",), ("--midi-out",),
 )
 
 
@@ -65,6 +69,11 @@ def build_parser() -> argparse.ArgumentParser:
                         "every active Welsh note with carried per-note "
                         "filter state, per device where the work model "
                         "says it wins")
+    p.add_argument("--loop", nargs=2, type=float, metavar=("START", "END"),
+                   help="bounce a loop range (beats): renders [0, END) then "
+                        "--loop-iterations passes of [START, END) with "
+                        "effect state carried across every seam")
+    p.add_argument("--loop-iterations", type=int, default=4)
     for flags in NOT_PORTED:
         p.add_argument(*flags, nargs="*", default=None,
                        dest="np_" + flags[-1].lstrip("-").replace("-", "_"),
@@ -135,6 +144,8 @@ def _process_file(input_filename: str, paths, args) -> dict:
     else:
         song = SongSettings.from_project_file(Path(input_filename))
         compiled = compile_song(song, paths, sample_rate=args.sample_rate)
+    if args.loop:
+        return _render_loop(compiled, input_filename, args, t0)
     if args.stream:
         return _render_streamed(compiled, input_filename, args, t0)
     renderer = Renderer(compiled, device=args.device)
@@ -178,20 +189,49 @@ def _process_file(input_filename: str, paths, args) -> dict:
     return perf
 
 
+def _streaming_class(args):
+    from groove_tpu_torch.engine.stream import StreamingRenderer
+
+    if args.sliced:
+        # "auto": per-device routing by the _slice_wins work model
+        return type("SlicedStreamingRenderer", (StreamingRenderer,),
+                    {"WELSH_SLICED": "auto"})
+    return StreamingRenderer
+
+
+def _render_loop(compiled, input_filename: str, args, t0: float) -> dict:
+    """--loop START END: bounce the looped performance, state carried
+    across every seek seam, into a WAV written as segments arrive."""
+    from groove_tpu_torch.io.wav import write_wav_16bit_stereo_stream
+
+    start_beats, end_beats = args.loop
+    r = _streaming_class(args)(compiled, args.device,
+                               segment_frames=args.segment_frames)
+    ls, le = r.loop_frames(start_beats, end_beats)
+    chunks = r.stream_loop(start_beats, end_beats,
+                           iterations=args.loop_iterations)
+    out = output_path(input_filename, args.out_dir)
+    t1 = time.perf_counter()
+    total = write_wav_16bit_stereo_stream(out, chunks, args.sample_rate)
+    render_s = time.perf_counter() - t1
+    expect = le + args.loop_iterations * (le - ls)
+    print(f"Looped [{start_beats:g}, {end_beats:g}) beats x"
+          f"{args.loop_iterations}: {total} frames (expected {expect}) "
+          f"-> {out}")
+    return {"input": input_filename, "frames": total,
+            "expected_frames": expect, "loop_frames": [ls, le],
+            "setup_s": t1 - t0, "render_s": render_s, "wav": str(out)}
+
+
 def _render_streamed(compiled, input_filename: str, args, t0: float) -> dict:
     """Segment-streamed render (--stream): segments quantized to int16 on
     the device land in the WAV as they are produced."""
     import torch
 
-    from groove_tpu_torch.engine.stream import StreamingRenderer
     from groove_tpu_torch.io.wav import write_wav_16bit_stereo_stream
 
-    cls = StreamingRenderer
-    if args.sliced:
-        # "auto": per-device routing by the _slice_wins work model
-        cls = type("SlicedStreamingRenderer", (StreamingRenderer,),
-                   {"WELSH_SLICED": "auto"})
-    r = cls(compiled, args.device, segment_frames=args.segment_frames)
+    r = _streaming_class(args)(compiled, args.device,
+                               segment_frames=args.segment_frames)
     device = torch.device(args.device)
     _sync(device)
     setup_s = time.perf_counter() - t0

@@ -30,6 +30,9 @@
 //                 beside the tile, coalesced, in a ring of two stages
 //                 (tiled::Feed): its coefficients are read twice too, a
 //                 32-byte sector at a time. See tiled.cuh.
+//                 biquad_tiled_state (S3, the streamed render's
+//                 biquad_stream) is the same at ln = 64 with the chain
+//                 seeded by a carried state and exporting it.
 //   biquad_scan   the earlier routes of K4, K5 and K9, kept callable as the
 //                 yardsticks biquad_tiled is timed against (on no path):
 //                 tdf2::phase1_kernel, a thread per (row, ln-block) walking
@@ -94,7 +97,8 @@ void scan(const float* x, const Coef* co, Layout l, float* y, float* p11,
 // K4, K5 and K9 on shared-memory tiles: phase 1, chain, combine.
 template <int M, int kLn>
 int tiled_scan(const float* x, const tiled::Biquad& sec, float* y, float* m,
-               float* c, float* s, int B, int64_t n, cudaStream_t stream) {
+               float* c, float* s, int B, int64_t n, cudaStream_t stream,
+               tdf2::Carry carry = tdf2::kNoCarry) {
   constexpr int kBytes =
       tiled::smem_bytes(kLn) + tiled::ring_bytes(M, tiled::Biquad::kStreams);
   static bool allowed[tiled::kMaxDevices] = {};
@@ -114,7 +118,7 @@ int tiled_scan(const float* x, const tiled::Biquad& sec, float* y, float* m,
   const unsigned g = (unsigned)B * all.tiles;
   tiled::maps_kernel<M, kLn, tiled::Biquad>
       <<<g, tiled::kSlots, kBytes, stream>>>(x, sec, m, c, n, nb, all);
-  tdf2::chain(m, c, s, nb, B, tdf2::kNoCarry, stream);
+  tdf2::chain(m, c, s, nb, B, carry, stream);
   tiled::combine_kernel<M, kLn, tiled::Biquad, false>
       <<<g, tiled::kSlots, kBytes, stream>>>(x, sec, sec, s, y, nullptr,
                                              nullptr, n, nb, all);
@@ -225,6 +229,55 @@ extern "C" int biquad_tiled(int mode, const float* x, const float* b0,
     case 128:
       return tiled_scan<tdf2::kScalar, 128>(x, sec, y, m, c, s, B, n,
                                             stream);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// S3: one section over [B, n] rows (n a positive multiple of 64) with its
+// TDF2 state carried in and out: groove_tpu/ops/stream.py biquad_stream
+// (:44), the reference's iir.biquad(block=64, initial_state,
+// return_state), an XLA scan there. It is biquad_tiled at ln = 64 whose
+// chain starts from state_in [B, 2] (s1, s2 entering sample 0) and writes
+// the state leaving the last block to state_out [B, 2] (tdf2::Carry): every
+// ln-block lies on the song's 64-frame grid, so chained calls from the
+// carried state give the bits of one call. Modes and arguments as
+// biquad_tiled (kScalar: static coefficients by value; kBlock: one set per
+// 64-frame block; kSample: one per sample). Three launches on `stream`;
+// never synchronises; returns cudaGetLastError().
+extern "C" int biquad_tiled_state(int mode, const float* x, const float* b0,
+                                  const float* b1, const float* b2,
+                                  const float* a1, const float* a2,
+                                  const int64_t* strides, int64_t count,
+                                  float v0, float v1, float v2, float v3,
+                                  float v4, float* y, float* m, float* c,
+                                  float* s, const float* state_in,
+                                  float* state_out, int B, int64_t n,
+                                  void* stream_handle) {
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_handle);
+  if (B <= 0 || n <= 0 || n % 64 != 0 || state_in == nullptr ||
+      state_out == nullptr)
+    return (int)cudaErrorInvalidValue;
+  const float* p[5] = {b0, b1, b2, a1, a2};
+  const float v[5] = {v0, v1, v2, v3, v4};
+  tiled::Stream st[5];
+  for (int i = 0; i < 5; ++i) {
+    st[i] = {{p[i], v[i]}, {0, 0, 1}};
+    if (mode != tdf2::kScalar)
+      st[i].l = {strides[2 * i], strides[2 * i + 1], count};
+  }
+  const tiled::Biquad sec = {st[0], st[1], st[2], st[3], st[4]};
+  const tdf2::Carry carry = {state_in, state_out, 2};
+  switch (mode) {
+    case tdf2::kScalar:
+      return tiled_scan<tdf2::kScalar, 64>(x, sec, y, m, c, s, B, n, stream,
+                                           carry);
+    case tdf2::kBlock:
+      return tiled_scan<tdf2::kBlock, 64>(x, sec, y, m, c, s, B, n, stream,
+                                          carry);
+    case tdf2::kSample:
+      return tiled_scan<tdf2::kSample, 64>(x, sec, y, m, c, s, B, n, stream,
+                                           carry);
     default:
       return (int)cudaErrorInvalidValue;
   }

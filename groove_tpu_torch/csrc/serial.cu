@@ -9,7 +9,9 @@
 // One thread per row walks all n samples in this operation order, the plain
 // twin's (ops/biquad_kernels.py); -fmad=false keeps each multiply and add
 // separately rounded. Coefficients are static (tdf2::kScalar, by value) or
-// per sample (tdf2::kSample, through strides).
+// per sample (tdf2::kSample, through strides). biquad_serial_state (S4, the
+// streamed render's biquad_serial_stream) is the same walk from a carried
+// state (s1, s2), exporting it.
 //
 // What bounds it on the H100: the dependent chain of four floating-point
 // operations per sample (s1 -> y -> a1 y -> subtract -> add s2), n of them
@@ -70,13 +72,19 @@ template <int M>
 __global__ void serial_kernel(const float* __restrict__ x, Coef b0, Coef b1,
                               Coef b2, Coef a1, Coef a2, Layout l,
                               float* __restrict__ y, int B, int64_t n,
-                              int64_t stride) {
+                              int64_t stride,
+                              const float* __restrict__ state_in,
+                              float* __restrict__ state_out) {
   constexpr int kTile = M == tdf2::kScalar ? 64 : 16;
   int64_t row = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (row >= B) return;
   const float* xr = x + row * stride;
   float* yr = y + row * stride;
   float s1 = 0.0f, s2 = 0.0f;
+  if (state_in != nullptr) {
+    s1 = state_in[2 * row];
+    s2 = state_in[2 * row + 1];
+  }
   const int64_t full = n / kTile * kTile;
   for (int64_t p = 0; p < kPrefetchTiles * kTile && p < full; p += kLine)
     prefetch_l2(xr + p);
@@ -108,6 +116,41 @@ __global__ void serial_kernel(const float* __restrict__ x, Coef b0, Coef b1,
     step<M>(xr[k0], b0, b1, b2, a1, a2, l, row, k0, s1, s2, yk);
     yr[k0] = yk;
   }
+  if (state_out != nullptr) {
+    state_out[2 * row] = s1;
+    state_out[2 * row + 1] = s2;
+  }
+}
+
+int launch(int mode, const float* x, const float* b0, const float* b1,
+           const float* b2, const float* a1, const float* a2, float vb0,
+           float vb1, float vb2, float va1, float va2, int64_t rs,
+           int64_t ts, int64_t count, float* y, int B, int64_t n,
+           int64_t stride, const float* state_in, float* state_out,
+           cudaStream_t stream) {
+  if (stride < n || stride % 4 != 0 ||
+      reinterpret_cast<uintptr_t>(x) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(y) % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  const Layout l = {rs, ts, count};
+  const Coef cb0 = {b0, vb0}, cb1 = {b1, vb1}, cb2 = {b2, vb2};
+  const Coef ca1 = {a1, va1}, ca2 = {a2, va2};
+  unsigned grid = (unsigned)((B + kRowsPerBlock - 1) / kRowsPerBlock);
+  switch (mode) {
+    case tdf2::kScalar:
+      serial_kernel<tdf2::kScalar><<<grid, kRowsPerBlock, 0, stream>>>(
+          x, cb0, cb1, cb2, ca1, ca2, l, y, B, n, stride, state_in,
+          state_out);
+      break;
+    case tdf2::kSample:
+      serial_kernel<tdf2::kSample><<<grid, kRowsPerBlock, 0, stream>>>(
+          x, cb0, cb1, cb2, ca1, ca2, l, y, B, n, stride, state_in,
+          state_out);
+      break;
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -125,26 +168,28 @@ extern "C" int biquad_serial_scan(int mode, const float* x, const float* b0,
                                   int64_t rs, int64_t ts, int64_t count,
                                   float* y, int B, int64_t n, int64_t stride,
                                   void* stream_handle) {
-  cudaStream_t stream = static_cast<cudaStream_t>(stream_handle);
-  if (stride < n || stride % 4 != 0 ||
-      reinterpret_cast<uintptr_t>(x) % 16 != 0 ||
-      reinterpret_cast<uintptr_t>(y) % 16 != 0)
+  return launch(mode, x, b0, b1, b2, a1, a2, vb0, vb1, vb2, va1, va2, rs, ts,
+                count, y, B, n, stride, nullptr, nullptr,
+                static_cast<cudaStream_t>(stream_handle));
+}
+
+// S4: the same scan with the TDF2 state carried in and out (the reference's
+// groove_tpu/ops/stream.py biquad_serial_stream, :63, a lax.scan there):
+// state_in [B, 2] is (s1, s2) entering sample 0 and state_out [B, 2] gets
+// them leaving sample n - 1. A per-sample scan, so chained calls from the
+// carried state give the bits of one call at any segmentation. Arguments
+// otherwise as biquad_serial_scan.
+extern "C" int biquad_serial_state(int mode, const float* x, const float* b0,
+                                   const float* b1, const float* b2,
+                                   const float* a1, const float* a2,
+                                   float vb0, float vb1, float vb2, float va1,
+                                   float va2, int64_t rs, int64_t ts,
+                                   int64_t count, float* y, int B, int64_t n,
+                                   int64_t stride, const float* state_in,
+                                   float* state_out, void* stream_handle) {
+  if (state_in == nullptr || state_out == nullptr)
     return (int)cudaErrorInvalidValue;
-  const Layout l = {rs, ts, count};
-  const Coef cb0 = {b0, vb0}, cb1 = {b1, vb1}, cb2 = {b2, vb2};
-  const Coef ca1 = {a1, va1}, ca2 = {a2, va2};
-  unsigned grid = (unsigned)((B + kRowsPerBlock - 1) / kRowsPerBlock);
-  switch (mode) {
-    case tdf2::kScalar:
-      serial_kernel<tdf2::kScalar><<<grid, kRowsPerBlock, 0, stream>>>(
-          x, cb0, cb1, cb2, ca1, ca2, l, y, B, n, stride);
-      break;
-    case tdf2::kSample:
-      serial_kernel<tdf2::kSample><<<grid, kRowsPerBlock, 0, stream>>>(
-          x, cb0, cb1, cb2, ca1, ca2, l, y, B, n, stride);
-      break;
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  return launch(mode, x, b0, b1, b2, a1, a2, vb0, vb1, vb2, va1, va2, rs, ts,
+                count, y, B, n, stride, state_in, state_out,
+                static_cast<cudaStream_t>(stream_handle));
 }

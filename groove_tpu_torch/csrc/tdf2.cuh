@@ -191,11 +191,12 @@ __global__ void phase1_kernel(const float* __restrict__ z, Coef na1, Coef na2,
 
 }  // namespace
 
-// A chain's state carried across calls (the earlier, multi-launch route of
-// the stateful cascades, kept beside lp24_stream.cu's kernel as its
-// yardstick): the pair entering block 0 is read from in[row * stride + {0, 1}]
-// (zeros when in is null) and the pair leaving the last block is written
-// to out[row * stride + {0, 1}] (skipped when out is null).
+// A chain's state carried across calls (S3, biquad.cu biquad_tiled_state;
+// and the earlier, multi-launch route of the stateful cascades, kept
+// beside lp24_stream.cu's kernel as its yardstick): the pair entering
+// block 0 is read from in[row * stride + {0, 1}] (zeros when in is null)
+// and the pair leaving the last block is written to
+// out[row * stride + {0, 1}] (skipped when out is null).
 struct Carry {
   const float* in;
   float* out;

@@ -1,12 +1,13 @@
 """Sampler and drumkit: pitched and one-shot sample playback (port of
-groove_tpu/models/sampler.py, its offline half).
+groove_tpu/models/sampler.py).
 
 A kit's samples live in one [slots, 2, max_len] f32 table. A drumkit at
 the song's rate plays each hit's row from its note-on frame, masked at
 the sample's length and scaled by velocity / 127: accumulate_oneshots is
 the plain torch timeline sum, and the render path takes the hand kernel
-instead (ops/drums.py). The sampler, the calculator and a drumkit at
-another rate resample: render_notes gathers every note's table row and
+instead (ops/drums.py); the segment-streamed render copies each hit's
+row into its window (render_notes_aligned). The sampler, the calculator
+and a drumkit at another rate resample: render_notes gathers every note's table row and
 reads it at pos = j * ratio * rate / sample_rate with linear
 interpolation -> [notes, 2, span] windows, as the reference does. The
 loaders and sampler_ratios are numpy (host data for compile_song and the
@@ -172,6 +173,34 @@ def render_notes(table_data: torch.Tensor, table_lengths: torch.Tensor,
     out = a * (1.0 - frac) + b * frac
     del a, b, frac
     out = out * mask
+    v = torch.as_tensor(vels).to(device=device, dtype=torch.float32)
+    return out * torch.div(v, torch.full((), 127.0, dtype=torch.float32,
+                                         device=device))[:, None, None]
+
+
+def render_notes_aligned(table_data: torch.Tensor,
+                         table_lengths: torch.Tensor, slots, gate_frames,
+                         vels, span: int) -> torch.Tensor:
+    """Unity-ratio playback (a drumkit or the calculator at the song's
+    rate) in the segment-streamed render: a row copy instead of a
+    fractional gather -> stereo [n_notes, 2, span]. Each note's table row
+    [2, max_len], cut or zero-padded to span, masked past the sample's
+    length and the gate, times vel / 127 (slot -1 is silent)."""
+    device = table_data.device
+    slots = torch.as_tensor(slots).to(device=device, dtype=torch.int64)
+    safe = torch.clamp_min(slots, 0)
+    max_len = table_data.shape[-1]
+    per_note = table_data[safe]                                 # [n, 2, max_len]
+    if max_len >= span:
+        out = per_note[:, :, :span]
+    else:
+        out = torch.nn.functional.pad(per_note, (0, span - max_len))
+    j = torch.arange(span, dtype=torch.float32, device=device)[None, :]
+    length = table_lengths[safe].to(torch.float32)[:, None]
+    gate = torch.as_tensor(gate_frames).to(device=device,
+                                           dtype=torch.float32)[:, None]
+    mask = (j < length) & (j < gate) & (slots[:, None] >= 0)
+    out = out * mask[:, None, :]
     v = torch.as_tensor(vels).to(device=device, dtype=torch.float32)
     return out * torch.div(v, torch.full((), 127.0, dtype=torch.float32,
                                          device=device))[:, None, None]

@@ -31,4 +31,7 @@ def bitcrusher(x, bits):
     step = torch.bitwise_left_shift(torch.ones_like(b), b).to(x.dtype)
     mag = torch.trunc(torch.abs(x) * I16_MAX)
     crushed = torch.trunc(mag / step) * step
-    return torch.sign(x) * crushed / I16_MAX
+    # a true division, as the reference's: a CUDA tensor divided by a
+    # number would multiply by its reciprocal instead
+    return torch.div(torch.sign(x) * crushed,
+                     torch.full((), I16_MAX, dtype=x.dtype, device=x.device))

@@ -23,6 +23,11 @@ kind): two inline welsh-raw voices, a refined-cascade pad and a
 single-pass lead with noise and an amplitude LFO (WELSH_PAD,
 WELSH_LEAD).
 
+sidechain_project drives one parameter of every sidechain-able effect kind
+from a passthrough controller on the kit (SIDECHAIN_ROUTES);
+welsh_patch_project plays two `welsh` instruments by patch name, whose
+patches write_welsh_patches writes (SHORT_PATCHES: short envelopes).
+
 kitchen_sink_project is an analogue of kitchen-sink ("every effect +
 trips"): the kit drives one parallel chain per effect route (KITCHEN_SINK:
 compressors instantaneous, smoothed, with a release trip and with a
@@ -392,6 +397,50 @@ def kitchen_sink_project(measures: int = 1, bpm: float = 120.0) -> dict:
     return p
 
 
+# sidechain analogue: one passthrough controller on the kit drives a
+# parameter of every effect kind that takes a sidechain (compressor
+# release, delay time, chorus delay, reverb RT60, bitcrusher depth, a
+# 12 dB low-pass cutoff): route -> (effect kind, static params, the
+# sidechain's target param)
+SIDECHAIN_ROUTES = {
+    "sc-comp": ("compressor", {"threshold": 0.1, "ratio": 0.3,
+                               "attack": 0.005, "release": 0.1}, "release"),
+    "sc-delay": ("delay", {"delay": 0.0}, "delay"),
+    "sc-chorus": ("chorus", {"voices": 3, "delay-seconds": 0.01},
+                  "delay-seconds"),
+    "sc-reverb": ("reverb", {"attenuation": 0.5, "seconds": 1.0},
+                  "seconds"),
+    "sc-crusher": ("bitcrusher", {"bits": 8}, "bits-to-crush"),
+    "sc-lp12": ("filter-low-pass-12db", {"cutoff": 1000.0, "q": 0.7},
+                "cutoff"),
+}
+
+
+def sidechain_project(measures: int = 1, bpm: float = 120.0) -> dict:
+    """The drums -> one chain per SIDECHAIN_ROUTES effect -> gain `bank`
+    -> main-mixer project, each route's parameter driven by the
+    passthrough controller `sc` on the drums (one block late, mapped to
+    the parameter's domain), and sc's own chain into the bank."""
+    p = north_star_project(measures, bpm)
+    devices = p["devices"][:1] + [
+        {"controller": [SIDECHAIN_UVID,
+                        {"signal-passthrough-controller": [{}]}]},
+        {"effect": ["bank", {"gain": {"ceiling": 0.3}}]},
+    ]
+    cables = [["bank", "main-mixer"], ["drums", SIDECHAIN_UVID, "bank"]]
+    controls = []
+    for uvid, (kind, params, param) in SIDECHAIN_ROUTES.items():
+        devices.append({"effect": [uvid, {kind: dict(params)}]})
+        cables.append(["drums", uvid, "bank"])
+        controls.append({"id": f"sc-{uvid}", "source": SIDECHAIN_UVID,
+                         "target": {"id": uvid, "param": param}})
+    p["title"] = "sidechain analogue"
+    p["devices"] = devices
+    p["patch-cables"] = cables
+    p["paths"], p["trips"], p["controls"] = [], [], controls
+    return p
+
+
 # perf-1 analogue voices: the Welsh analogue's pad and lead with short
 # envelopes (a 0.05 s release), so that a BPM of 1024 keeps each note's
 # window a few thousand samples long
@@ -456,6 +505,46 @@ def perf1_project(measures: int = 1, bpm: float = PERF1_BPM) -> dict:
              "patterns": [f"pad-{k % 4}" for k in range(measures)]},
             {"id": "arp-track", "midi-channel": 2,
              "patterns": [f"held-{k % 4}" for k in range(measures)]},
+        ],
+    }
+
+
+# Welsh patches with short envelopes (the perf-1 analogue's voices) under
+# the names welsh_patch_project plays: write_welsh_patches(root,
+# SHORT_PATCHES)
+SHORT_PATCHES = {"piano": PERF1_PAD, "new-age-lead": PERF1_LEAD}
+
+
+def welsh_patch_project(measures: int = 1, bpm: float = 120.0) -> dict:
+    """Two `welsh` instruments by patch name ("piano": chords in quarter
+    notes on channel 0, "new-age-lead": a line in eighths on channel 1),
+    their patches found under patches/welsh/ (write_welsh_patches), into
+    the main mixer."""
+    chords = [(48, 55, 60), (53, 57, 60), (45, 52, 57), (43, 50, 55)]
+    rng = np.random.default_rng(4)
+    pads, leads = [], []
+    for k, c in enumerate(chords):
+        pads.append({"id": f"pad-{k}", "note-value": "quarter",
+                     "notes": [[c[i]] * 4 for i in range(3)]})
+        line = [int(v) for v in rng.choice([60, 62, 64, 67, 69, 72], 8)]
+        leads.append({"id": f"lead-{k}", "note-value": "eighth",
+                      "notes": [line]})
+    return {
+        "title": "welsh patch analogue",
+        "clock": {"bpm": bpm, "time-signature": [4, 4]},
+        "devices": [
+            {"instrument": ["pad", {"welsh": [{"midi-in": 0, "gain": 0.1},
+                                              {"name": "piano"}]}]},
+            {"instrument": ["lead", {"welsh": [
+                {"midi-in": 1, "gain": 0.2}, {"name": "new-age-lead"}]}]},
+        ],
+        "patch-cables": [["pad", "main-mixer"], ["lead", "main-mixer"]],
+        "patterns": pads + leads,
+        "tracks": [
+            {"id": "pad-track", "midi-channel": 0,
+             "patterns": [f"pad-{k % 4}" for k in range(measures)]},
+            {"id": "lead-track", "midi-channel": 1,
+             "patterns": [f"lead-{k % 4}" for k in range(measures)]},
         ],
     }
 

@@ -32,8 +32,9 @@ def test_library_path_follows_sources(tmp_path, monkeypatch):
 
 def test_sources_are_the_packaged_kernels():
     names = [p.name for p in build.sources()]
-    assert names == ["biquad.cu", "drums.cu", "lp24.cu", "lp24_stream.cu",
-                     "scan1.cu", "serial.cu"]
+    assert names == ["biquad.cu", "comb_stream.cu", "drums.cu", "lp24.cu",
+                     "lp24_stream.cu", "scan1.cu", "scan_stream.cu",
+                     "serial.cu"]
     assert [p.name for p in build.headers()] == ["tdf2.cuh", "tiled.cuh"]
     for p in build.sources():
         text = p.read_text()

@@ -16,10 +16,14 @@ number, per-element and row-broadcast coefficients, the time axis and
 block space, lengths off its chunk, a lane of many chained blocks, products
 of a through denormals, lane counts on both sides of the layouts' border,
 calls queued back to back, a captured graph replayed; the FM modulator
-phase's shapes), plus short renders of the slices, of a streamed Welsh
-song and of the same song offline, of the kitchen-sink and perf-1
-analogues, of the FM and instruments analogues and of a MIDI file, on
-the card against the same renders on the CPU.
+phase's shapes), the unsliced stream's carried-state kernels S1-S4
+(ops/stream_kernels.py: scan_stream, comb_stream, biquad_state,
+biquad_serial_state against their twins, chained calls = one call on the
+card), plus short renders of the slices, of a streamed Welsh song and
+of the same song offline, of the kitchen-sink and perf-1 analogues, of
+the FM and instruments analogues, of a MIDI file, and of the 10-second
+kitchen-sink and 2-second sidechain analogues streamed unsliced, on the
+card against the same renders on the CPU.
 
 These tests need an NVIDIA GPU (marker `cuda`; they skip without one) and
 import no jax, so the machine with the card runs them:
@@ -917,3 +921,128 @@ def test_midi_file_on_card_equals_cpu(cuda_device, tmp_path):
     assert drums.LAUNCHES["drums"] == before + 1
     cpu = Renderer(compiled, "cpu", note_chunk_elems=r.note_chunk_elems)
     assert np.array_equal(on_card, cpu.render())
+
+
+# ---- the carried-state kernels of the unsliced stream (S1-S4) -------------
+
+def _stream_kernel_calls(S: int, seed: int = 11):
+    """name -> (wrapper, args on the CPU, per-time args): each S1-S4 call
+    on seeded inputs of S frames, from a carried state."""
+    from groove_tpu_torch.ops import stream_kernels as sk
+
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy((rng.standard_normal((2, S)) * 0.3)
+                         .astype(np.float32))
+    a = torch.from_numpy(rng.uniform(0.9, 0.999, S).astype(np.float32))
+    y0 = torch.tensor([0.1, -0.2])
+    hx = torch.from_numpy((rng.standard_normal((2, 1927)) * 0.1)
+                          .astype(np.float32))
+    st = (torch.tensor([0.01, 0.02]), torch.tensor([0.0, -0.01]))
+    nb = S // 64
+    cut = np.geomspace(200.0, 8000.0, nb).astype(np.float32)
+    cb = [torch.from_numpy(np.asarray(c, np.float32))
+          for c in iir.rbj_low_pass(cut, np.float32(0.707), 44100.0)]
+    hp = [float(c) for c in iir.rbj_high_pass(40.0, 0.707, 44100.0)]
+    lp = [float(c) for c in iir.rbj_low_pass(1000.0, 0.707, 44100.0)]
+    return {
+        "S1 linear": lambda v: sk.scan_stream(v(x), v(a), 1 - v(a), v(y0)),
+        "S1 max_decay": lambda v: sk.scan_stream(
+            v(x).abs(), 0.999, 1.0, v(y0).abs(), sk.MAX_DECAY),
+        "S2 comb": lambda v: sk.comb_stream(v(x), v(hx), 0.5 * v(hx), 0.8),
+        "S2 comb per-sample": lambda v: sk.comb_stream(
+            v(x), v(hx), 0.5 * v(hx), v(a)),
+        "S2 allpass": lambda v: sk.allpass_stream(v(x), v(hx[:, :75]), 0.7),
+        "S3 scalar": lambda v: sk.biquad_state(v(x), lp,
+                                               tuple(map(v, st))),
+        "S3 block": lambda v: sk.biquad_state(v(x), [v(c) for c in cb],
+                                              tuple(map(v, st))),
+        "S4 serial": lambda v: sk.biquad_serial_state(
+            v(x[:, :8192]), hp, tuple(map(v, st))),
+    }
+
+
+def _flat_out(out) -> torch.Tensor:
+    items = []
+    for t in out:
+        items += list(t) if isinstance(t, tuple) else [t]
+    return torch.cat([t.reshape(-1).cpu() for t in items])
+
+
+@pytest.mark.parametrize("name", list(_stream_kernel_calls(64)))
+@pytest.mark.parametrize("S", [64, 4096, 65536 + 3 * 64])
+def test_stream_kernels_match_twins(cuda_device, name, S):
+    """S1-S4 on the card = their CPU twins bit for bit (outputs and
+    exported state), each call one counted launch."""
+    from groove_tpu_torch.ops import stream_kernels as sk
+
+    call = _stream_kernel_calls(S)[name]
+    before = sum(sk.LAUNCHES.values())
+    on_card = call(lambda t: t.to(cuda_device))
+    torch.cuda.synchronize()
+    assert sum(sk.LAUNCHES.values()) == before + 1
+    assert torch.equal(_flat_out(on_card), _flat_out(call(lambda t: t)))
+
+
+def test_stream_kernels_chain_on_card(cuda_device):
+    """Calls chained through the carried state = one call, on the card:
+    S1 and S3 at 64-multiple cuts, S2 at cuts no multiple of its delay."""
+    from groove_tpu_torch.ops import stream as sops
+
+    rng = np.random.default_rng(12)
+    S = 3 * 4096
+    x = torch.from_numpy((rng.standard_normal((2, S)) * 0.3)
+                         .astype(np.float32)).to(cuda_device)
+    cuts = [0, 64, 4160, 9000 // 64 * 64, S]
+    cb = [torch.from_numpy(np.asarray(c, np.float32)).to(cuda_device)
+          for c in iir.rbj_low_pass(
+              np.geomspace(100.0, 9000.0, S // 64).astype(np.float32),
+              np.float32(2.0), 44100.0)]
+    z2 = torch.zeros(2, device=cuda_device)
+    hz = torch.zeros(2, 1310, device=cuda_device)
+    y1, _ = sops.max_decay_stream(x.abs(), 0.999, z2)
+    y3, s3 = sops.biquad_stream(x, cb, (z2, z2))
+    y2, _, h2 = sops.comb_feedback_stream(x, hz, hz, 0.8)
+    parts1, parts2, parts3 = [], [], []
+    p1, st3, hx, hy = z2, (z2, z2), hz, hz
+    for lo, hi in zip(cuts[:-1], cuts[1:]):
+        a, p1 = sops.max_decay_stream(x[:, lo:hi].abs(), 0.999, p1)
+        b, st3 = sops.biquad_stream(x[:, lo:hi],
+                                    [c[lo // 64:hi // 64] for c in cb], st3)
+        parts1.append(a)
+        parts3.append(b)
+    for lo, hi in zip([0, 100, 2000, 7777], [100, 2000, 7777, S]):
+        c, hx, hy = sops.comb_feedback_stream(x[:, lo:hi], hx, hy, 0.8)
+        parts2.append(c)
+    assert torch.equal(torch.cat(parts1, 1), y1)
+    assert torch.equal(torch.cat(parts3, 1), y3)
+    assert all(torch.equal(a, b) for a, b in zip(st3, s3))
+    assert torch.equal(torch.cat(parts2, 1), y2) and torch.equal(hy, h2)
+
+
+@pytest.mark.parametrize("make, measures, bpm",
+                         [(synth.kitchen_sink_project, 5, 120.0),
+                          (synth.sidechain_project, 1, 240.0)],
+                         ids=["kitchen-sink-10s", "sidechain-2s"])
+def test_unsliced_stream_on_card_equals_cpu(cuda_device, tmp_path, make,
+                                            measures, bpm):
+    """A song streamed unsliced in 4096-frame segments on the card (the
+    kitchen-sink analogue 10 s, the sidechain analogue 2 s): the planned
+    launches, the CPU twins' render bit for bit, and the card's
+    one-segment render bit for bit."""
+    from groove_tpu_torch.ops import stream_kernels as sk
+
+    assets = synth.write_assets(tmp_path, max_seconds=0.4)
+    compiled = compile_song(SongSettings.from_json(make(measures, bpm)),
+                            Paths(roots=[assets]))
+    r = StreamingRenderer(compiled, cuda_device, segment_frames=4096)
+    before = dict(sk.LAUNCHES)
+    on_card = r.render(quantize=True)
+    got = {k: v - before[k] for k, v in sk.LAUNCHES.items()
+           if v != before[k]}
+    assert got == {k: v for k, v in r.planned_launches().items()
+                   if k in sk.LAUNCHES}
+    assert np.array_equal(on_card, StreamingRenderer(
+        compiled, "cpu", 4096).render(quantize=True))
+    one = -(-compiled.n_frames // 64) * 64
+    assert np.array_equal(on_card, StreamingRenderer(
+        compiled, cuda_device, one).render(quantize=True))

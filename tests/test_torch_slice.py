@@ -372,9 +372,10 @@ def _with_oscillator(p: dict) -> dict:
 
 @pytest.mark.parametrize("case", ["oscillator", "reverb", "compressor"])
 def test_unported_parts_raise(assets, case):
-    """An oscillator instrument and the stateful effects in a streamed
-    render (their streamed forms are not ported; offline they render,
-    tests/test_torch_instruments.py and tests/test_torch_effects.py)."""
+    """An oscillator instrument and the stateful effects beside sliced
+    Welsh voices: a streamed render takes them (one segment = 4096-frame
+    segments, bit for bit), and what still refuses is a loop of the
+    sliced devices, whose carried note state cannot follow a seek."""
     from groove_tpu_torch.engine.stream import StreamingRenderer
 
     p = synth.welsh_project(1, 240.0)
@@ -388,12 +389,14 @@ def test_unported_parts_raise(assets, case):
         p["patch-cables"][0] = ["pad", "fx", "main-mixer"]
     sliced = type("Sliced", (StreamingRenderer,), {"WELSH_SLICED": True})
     c = compile_song(SongSettings.from_json(p), Paths())
-    with pytest.raises(NotImplementedError,
-                       match=f"{case} in a streamed render: not ported yet"):
-        sliced(c, "cpu", 4096)
+    many = sliced(c, "cpu", 4096).render()
+    one = sliced(c, "cpu", -(-c.n_frames // 64) * 64).render()
+    assert np.array_equal(one, many) and float(np.abs(many).max()) > 0.01
+    with pytest.raises(NotImplementedError, match="linear-stream only"):
+        next(sliced(c, "cpu", 4096).stream_loop(0, 1))
 
 
-@pytest.mark.parametrize("flag", [["--play"], ["--loop", "0", "4"],
+@pytest.mark.parametrize("flag", [["--play"], ["--live", "midi.fifo"],
                                   ["-q"], ["--mesh"]])
 def test_cli_refuses_unported_flags(flag):
     with pytest.raises(SystemExit, match="not ported yet"):
@@ -402,19 +405,17 @@ def test_cli_refuses_unported_flags(flag):
 
 def test_cli_reports_unported_project(assets, tmp_path, monkeypatch,
                                       capsys):
-    """A streamed oscillator is not ported: the CLI reports it and goes
-    on (exit 1); offline the same project renders."""
-    p = _with_oscillator({
-        "title": "oscillator", "clock": {"bpm": 240.0},
-        "devices": [], "patch-cables": [],
-        "patterns": [{"id": "p", "note-value": "whole", "notes": [[60]]}],
-        "tracks": [{"id": "t", "midi-channel": 0, "patterns": ["p"]}]})
+    """A loop of sliced Welsh voices is refused: the CLI reports it and
+    goes on (exit 1); the same project streams (its oscillator too) and
+    renders offline."""
+    p = _with_oscillator(synth.welsh_project(1, 240.0))
     path = synth.write_project(tmp_path / "oscillator.json", p)
     monkeypatch.setenv("GROOVE_ASSETS", str(assets))
-    assert cli.main([str(path), "--stream", "--sliced", "--device",
-                     "cpu"]) == 1
-    assert "oscillator in a streamed render: not ported yet" in \
-        capsys.readouterr().err
+    assert cli.main([str(path), "--loop", "0", "1", "--sliced",
+                     "--segment-frames", "4096", "--device", "cpu"]) == 1
+    assert "linear-stream only" in capsys.readouterr().err
+    assert cli.main([str(path), "--stream", "--sliced", "--segment-frames",
+                     "4096", "--device", "cpu"]) == 0
     assert cli.main([str(path), "--device", "cpu"]) == 0
 
 
