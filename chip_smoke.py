@@ -132,8 +132,10 @@ Phases, one JSON line each:
      against their twins bit for bit at a 10-second and a 3-minute shape
      (the 3-minute S4 against its twin on its last 10 seconds from the
      state the kernel carried there), many chained calls equal to one
-     call, each alone beside its bound, torch's associative_scan beside
-     S1 (library); the 3-minute kitchen-sink and filter-bank analogues
+     call, each alone beside its bound (S1 and S2 also on the card alone,
+     device_ms), torch's associative_scan beside S1 and S2 at 10 s and 3
+     minutes (library: S2's in block space, the tail as chunk 0); the
+     3-minute kitchen-sink and filter-bank analogues
      through `cli --wav --perf --stream` at the default 262144-frame
      segments (launches against the renderer's plan: x realtime, set-up,
      peak device memory); the 10-second kitchen-sink, instruments, FM,
@@ -154,6 +156,8 @@ nvidia-smi reports as clocks.max.sm), which binds these few-row
 recurrences. bound_by is "bytes" when the first binds, else "operations".
 scan1's chain is the function's, not the kernel's: a scan of S steps
 combines in ceil(log2 S) levels of 2 dependent operations (scan_work).
+S1's and S2's are the serial order the stream pins (stream_calls): S / 64
+and ceil(S / D) steps of 2 dependent operations.
 """
 
 import contextlib
@@ -718,11 +722,11 @@ def scan_calls(r, bus) -> list:
     ]
 
 
-def library_scan(x, a, b) -> dict:
+def library_scan(x, a, b, dim: int = -1) -> dict:
     """torch's prototype associative_scan (torch._higher_order_ops) on the
-    linear scan's inputs: one call over (a, b x) with the reference's
-    combine. combine_mode "pointwise" (compiled) where it runs, else
-    "generic". A yardstick only: the port never calls it."""
+    linear scan's inputs: one call over (a, b x) along `dim` with the
+    reference's combine. combine_mode "pointwise" (compiled) where it
+    runs, else "generic". A yardstick only: the port never calls it."""
     import torch
 
     from torch._higher_order_ops import associative_scan
@@ -737,7 +741,7 @@ def library_scan(x, a, b) -> dict:
     for mode in ("pointwise", "generic"):
         try:
             ms, y = cuda_ms(lambda m=mode: associative_scan(
-                combine, (aa, bx), dim=-1, combine_mode=m)[1], 5)
+                combine, (aa, bx), dim=dim, combine_mode=m)[1], 5)
             return {"library_ms": ms,
                     "library_call": f"associative_scan ({mode})",
                     "library_out": y}
@@ -757,7 +761,17 @@ def stream_calls(bus, ks, fb, sr: float) -> list:
     the 40 Hz high-pass (S4), each from a nonzero carried state. Each
     entry: (label, name, run, state0, work) with run(lo, hi, state,
     plain) -> (y, state') over frames lo:hi, on the kernel or its twin
-    (S4's twin on the CPU: a loop over samples)."""
+    (S4's twin on the CPU: a loop over samples).
+
+    S1's and S2's chains are the order the stream pins, not a log-depth
+    scan's (scan_work's, which scan1 keeps: nothing pins its order). Their
+    state is one value (S1: y entering a 64-block) or the last D samples
+    (S2), and any 64-multiple cut must give the bits of one call, so every
+    block's map applies to the value its predecessor left, never composed
+    with it first (that would round differently): S1 is S / 64 steps of
+    two dependent operations (a multiply, then the add or the max), after
+    the linear mode's b x; S2 is ceil(S / D) steps of two a lane (the
+    multiply by g, then the add)."""
     import math
 
     import torch
@@ -783,12 +797,13 @@ def stream_calls(bus, ks, fb, sr: float) -> list:
     def flat(y, st):
         return (y, *st)
 
-    def s1(fn_a, mode):
+    b_ps = 1 - a_ps
+
+    def s1(fn_a, fn_b, mode):
         def run(lo, hi, st, plain):
             f = sk.scan_stream_plain if plain else sk.scan_stream
-            a = fn_a(lo, hi)
-            b = 1 - a if mode == LINEAR else 1.0
-            y, last = f(mag[:, lo:hi], a, b, st[0], mode)
+            y, last = f(mag[:, lo:hi], fn_a(lo, hi), fn_b(lo, hi), st[0],
+                        mode)
             return y, (last,)
         return run
 
@@ -820,19 +835,24 @@ def stream_calls(bus, ks, fb, sr: float) -> list:
     numel = float(bus.numel())
     comb_io = 8.0 * numel + distinct_bytes(g) + 2 * 2 * rows * 1927 * 4.0
     ap_io = 8.0 * numel + 2 * rows * 75 * 4.0
+
+    def s1_work(a, b, mode):
+        io, flops, _ = scan_work(mag, a, b, -1, mode)
+        return io, flops, 2.0 * (n // 64) + (1.0 if mode == LINEAR else 0.0)
+
     return [
         ("follower attack, per-sample a", "scan_stream",
-         s1(lambda lo, hi: a_ps[lo:hi], LINEAR), (mag[:, 0] * 0.5,),
-         scan_work(mag, a_ps, 1 - a_ps, -1, LINEAR)),
+         s1(lambda lo, hi: a_ps[lo:hi], lambda lo, hi: b_ps[lo:hi], LINEAR),
+         (mag[:, 0] * 0.5,), s1_work(a_ps, b_ps, LINEAR)),
         ("peak hold, number r", "scan_stream",
-         s1(lambda lo, hi: r_num, MAX_DECAY), (mag[:, 0] * 0.5,),
-         scan_work(mag, r_num, 1.0, -1, MAX_DECAY)),
+         s1(lambda lo, hi: r_num, lambda lo, hi: 1.0, MAX_DECAY),
+         (mag[:, 0] * 0.5,), s1_work(r_num, 1.0, MAX_DECAY)),
         ("comb D = 1927, per-sample g", "comb_stream", comb,
          (hx, 0.5 * hx), (comb_io, 2.0 * numel,
-                          2.0 * math.ceil(math.log2(max(n // 1927, 2))))),
+                          2.0 * math.ceil(n / 1927))),
         ("all-pass D = 75", "comb_stream", allpass,
          (bus[:, 3000:3075].contiguous(),),
-         (ap_io, 5.0 * numel, 2.0 * math.ceil(math.log2(n // 75)) + 2.0)),
+         (ap_io, 5.0 * numel, 2.0 * math.ceil(n / 75))),
         ("block-rate table (band-pass sweep)", "biquad_stream",
          s3([co[j] for j in range(5)]), pair,
          iir_work("S3", rows, n, coef_bytes([co[j] for j in range(5)]), 2)),
@@ -841,6 +861,64 @@ def stream_calls(bus, ks, fb, sr: float) -> list:
         ("serial (high-pass 40 Hz)", "biquad_serial_stream", s4, pair,
          iir_work("S4", rows, n, 0.0, 2)),
     ]
+
+
+def chunk_scan_inputs(x, tail, g, D: int):
+    """(a, b) of the delay lines' recurrence in block space, [R, nc + 1, D]
+    with the carried tail as chunk 0, the form the offline path gives
+    scan1: the comb's y_c = g_c y_(c-1) + x_(c-1) (tail = (hx, hy), x_-1 =
+    hx, y_-1 = hy) or the all-pass's w_c = g w_(c-1) + x_c (tail = (hw,),
+    g a number). torch's associative_scan over dim 1 of (a, b) is the
+    library yardstick of S2 (library_scan(b, a, 1.0, dim=1)); the
+    all-pass's y, an elementwise pass after it, is not timed."""
+    import torch
+
+    R, S = x.shape
+    nc = -(-S // D)
+    pad = lambda t: torch.nn.functional.pad(t, (0, nc * D - S))  # noqa
+    xc = pad(x).reshape(R, nc, D)
+    zero = torch.zeros((R, 1, D), dtype=x.dtype, device=x.device)
+    if len(tail) == 2:  # comb
+        gc = pad(g.expand(R, S).contiguous()).reshape(R, nc, D)
+        prev = torch.cat([tail[0][:, None], xc[:, :-1]], 1)
+        return (torch.cat([zero, gc], 1),
+                torch.cat([tail[1][:, None], prev], 1))
+    a = torch.full((R, nc, D), float(g), dtype=x.dtype, device=x.device)
+    return torch.cat([zero, a], 1), torch.cat([tail[0][:, None], xc], 1)
+
+
+def stream_library(r, bus, size: str) -> dict:
+    """torch's associative_scan beside S1 and S2 on a kitchen-sink drum
+    bus (Renderer `r`): the follower's attack one-pole over the bus, and
+    the automated comb (D = 1927) and the all-pass (D = 75) in block space
+    (chunk_scan_inputs), from stream_calls' carried tails. Emits a
+    "library" phase each; returns {name: the first call's library_ms}."""
+    from groove_tpu_torch.ops import delayfx, dynamics, iir
+
+    sr = float(r.c.sample_rate)
+    n = bus.shape[-1]
+    trip = iir.upsample_hold(r.inputs["comp-trip/auto/release"], n)
+    a_ps = dynamics._follower_coef(trip * 0.1, sr)
+    sec = iir.upsample_hold(r.inputs["reverb-trip/auto/seconds"], n)
+    hx = bus[:, 1000:1000 + 1927].contiguous()
+    calls = [
+        ("scan_stream", "follower attack, per-sample a",
+         (bus.abs(), a_ps, 1 - a_ps)),
+        ("comb_stream", "comb D = 1927, per-sample g (block space)",
+         (*chunk_scan_inputs(bus, (hx, 0.5 * hx),
+                             delayfx.reverb_comb_g(sec, 1927, sr),
+                             1927)[::-1], 1.0, 1)),
+        ("comb_stream", "all-pass D = 75 (block space)",
+         (*chunk_scan_inputs(bus, (bus[:, 3000:3075].contiguous(),),
+                             delayfx.ALLPASS_G, 75)[::-1], 1.0, 1))]
+    out = {}
+    for name, label, args in calls:
+        lib = library_scan(*args)
+        lib.pop("library_out", None)
+        emit("library", name=name, call=label, size=size,
+             shape=list(args[0].shape), **lib)
+        out.setdefault(name, lib["library_ms"])
+    return out
 
 
 def stream_call_check(call, cuts, twin_window: int | None = None,
@@ -871,6 +949,8 @@ def stream_call_check(call, cuts, twin_window: int | None = None,
         res = compare(name, lambda: flat(run(0, n, st0, False)),
                       lambda: flat(run(0, n, st0, True)),
                       whole[0].abs().max(), work, reps=reps)
+        if name in ("scan_stream", "comb_stream"):
+            res["device_ms"] = graph_ms(lambda: run(0, n, st0, False))
     else:
         # from the state the kernel carried into frame lo
         lo = max(0, n - twin_window) // 64 * 64
@@ -1202,7 +1282,7 @@ def main() -> int:
     # S1-S4 on the 10-second kitchen-sink drum bus, from carried states:
     # each against its twin bit for bit (S4's twin on the CPU), chained
     # calls cut off the 64-frame grid's neighbours equal to one call;
-    # torch's associative_scan beside S1's first call (library)
+    # torch's associative_scan beside S1 and S2 (library; stream_library)
     rk = renderer(synth.kitchen_sink_project, CHECK_MEASURES)
     rb = renderer(synth.filter_bank_project, CHECK_MEASURES)
     _, bus_k = drum_bus(rk)
@@ -1210,22 +1290,11 @@ def main() -> int:
     bus_k = bus_k[:, :n10].contiguous()
     cuts10 = [0, 64, 4096, 3 * 4096 + 64, n10 // 2 // 64 * 64, n10]
     stream_checks = []
-    for i, call in enumerate(stream_calls(bus_k, rk, rb,
-                                          float(rk.c.sample_rate))):
+    for call in stream_calls(bus_k, rk, rb, float(rk.c.sample_rate)):
         res = stream_call_check(call, cuts10)
         results.append(res)
         stream_checks.append(res)
-        if i == 0:
-            x_s1 = bus_k.abs()
-            trip = tiir.upsample_hold(rk.inputs["comp-trip/auto/release"],
-                                      n10)
-            from groove_tpu_torch.ops import dynamics as tdyn
-            a_ps = tdyn._follower_coef(trip * 0.1, float(rk.c.sample_rate))
-            lib = library_scan(x_s1, a_ps, 1 - a_ps)
-            lib.pop("library_out", None)
-            emit("library", name="scan_stream", call=call[0],
-                 shape=list(x_s1.shape), ms=res["ms"], **lib)
-            library["scan_stream"] = lib["library_ms"]
+    library.update(stream_library(rk, bus_k, "10 s"))
     del rk, rb, bus_k
 
     # [64, 65536]: many rows through sweeps that rest near 25 Hz
@@ -1495,6 +1564,7 @@ def main() -> int:
         res["frames"] = n3
         stream_checks.append(res)
         emit("kernel_at_song_size", **res)
+    stream_library(rk, bus_k, "3 min")
     del rk, bus_k
     for res in stream_checks:
         emit("stream_kernel_check", **res)

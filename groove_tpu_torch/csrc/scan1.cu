@@ -66,7 +66,7 @@
 
 #include <cuda.h>  // CUtensorMap; the encoder is found at run time
 
-#include "tdf2.cuh"
+#include "stage.cuh"  // tdf2.cuh's copies, the ticket and carry words
 
 // Timeline stamps for kernels/scan1_times.py --timeline, which builds this
 // file with SCAN1_STAMPS: thread 0 of a block writes the global timer (ns)
@@ -117,7 +117,6 @@ constexpr int kStreamStage = kTimeThreads * kTile * 4;  // bytes
 constexpr int kStageBytes = 98304;      // a time-axis block's ring, at most
 constexpr int kAlign = 1024;            // the ring's start: TMA's swizzle
 constexpr int kStatic = 3 * kTimeThreads * 4 + kMaxStages * (8 + 3 * 128);
-constexpr int kMaxDevices = 64;
 static_assert(kStageBytes == kMaxStages * kStreamStage, "x alone: 6 stages");
 static_assert(2 * (kStageBytes + kAlign + kStatic + 1024) <= 232448,
               "two time-axis blocks to an SM");
@@ -132,13 +131,6 @@ struct Coef {
 struct Shape {
   int64_t R, S, D, C, nc;  // rows, steps, lanes per row, chunk, chunks
   int K, spans;            // chunks a block, blocks a lane
-};
-
-// The call's ticket counter and, per lane, one word for each span: the
-// carry out of it (high 32 bits) and a flag (low), zero until published.
-struct Chain {
-  unsigned* ticket;
-  unsigned long long* words;
 };
 
 template <int M>
@@ -165,28 +157,6 @@ __device__ __forceinline__ float fold(float carry, float p, float end) {
   return M == kLinear ? pc + end : fmaxf(end, pc);
 }
 
-// The carry travels in its flag's own 64-bit word, so no other write has
-// to be ordered before it: a relaxed (strong, gpu-scope) store and load of
-// the word suffice, and neither waits for the thread's copies in flight,
-// as a release or acquire fence does.
-__device__ __forceinline__ void publish(unsigned long long* w, float carry) {
-  const unsigned long long v =
-      ((unsigned long long)__float_as_uint(carry) << 32) | 1ull;
-  asm volatile("st.relaxed.gpu.global.u64 [%0], %1;\n" ::"l"(w), "l"(v)
-               : "memory");
-}
-
-__device__ __forceinline__ float await_carry(const unsigned long long* w) {
-  unsigned long long v;
-  do {
-    asm volatile("ld.relaxed.gpu.global.u64 %0, [%1];\n"
-                 : "=l"(v)
-                 : "l"(w)
-                 : "memory");
-  } while ((unsigned)v == 0u);
-  return __uint_as_float((unsigned)(v >> 32));
-}
-
 // Fold `n` chunks' aggregates (stride apart in aggp, aggy) from the carry
 // that the lane's previous span published (0 for a lane's first span),
 // leave each chunk's carry-in in cin, and publish the carry out unless
@@ -202,7 +172,7 @@ __device__ __forceinline__ void fold_span(const float* __restrict__ aggp,
                                           unsigned long long* word, int span,
                                           int spans, int64_t t) {
   constexpr int kBatch = 16;
-  float carry = span == 0 ? 0.0f : await_carry(word - 1);
+  float carry = span == 0 ? 0.0f : stage::await_carry(word - 1);
   SCAN1_STAMP(t, 2);
   SCAN1_TICK(f0);
   int c = 0;
@@ -223,7 +193,7 @@ __device__ __forceinline__ void fold_span(const float* __restrict__ aggp,
     cin[c * stride] = carry;
     carry = fold<M>(carry, aggp[c * stride], aggy[c * stride]);
   }
-  if (span + 1 < spans) publish(word, carry);
+  if (span + 1 < spans) stage::publish(word, carry);
   SCAN1_SUM(t, 11, f0);
   SCAN1_STAMP(t, 3);
 }
@@ -237,29 +207,7 @@ __device__ __forceinline__ float out_of(float acc, float p, float cin) {
   return kOut == kJoin ? join<M>(acc, p, cin) : acc;
 }
 
-__device__ __forceinline__ unsigned take_ticket(unsigned* ticket,
-                                                unsigned* slot) {
-  if (threadIdx.x == 0) *slot = atomicAdd(ticket, 1u);
-  __syncthreads();
-  return *slot;
-}
-
 // ---- the time axis: staged tiles -----------------------------------------
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// Wait until at most n of this thread's copy groups are in flight.
-__device__ __forceinline__ void cp_async_wait(int n) {
-  switch (n) {
-    case 0: asm volatile("cp.async.wait_group 0;\n" ::: "memory"); break;
-    case 1: asm volatile("cp.async.wait_group 1;\n" ::: "memory"); break;
-    case 2: asm volatile("cp.async.wait_group 2;\n" ::: "memory"); break;
-    case 3: asm volatile("cp.async.wait_group 3;\n" ::: "memory"); break;
-    default: asm volatile("cp.async.wait_group 4;\n" ::: "memory"); break;
-  }
-}
 
 // One lane's stream: its first step, its step stride, and whether 16-byte
 // copies can move it (step stride 1, 16-byte aligned: every row and tile
@@ -283,8 +231,9 @@ __device__ __forceinline__ int slot_of(int j, int q) {
 
 // Copy steps kt + j * C .. + kTile of rows j < rows into buf (steps at or
 // past S are left alone: no thread reads them).
-__device__ __forceinline__ void stage(float4* buf, const Src& s, int rows,
-                                      int64_t kt, int64_t C, int64_t S) {
+__device__ __forceinline__ void stage_tile(float4* buf, const Src& s,
+                                           int rows, int64_t kt, int64_t C,
+                                           int64_t S) {
   if (s.vec) {
     for (int g = threadIdx.x; g < rows * kRow4; g += kTimeThreads) {
       const int j = g / kRow4, q = g % kRow4;
@@ -433,46 +382,6 @@ struct Maps {
   CUtensorMap x, a, b, y;
 };
 
-__device__ __forceinline__ void tma_load(float4* dst, const CUtensorMap* m,
-                                         int k, int row, int lane,
-                                         uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(tdf2::smem_addr(dst)),
-      "l"(m), "r"(k), "r"(row), "r"(lane), "r"(tdf2::smem_addr(bar))
-      : "memory");
-}
-
-__device__ __forceinline__ void tma_store(const CUtensorMap* m, int k,
-                                          int row, int lane,
-                                          const float4* src) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%1, %2, "
-      "%3}], [%4];\n" ::"l"(m),
-      "r"(k), "r"(row), "r"(lane), "r"(tdf2::smem_addr(src))
-      : "memory");
-  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
-}
-
-// Until the tile stores issued so far have read shared memory (kRead), or
-// are done.
-template <bool kRead>
-__device__ __forceinline__ void tma_store_wait() {
-  if (kRead) {
-    asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
-  } else {
-    asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
-  }
-}
-
-__device__ __forceinline__ void expect_bytes(uint64_t* bar, unsigned bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-          tdf2::smem_addr(bar)),
-      "r"(bytes)
-      : "memory");
-}
-
 // Grid: one block per (span, lane), by ticket: ticket t is span t / L of
 // lane t % L, so a lane's previous span holds ticket t - L. kTma: every
 // staged stream and y move by TMA (D = 1, rows and lanes 16-byte aligned;
@@ -484,7 +393,7 @@ template <int M, bool kTma>
 __global__ void __launch_bounds__(kTimeThreads, 2)
     time_kernel(const float* __restrict__ x, int64_t xrs, int64_t xks,
                 int64_t xds, Coef a, Coef b, float* __restrict__ y,
-                Chain chain, Shape s, int stages,
+                stage::Chain chain, Shape s, int stages,
                 const __grid_constant__ Maps maps, int bcast) {
   extern __shared__ float4 smem[];
   __shared__ float aggp[kTimeThreads], aggy[kTimeThreads],
@@ -499,10 +408,10 @@ __global__ void __launch_bounds__(kTimeThreads, 2)
               (kAlign - 1)) / 16;
   if (kTma && threadIdx.x == 0) {
     for (int st = 0; st < stages; ++st) tdf2::mbar_init(&full[st], 1);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    stage::fence_mbarrier_init();
   }
   const int64_t L = s.R * s.D;
-  const int64_t t = take_ticket(chain.ticket, &tk);
+  const int64_t t = stage::take_ticket(chain.ticket, &tk);
   SCAN1_STAMP(t, 0);
   const int64_t lane = t % L;
   const int span = (int)(t / L);
@@ -538,22 +447,22 @@ __global__ void __launch_bounds__(kTimeThreads, 2)
       const int i = ii % nt;
       if (!kTma) {
         const int64_t kt = k0 + (int64_t)i * kTile;
-        stage(buf(st, 0), sx, rows, kt, s.C, s.S);
-        if (has_a) stage(buf(st, 1), sa, rows, kt, s.C, s.S);
-        if (has_b) stage(buf(st, qb), sb, rows, kt, s.C, s.S);
+        stage_tile(buf(st, 0), sx, rows, kt, s.C, s.S);
+        if (has_a) stage_tile(buf(st, 1), sa, rows, kt, s.C, s.S);
+        if (has_b) stage_tile(buf(st, qb), sb, rows, kt, s.C, s.S);
       } else {
         if (threadIdx.x == 0) {
-          tma_store_wait<true>();  // the stage's last y has left
-          expect_bytes(&full[st], streams * kStreamStage);
+          stage::bulk_wait<true>();  // the stage's last y has left
+          stage::expect_bytes(&full[st], streams * kStreamStage);
           const int k = i * kTile, row = (int)c0;
-          tma_load(buf(st, 0), &maps.x, k, row, bcast & 1 ? 0 : (int)r,
-                   &full[st]);
+          stage::tma_load3(buf(st, 0), &maps.x, k, row,
+                           bcast & 1 ? 0 : (int)r, &full[st]);
           if (has_a)
-            tma_load(buf(st, 1), &maps.a, k, row, bcast & 2 ? 0 : (int)r,
-                     &full[st]);
+            stage::tma_load3(buf(st, 1), &maps.a, k, row,
+                             bcast & 2 ? 0 : (int)r, &full[st]);
           if (has_b)
-            tma_load(buf(st, qb), &maps.b, k, row, bcast & 4 ? 0 : (int)r,
-                     &full[st]);
+            stage::tma_load3(buf(st, qb), &maps.b, k, row,
+                             bcast & 4 ? 0 : (int)r, &full[st]);
         }
         if (jt >= 0 && threadIdx.x < kRow4) {
           const int64_t k = kt0 + (int64_t)i * kTile + 4 * threadIdx.x;
@@ -569,7 +478,7 @@ __global__ void __launch_bounds__(kTimeThreads, 2)
         }
       }
     }
-    cp_async_commit();
+    stage::cp_async_commit();
   };
   for (int ii = 0; ii < stages - 1; ++ii) issue(ii);
 
@@ -582,7 +491,7 @@ __global__ void __launch_bounds__(kTimeThreads, 2)
     const int st = ii % stages;
     const int i = ii % nt;
     SCAN1_TICK(w0);
-    cp_async_wait(stages - 2);
+    stage::cp_async_wait(stages - 2);
     if (kTma) tdf2::mbar_wait<false>(&full[st], (ii / stages) & 1);
     __syncthreads();  // tile ii is in; tile ii - 1's stage is free
     SCAN1_SUM(t, 8, w0);
@@ -630,10 +539,12 @@ __global__ void __launch_bounds__(kTimeThreads, 2)
         drain(buf(st, 0), yl, s.D, rows, k0 + (int64_t)i * kTile, s.C, s.S);
       } else {
         // y over x in the tile, made visible to the copy engine
-        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        stage::fence_proxy_async();
         __syncthreads();
-        if (threadIdx.x == 0)
-          tma_store(&maps.y, i * kTile, (int)c0, (int)r, buf(st, 0));
+        if (threadIdx.x == 0) {
+          stage::tma_store3(&maps.y, i * kTile, (int)c0, (int)r, buf(st, 0));
+          stage::bulk_commit();
+        }
         if (jt >= 0 && threadIdx.x < kTile) {
           const int64_t k = kt0 + (int64_t)i * kTile + threadIdx.x;
           if (k < s.S)
@@ -646,7 +557,7 @@ __global__ void __launch_bounds__(kTimeThreads, 2)
     }
   }
   tdf2::cp_async_wait_all();
-  if (kTma && threadIdx.x == 0) tma_store_wait<false>();
+  if (kTma && threadIdx.x == 0) stage::bulk_wait<false>();
   SCAN1_STAMP(t, 4);
 }
 
@@ -694,13 +605,13 @@ template <int M>
 __global__ void __launch_bounds__(kLaneThreads, 2)
     lane_kernel(const float* __restrict__ x, int64_t xrs, int64_t xks,
                 int64_t xds, Coef a, Coef b, float* __restrict__ y,
-                Chain chain, Shape s) {
+                stage::Chain chain, Shape s) {
   __shared__ float aggp[kLaneThreads], aggy[kLaneThreads],
       cin[kLaneThreads];
   __shared__ unsigned tk;
   const int64_t groups = (s.D + 31) / 32;  // of a row
   const int64_t G = s.R * groups;
-  const int64_t t = take_ticket(chain.ticket, &tk);
+  const int64_t t = stage::take_ticket(chain.ticket, &tk);
   SCAN1_STAMP(t, 0);
   const int64_t g = t % G;
   const int span = (int)(t / G);
@@ -747,44 +658,12 @@ __global__ void __launch_bounds__(kLaneThreads, 2)
 // Allow the time-axis kernels their dynamic shared memory on the current
 // device, once per device.
 int allow_smem() {
-  static bool done[kMaxDevices] = {};
-  int dev = -1;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return (int)err;
-  if (dev < 0 || dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
-  if (done[dev]) return 0;
+  static bool done[stage::kMaxDevices] = {};
   const void* kernels[4] = {(const void*)time_kernel<kLinear, false>,
                             (const void*)time_kernel<kLinear, true>,
                             (const void*)time_kernel<kMaxDecay, false>,
                             (const void*)time_kernel<kMaxDecay, true>};
-  for (const void* k : kernels) {
-    err = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               kStageBytes + kAlign);
-    if (err != cudaSuccess) return (int)err;
-  }
-  done[dev] = true;
-  return 0;
-}
-
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
-                                 cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled, looked up at run time (no link against libcuda).
-EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* f = nullptr;
-    cudaDriverEntryPointQueryResult q;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f,
-                                cudaEnableDefault, &q) == cudaSuccess &&
-        q == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(f);
-  }
-  return fn;
+  return stage::allow_smem(done, kernels, 4, kStageBytes + kAlign);
 }
 
 // Whether a stream (first step p, row stride rs, step stride ks) can move
@@ -798,7 +677,7 @@ bool tma_fits(const void* p, int64_t rs, int64_t ks) {
 // The map of a stream's full chunks: [lanes, rows, C] steps, boxes of
 // kTile steps x kTimeThreads rows; lanes = 1 where rs == 0.
 bool encode(CUtensorMap* m, const float* p, int64_t rs, Shape s) {
-  EncodeTiled fn = encoder();
+  stage::EncodeTiled fn = stage::encoder();
   if (fn == nullptr) return false;
   const int64_t rows = s.S / s.C;
   const cuuint64_t dims[3] = {(cuuint64_t)s.C, (cuuint64_t)rows,
@@ -815,8 +694,8 @@ bool encode(CUtensorMap* m, const float* p, int64_t rs, Shape s) {
 
 template <int M>
 int launch(const float* x, int64_t xrs, int64_t xks, int64_t xds, Coef a,
-           Coef b, float* y, Chain chain, Shape s, int layout, int threads,
-           int stages, int64_t blocks, cudaStream_t st) {
+           Coef b, float* y, stage::Chain chain, Shape s, int layout,
+           int threads, int stages, int64_t blocks, cudaStream_t st) {
   if (layout == kLanes) {
     lane_kernel<M><<<(unsigned)blocks, threads, 0, st>>>(x, xrs, xks, xds,
                                                          a, b, y, chain, s);
@@ -860,7 +739,7 @@ int launch(const float* x, int64_t xrs, int64_t xks, int64_t xds, Coef a,
 // allows it on the current device (a call on another device sets it there
 // the first time).
 extern "C" int scan1_init(int stage_bytes) {
-  if (stage_bytes != kStageBytes || encoder() == nullptr)
+  if (stage_bytes != kStageBytes || stage::encoder() == nullptr)
     return (int)cudaErrorInvalidValue;
   int err = allow_smem();
   return err != 0 ? err : (int)cudaGetLastError();
@@ -909,11 +788,9 @@ extern "C" int scan1(int mode, const float* x, int64_t xrs, int64_t xks,
   const int64_t blocks = groups * spans;
   if (blocks > 0x7fffffff) return (int)cudaErrorInvalidValue;
   const Shape s = {R, S, D, C, nc, K, (int)spans};
-  unsigned long long* words = static_cast<unsigned long long*>(scratch);
-  const Chain chain = {reinterpret_cast<unsigned*>(words), words + 1};
-  cudaError_t e = cudaMemsetAsync(
-      scratch, 0, (size_t)(1 + R * D * spans) * sizeof(unsigned long long),
-      st);
+  stage::Chain chain;
+  const cudaError_t e = stage::chain_of(scratch, 1 + R * D * spans, st,
+                                        &chain);
   if (e != cudaSuccess) return (int)e;
   const Coef ca = {a, va, ars, aks, ads};
   const Coef cb = {b, vb, brs, bks, bds};

@@ -55,8 +55,8 @@ SIGNATURES = {
                            + [_I, _I64, _P]),
     "biquad_serial_state": ([_I] + [_P] * 6 + [_F] * 5 + [_I64] * 3 + [_P]
                             + [_I, _I64, _I64] + [_P] * 3),
-    "scan_stream": ([_I, _P, _I64] + [_P, _F, _I64] * 2 + [_P] * 5
-                    + [_I, _I64, _P]),
+    "scan_stream": ([_I, _P, _I64] + [_P, _F, _I64] * 2 + [_P] * 4
+                    + [_I, _I64, _I, _P]),
     "comb_stream": ([_I, _P, _P, _F, _I64, _F, _F] + [_P] * 5
                     + [_I, _I64, _I64, _P]),
     "scan1_init": [_I],

@@ -3,10 +3,14 @@ recurrences groove_tpu/ops/stream.py leaves to XLA scans; no Pallas
 kernel in the reference):
 
   S1  scan_stream        one_pole_stream (:114), max_decay_stream (:385):
-                         csrc/scan_stream.cu, y0 [R] in, y_last out;
+                         csrc/scan_stream.cu, y0 [R] in, y_last out (one
+                         launch a call: spans of 64-blocks staged in
+                         shared memory and chained by a ticket, scan_plan);
   S2  comb_stream        comb_feedback_stream(_automated) (:253, :275),
       allpass_stream     allpass_stream (:302): csrc/comb_stream.cu, the
-                         delay-line tails [R, D] in and out;
+                         delay-line tails [R, D] in and out (one launch a
+                         call: lanes walk tiles staged in shared memory,
+                         comb_plan);
   S3  biquad_state       biquad_stream (:44), iir.biquad(block=64,
                          initial_state, return_state): csrc/biquad.cu
                          biquad_tiled_state (K5's scalar, K4's block and
@@ -32,6 +36,9 @@ tensor the kernel (LAUNCHES counts its calls); there is no fallback.
 
 from __future__ import annotations
 
+import functools
+from dataclasses import dataclass
+
 import numpy as np
 import torch
 
@@ -47,6 +54,25 @@ from groove_tpu_torch.ops.iir_kernels import (BLOCK as BLOCK_MODE, SAMPLE,
 STREAM_BLOCK = 64
 LINEAR, MAX_DECAY = 0, 1   # csrc/scan_stream.cu Mode
 COMB, ALLPASS = 0, 1       # csrc/comb_stream.cu Mode
+# csrc/scan_stream.cu
+SCAN_ROW = 68              # kRow: floats of a staged 64-block
+SCAN_THREADS = 256         # kThreads
+SCAN_SPAN_ROWS = 768       # kSpanRows: staged 64-blocks a span, x alone
+SCAN_STAGE = 208896        # kStageBytes
+SCAN_BATCH = 16            # kBatch: a span is a multiple of it
+SCAN_MIN_SPAN = 128        # 64-blocks a span holds at least
+H100_SMS = 132             # streaming multiprocessors of an H100 SXM
+# csrc/comb_stream.cu
+COMB_STAGE_FLOATS = 4096   # kStageFloats: a lane group's tile of a stream
+COMB_STAGES = 6            # kStages: of a lane group's ring
+COMB_CONTIG_STAGES = 3     # kContigStages: of a contiguous block's ring
+COMB_MAX_CONTIG = 256      # kMaxContig: lanes of a contiguous block
+COMB_GROUP = 32            # kGroup: lanes of a block past kMaxContig
+COMB_BOX = 32              # kBox: rows (of 4 periods) of a tensor-map box
+COMB_ROW = 36              # kRowW: floats of a box row
+COMB_STAGE_STRIDE = 4608   # kStageStride: floats of a stream's stage
+COMB_ALIGN = 128           # kAlign
+COMB_RING = 221312         # kRingBytes: the ring at its largest
 LAUNCHES = {"scan_stream": 0, "comb_stream": 0, "biquad_stream": 0,
             "biquad_serial_stream": 0}
 
@@ -86,6 +112,40 @@ def _value_args(c) -> list:
 # S1: first-order scans with a carried value
 
 
+@dataclass(frozen=True)
+class ScanPlan:
+    """One S1 call's launch (csrc/scan_stream.cu): `span` 64-blocks a
+    thread block, `spans` a row chained in order, `blocks` thread blocks
+    of SCAN_THREADS threads, `smem_bytes` of dynamic shared memory (the
+    widest span's staged rows), `scratch_words` 64-bit words of ticket
+    and flags. A span stages in time proportional to its size, and a
+    handoff between spans is short against a span's walk (measured on an
+    H100: kernels/carried_times.py --stages), so the spans of a call
+    spread over the card's `sms` SMs, one each, from SCAN_MIN_SPAN blocks
+    up to as many as SCAN_STAGE holds for `streams` staged streams."""
+
+    span: int
+    spans: int
+    blocks: int
+    threads: int
+    streams: int
+    smem_bytes: int
+    scratch_words: int
+
+
+@functools.lru_cache(maxsize=256)
+def scan_plan(R: int, S: int, streams: int, sms: int = H100_SMS) -> ScanPlan:
+    """The launch for [R, S] rows with `streams` staged streams (x, and a
+    and b where they are tensors; max_decay reads no b) on a card of
+    `sms` SMs."""
+    nb = S // STREAM_BLOCK
+    even = -(-(-(-nb * R // sms)) // SCAN_BATCH) * SCAN_BATCH
+    span = min(SCAN_SPAN_ROWS // streams, max(SCAN_MIN_SPAN, even))
+    spans = -(-nb // span)
+    return ScanPlan(span, spans, R * spans, SCAN_THREADS, streams,
+                    streams * min(span, nb) * SCAN_ROW * 4, 1 + R * spans)
+
+
 def scan_stream(x: torch.Tensor, a, b=1.0, y0=0.0, mode: int = LINEAR):
     """y[k] = a[k] y[k-1] + b[k] x[k] (LINEAR) or max(x[k], a[k] y[k-1])
     (MAX_DECAY) along the last axis of x [..., S] (S a multiple of 64),
@@ -107,20 +167,27 @@ def scan_stream(x: torch.Tensor, a, b=1.0, y0=0.0, mode: int = LINEAR):
     return y.reshape(x.shape), last.reshape(x.shape[:-1])
 
 
+@functools.lru_cache(maxsize=16)
+def _sms(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def _launch_scan(x2, ca, cb, y0, mode):
     from groove_tpu_torch.kernels.build import library
 
     check_input(x2, "scan_stream kernel")
     R, S = x2.shape
-    nb = S // STREAM_BLOCK
+    streams = 1 + torch.is_tensor(ca) + (mode == LINEAR
+                                         and torch.is_tensor(cb))
+    p = scan_plan(R, S, streams, _sms(x2.device))
     f32 = dict(dtype=torch.float32, device=x2.device)
     y = torch.empty((R, S), **f32)
     last = torch.empty((R,), **f32)
-    blk = torch.empty((R, nb, 2), **f32)
-    entry = torch.empty((R, nb), **f32)
+    scratch = torch.empty((p.scratch_words,), dtype=torch.int64,
+                          device=x2.device)
     err = library().scan_stream(
         mode, ptr(x2), x2.stride(0), *_value_args(ca), *_value_args(cb),
-        ptr(y0), ptr(last), ptr(y), ptr(blk), ptr(entry), R, S,
+        ptr(y0), ptr(last), ptr(y), ptr(scratch), R, S, p.span,
         stream_of(x2))
     if err:
         raise RuntimeError(f"scan_stream kernel launch failed: CUDA error "
@@ -129,7 +196,7 @@ def _launch_scan(x2, ca, cb, y0, mode):
 
 
 def _scan_plain(x2, a, b, y0, mode):
-    """The kernel's three passes in torch: each 64-block folded from its
+    """The kernel's arithmetic in torch: each 64-block folded from its
     first element, the chain of blocks from y0, then y = C + A e
     (max_decay: max(C, A e))."""
     R, S = x2.shape
@@ -182,6 +249,56 @@ def scan_stream_plain(x: torch.Tensor, a, b=1.0, y0=0.0,
 # S2: combs and all-passes with carried delay-line tails
 
 
+@dataclass(frozen=True)
+class CombPlan:
+    """One S2 call's launch (csrc/comb_stream.cu) for 16-byte aligned
+    tensors: `contiguous` (every lane of a row in one thread block, a tile
+    one contiguous time range) or lane groups of COMB_GROUP; `lanes` of a
+    tile row, `groups` thread blocks a row, `periods` delay periods a tile,
+    `tiles` a row, of which `map_tiles` by tensor map (lane groups: the
+    row as [S // 4D, 4D], periods below `map_periods`); a ring of `stages`
+    tiles of `streams` streams (x, and g where it is per sample), `stride`
+    floats a stream's stage; `threads` a block (the lanes' warps and the
+    mover's), `blocks` in all, `smem_bytes` of dynamic shared memory."""
+
+    contiguous: bool
+    lanes: int
+    groups: int
+    periods: int
+    tiles: int
+    map_tiles: int
+    map_periods: int
+    stages: int
+    stride: int
+    streams: int
+    threads: int
+    blocks: int
+    smem_bytes: int
+
+
+@functools.lru_cache(maxsize=256)
+def comb_plan(R: int, S: int, D: int, streams: int) -> CombPlan:
+    """The launch for [R, S] rows with delay D and `streams` staged
+    streams."""
+    contiguous = D <= COMB_MAX_CONTIG
+    lanes = D if contiguous else COMB_GROUP
+    groups = 1 if contiguous else -(-D // COMB_GROUP)
+    if contiguous:
+        stages = COMB_CONTIG_STAGES
+        stride = (COMB_RING - COMB_ALIGN) // 4 // (stages * streams) // 32 * 32
+        periods = (stride - 3) // D
+    else:
+        stages, stride, periods = COMB_STAGES, COMB_STAGE_STRIDE, 4 * COMB_BOX
+    P = -(-S // D)
+    P4 = 0 if contiguous or S % 4 or S < 4 * D else 4 * (S // (4 * D))
+    map_tiles = -(-P4 // periods)
+    tiles = map_tiles + -(-(P - P4) // periods)
+    threads = (-(-D // 32) * 32 if contiguous else COMB_GROUP) + 32
+    return CombPlan(contiguous, lanes, groups, periods, tiles, map_tiles,
+                    P4, stages, stride, streams, threads, R * groups,
+                    COMB_ALIGN + stages * streams * stride * 4)
+
+
 def _allpass_constants(g: float):
     """g, -g and 1 - g^2 as the reference's Python float64 expressions,
     each rounded once to float32."""
@@ -231,6 +348,7 @@ def allpass_stream(x: torch.Tensor, hist_w, g: float):
 
 
 def _launch_comb(mode, x2, g, ng, c1, hx, hy):
+    """S2's launch; the kernel derives comb_plan's geometry itself."""
     from groove_tpu_torch.kernels.build import library
 
     check_input(x2, "comb_stream kernel")

@@ -35,7 +35,8 @@ def test_sources_are_the_packaged_kernels():
     assert names == ["biquad.cu", "comb_stream.cu", "drums.cu", "lp24.cu",
                      "lp24_stream.cu", "scan1.cu", "scan_stream.cu",
                      "serial.cu"]
-    assert [p.name for p in build.headers()] == ["tdf2.cuh", "tiled.cuh"]
+    assert [p.name for p in build.headers()] == ["stage.cuh", "tdf2.cuh",
+                                                 "tiled.cuh"]
     for p in build.sources():
         text = p.read_text()
         assert 'extern "C"' in text and "cudaGetLastError" in text

@@ -19,7 +19,8 @@ calls queued back to back, a captured graph replayed; the FM modulator
 phase's shapes), the unsliced stream's carried-state kernels S1-S4
 (ops/stream_kernels.py: scan_stream, comb_stream, biquad_state,
 biquad_serial_state against their twins, chained calls = one call on the
-card), plus short renders of the slices, of a streamed Welsh song and
+card; S1 and S2 also at their plans' edge shapes and replayed from a
+captured graph), plus short renders of the slices, of a streamed Welsh song and
 of the same song offline, of the kitchen-sink and perf-1 analogues, of
 the FM and instruments analogues, of a MIDI file, and of the 10-second
 kitchen-sink and 2-second sidechain analogues streamed unsliced, on the
@@ -1017,6 +1018,127 @@ def test_stream_kernels_chain_on_card(cuda_device):
     assert torch.equal(torch.cat(parts3, 1), y3)
     assert all(torch.equal(a, b) for a, b in zip(st3, s3))
     assert torch.equal(torch.cat(parts2, 1), y2) and torch.equal(hy, h2)
+
+
+def _offset(t: torch.Tensor) -> torch.Tensor:
+    """t's values in a contiguous tensor whose data starts 4 bytes past a
+    16-byte boundary."""
+    base = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = base[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+def _edge_case(name: str):
+    """name -> the call on seeded inputs (wrapper, args), for the S1/S2
+    plans' edge shapes: spans of 128 blocks with a short last one, rows
+    and coefficients off 16 bytes (the cp.async routes), contiguous
+    all-pass tiles cut across periods, S < D, lane groups through the
+    tensor map with the periods past it by copies, odd and multiple-of-4
+    delays, no map (S % 4), a partial last lane group."""
+    from groove_tpu_torch.ops import delayfx
+    from groove_tpu_torch.ops import stream_kernels as sk
+
+    kind, *rest = name.split()
+    rng = np.random.default_rng(len(name))
+    if kind.startswith("S1"):
+        S = 64 * int(rest[0])
+        x = torch.from_numpy((rng.standard_normal((2, S)) * 0.3)
+                             .astype(np.float32))
+        a = torch.from_numpy(rng.uniform(0.9, 0.9995, (2, S))
+                             .astype(np.float32))
+        if "broadcast" in rest:
+            a = a[0]
+        u = _offset if "unaligned" in rest else (lambda t: t)
+        y0 = torch.tensor([0.2, -0.1])
+        if "max" in rest:
+            return lambda v: sk.scan_stream(u(v(x).abs()), u(v(a)), 1.0,
+                                            v(y0).abs(), sk.MAX_DECAY)
+        return lambda v: sk.scan_stream(u(v(x)), u(v(a)), u(1 - v(a)),
+                                        v(y0))
+    D, S = int(rest[0]), int(rest[1])
+    x = torch.from_numpy((rng.standard_normal((2, S)) * 0.3)
+                         .astype(np.float32))
+    h = torch.from_numpy((rng.standard_normal((2, D)) * 0.1)
+                         .astype(np.float32))
+    u = _offset if "unaligned" in rest else (lambda t: t)
+    if kind == "S2a":
+        return lambda v: sk.allpass_stream(u(v(x)), v(h), delayfx.ALLPASS_G)
+    g = 0.83
+    if "g" in rest:
+        g = torch.from_numpy(rng.uniform(0.5, 0.9, S).astype(np.float32))
+    if "g-rows" in rest:
+        g = torch.from_numpy(rng.uniform(0.5, 0.9, (2, S))
+                             .astype(np.float32))
+    gv = (lambda v: u(v(g))) if torch.is_tensor(g) else (lambda v: g)
+    return lambda v: sk.comb_stream(u(v(x)), v(h), 0.5 * v(h), gv(v))
+
+
+EDGE_CASES = [
+    "S1 129", "S1 300", "S1 300 broadcast", "S1 300 max broadcast",
+    "S1 300 unaligned", "S1 300 max unaligned",
+    "S2a 75 55248", "S2a 75 50", "S2a 75 55248 unaligned", "S2a 221 40000",
+    "S2c 1927 255364 g", "S2c 1927 255364", "S2c 1928 15424 g-rows",
+    "S2c 1310 15727 g", "S2c 300 12000", "S2c 1100 900 g",
+    "S2c 1927 255364 g unaligned",
+]
+
+
+@pytest.mark.parametrize("name", EDGE_CASES)
+def test_carried_kernels_edge_shapes(cuda_device, name):
+    """S1 and S2 at their plans' edge shapes on the card = the CPU twins
+    bit for bit (y and the carried state), one counted launch each."""
+    from groove_tpu_torch.ops import stream_kernels as sk
+
+    call = _edge_case(name)
+    before = sum(sk.LAUNCHES.values())
+    on_card = call(lambda t: t.to(cuda_device))
+    torch.cuda.synchronize()
+    assert sum(sk.LAUNCHES.values()) == before + 1
+    assert torch.equal(_flat_out(on_card), _flat_out(call(lambda t: t)))
+
+
+def test_carried_kernels_chain_and_replay_on_card(cuda_device):
+    """The automated comb (odd D, lane groups through the tensor map) and
+    the all-pass chained over cuts off their delays' grid = one call; S1
+    and S2 captured in a CUDA graph and replayed = the eager calls (the
+    ticket words zeroed by a memset inside the graph)."""
+    from groove_tpu_torch.ops import delayfx
+    from groove_tpu_torch.ops import stream_kernels as sk
+
+    rng = np.random.default_rng(21)
+    S = 4 * 1927 * 12 + 300
+    x = torch.from_numpy((rng.standard_normal((2, S)) * 0.3)
+                         .astype(np.float32)).to(cuda_device)
+    g = torch.from_numpy(rng.uniform(0.5, 0.9, S).astype(np.float32)).to(
+        cuda_device)
+    hz = torch.zeros(2, 1927, device=cuda_device)
+    y, _, hy = sk.comb_stream(x, hz, hz, g)
+    ya, hw = sk.allpass_stream(x, hz[:, :75], delayfx.ALLPASS_G)
+    parts, partsa, hx2, hy2, hw2 = [], [], hz, hz, hz[:, :75]
+    cuts = [0, 1000, 1000 + 4 * 1927 * 5 + 3, S - 77, S]
+    for lo, hi in zip(cuts[:-1], cuts[1:]):
+        c, hx2, hy2 = sk.comb_stream(x[:, lo:hi], hx2, hy2, g[lo:hi])
+        d, hw2 = sk.allpass_stream(x[:, lo:hi], hw2, delayfx.ALLPASS_G)
+        parts.append(c)
+        partsa.append(d)
+    assert torch.equal(torch.cat(parts, 1), y) and torch.equal(hy2, hy)
+    assert torch.equal(torch.cat(partsa, 1), ya) and torch.equal(hw2, hw)
+
+    n = 64 * 300
+    a = torch.from_numpy(rng.uniform(0.9, 0.999, n).astype(np.float32)).to(
+        cuda_device)
+    y0 = torch.tensor([0.1, 0.2], device=cuda_device)
+    calls = lambda: (sk.scan_stream(x[:, :n].abs(), a, 1 - a, y0),  # noqa
+                     sk.comb_stream(x, hz, hz, g))
+    eager = calls()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = calls()
+    graph.replay()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(_flat_out(captured), _flat_out(eager))
 
 
 @pytest.mark.parametrize("make, measures, bpm",
