@@ -14,8 +14,10 @@ and FM's automated modulator phase), and the unsliced segment-streamed
 render's carried-state kernels S1 (csrc/scan_stream.cu: the follower's
 peak hold and one-pole), S2 (csrc/comb_stream.cu: the reverb's combs and
 all-passes), S3 (csrc/biquad.cu biquad_tiled_state: one filter section
-at 64-frame blocks) and S4 (csrc/serial.cu biquad_serial_state: the
-serial scan), each with its state carried in and out.
+at 64-frame blocks; also the live Welsh voices' two filter sections) and
+S4 (csrc/serial.cu biquad_serial_state: the serial scan), each with its
+state carried in and out; and live playback from MIDI bytes through the
+whole song graph, a block at a time.
 
     python3 chip_smoke.py
 
@@ -143,6 +145,26 @@ Phases, one JSON line each:
      segment and at 4096-frame segments (the same bits), their CLI WAVs
      equal to the CPU twins' (0 LSB); a `--loop` bounce on the card equal
      to the CPU twins' bounce.
+  7. live playback (engine/livesong.py): the live analogue
+     (testing/synth.live_project: a Welsh pad with a noise oscillator and
+     an S&H LFO, an FM voice, the 707 kit, a sampler, an envelope
+     instrument and a free-running oscillator through a compressor and a
+     limiter (S1), a reverb (S2), a delay, filters on S3 and S4, a
+     sidechain link, a send and a trip) played through LiveSongService by
+     the scripted performance (testing/synth.live_performance), its MIDI
+     bytes through a pipe, the sink a list: 2 s at 64-frame blocks and
+     10 s at 4096, live input only and along with the song. Each run with
+     the launch counts set to 0 just before it and read just after,
+     against the renderer's live_launches() plan; each block's wall
+     milliseconds (median, p99) against its realtime; torch operations a
+     block (by device) and the card's busy time (a profiler); S3 at the
+     live shape [8, 64] (the pad's filter section, BLOCK mode with state)
+     against its twin with its time and bound; the pipelined pull equal
+     to the plain pull; the native null sink for 2 s at 64 frames (its
+     underruns); then every run against the CPU twins' render of the same
+     performance, bit for bit (rendered meanwhile by two background
+     processes, `chip_smoke.py --live-twin`, with no card visible; a
+     difference names the first device whose block output parts).
 Then the kernel summary line, the nvidia-smi line, and the result line.
 Without a CUDA device it exits non-zero before printing any result.
 Synthetic assets and outputs go to build/chip_smoke/ in this checkout.
@@ -171,6 +193,7 @@ import sys
 import time
 from pathlib import Path
 
+START = time.monotonic()
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT))
 
@@ -1053,6 +1076,365 @@ def bucket_peaks(r) -> list:
     return out
 
 
+# ---- 7. live playback -------------------------------------------------------
+# (mode, frames a block, seconds of audio): the live analogue
+# (testing/synth.live_project) played by the scripted performance, live
+# input only and along with the song, at the audio callback's 64 frames and
+# in the lookahead mode's 4096
+LIVE_RUNS = (("live", 64, 2.0), ("play", 64, 2.0), ("live", 4096, 10.0),
+             ("play", 4096, 10.0))
+LIVE_MEASURES = 2   # the sequenced song: 4 s at 120 bpm, so the 10-second
+#                     play-along switches to live input at its end
+# the CPU twins' renders of LIVE_RUNS, in background processes started
+# before phase 3 (one process a group, one torch thread each)
+LIVE_TWIN_GROUPS = ((("play", 64, 2.0),),
+                    (("live", 64, 2.0), ("live", 4096, 10.0),
+                     ("play", 4096, 10.0)))
+LIVE_PROFILE_BLOCKS = 16  # blocks counted for operations and device time
+
+
+def live_compiled(assets):
+    from groove_tpu_torch.compiler.song import compile_song
+    from groove_tpu_torch.project.paths import Paths
+    from groove_tpu_torch.project.schema import SongSettings
+    from groove_tpu_torch.testing import synth
+
+    return compile_song(SongSettings.from_json(
+        synth.live_project(LIVE_MEASURES)), Paths(roots=[assets]))
+
+
+def live_schedule(block: int, seconds: float) -> list:
+    from groove_tpu_torch.testing import synth
+
+    return synth.block_schedule(synth.live_performance(seconds), block,
+                                int(seconds * 44100) // block)
+
+
+def tap_digests(taps: dict) -> dict:
+    """Each device's output of a block as a short hash of its bytes."""
+    import hashlib
+
+    return {u: hashlib.sha1(t.detach().cpu().numpy().tobytes()
+                            ).hexdigest()[:16] for u, t in taps.items()}
+
+
+def live_twin_main(argv) -> int:
+    """--live-twin ASSETS OUT MODE:BLOCK:SECONDS...: render LIVE_RUNS'
+    performances on the CPU twins (one torch thread) into OUT: the audio
+    (.npy) and each block's per-device digests and the seconds it took
+    (.json)."""
+    import numpy as np
+    import torch
+
+    from groove_tpu_torch.engine.livesong import LiveSongRenderer
+    from groove_tpu_torch.testing import synth
+
+    torch.set_num_threads(1)
+    assets, out = Path(argv[0]), Path(argv[1])
+    compiled = live_compiled(assets)
+    for job in argv[2:]:
+        mode, block, seconds = job.split(":")
+        block, seconds = int(block), float(seconds)
+        r = LiveSongRenderer(compiled, block_frames=block,
+                             play_song=mode == "play", device="cpu")
+        r.taps = {}
+        digests = []
+        t0 = time.perf_counter()
+        audio = synth.play_live(
+            r, live_schedule(block, seconds),
+            after_block=lambda: digests.append(tap_digests(r.taps)))
+        took = time.perf_counter() - t0
+        np.save(out / f"{mode}-{block}.npy", audio)
+        (out / f"{mode}-{block}.json").write_text(json.dumps(
+            {"seconds": took, "digests": digests}))
+    return 0
+
+
+def start_live_twins(work: Path, assets: Path) -> tuple:
+    """Start LIVE_TWIN_GROUPS' CPU processes (no card visible to them);
+    returns (output directory, processes). They are stopped at exit."""
+    import atexit
+
+    out = work / "live-twins"
+    out.mkdir(parents=True, exist_ok=True)
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1")
+    procs = []
+    for k, group in enumerate(LIVE_TWIN_GROUPS):
+        log = open(out / f"worker-{k}.log", "w")
+        procs.append(subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--live-twin",
+             str(assets), str(out)]
+            + [f"{m}:{b}:{sec}" for m, b, sec in group],
+            env=env, stdout=log, stderr=subprocess.STDOUT, cwd=str(ROOT)))
+
+    def stop():
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+
+    atexit.register(stop)
+    return out, procs
+
+
+class OpCount:
+    """Counts the torch operations dispatched on CUDA tensors inside it
+    (views included; the hand kernels' ctypes launches are not torch
+    operations)."""
+
+    def __enter__(self):
+        import torch
+        from torch.utils._python_dispatch import TorchDispatchMode
+        from torch.utils._pytree import tree_leaves
+
+        counter = self
+
+        class Mode(TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                out = func(*args, **(kwargs or {}))
+                if any(isinstance(t, torch.Tensor) and t.is_cuda
+                       for t in tree_leaves((args, kwargs, out))):
+                    counter.n += 1
+                return out
+
+        self.n = 0
+        self._mode = Mode()
+        self._mode.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self._mode.__exit__(*exc)
+
+
+def live_phase(dev, work: Path, assets: Path, twins, zero_launches,
+               launches, totals) -> None:
+    """Phase 7: the live analogue on the card through LiveSongService (the
+    performance's MIDI bytes through a pipe, the sink a list): LIVE_RUNS
+    with each block's wall milliseconds (median, p99) against the block's
+    realtime, the launches against the renderer's live_launches() plan
+    (counts set to 0 just before, read just after), torch operations and
+    kernel launches a block and the card's busy time (LIVE_PROFILE_BLOCKS
+    blocks); S3 at the live shape [8, 64] against its twin; the pipelined
+    pull against the plain one; the native null sink for 2 s at 64 frames
+    (underruns); then each run against the CPU twins' render of the same
+    performance (the background processes), bit for bit, naming the first
+    device whose output parts where they differ."""
+    import numpy as np
+    import torch
+
+    from groove_tpu_torch.engine.livesong import (LiveSongRenderer,
+                                                  LiveSongService)
+    from groove_tpu_torch.io import native
+    from groove_tpu_torch.ops import stream_kernels as sk
+    from groove_tpu_torch.testing import synth
+
+    compiled = live_compiled(assets)
+    sr = float(compiled.sample_rate)
+    cards = {}
+    for mode, block, seconds in LIVE_RUNS:
+        t0 = time.perf_counter()
+        r = LiveSongRenderer(compiled, block_frames=block,
+                             play_song=mode == "play", device=dev)
+        setup_s = time.perf_counter() - t0
+        sched = live_schedule(block, seconds)
+        n_blocks = len(sched)
+        played = sum(1 for k in range(n_blocks)
+                     if mode == "play" and k * block < r.plan_frames)
+        want = {}
+        for flag, count in ((True, played), (False, n_blocks - played)):
+            for k, v in r.live_launches(flag).items():
+                want[k] = want.get(k, 0) + v * count
+        times = []
+        zero_launches()
+        audio = synth.play_live(r, sched, times=times)
+        got = {k: v for k, v in launches().items() if v}
+        for k in totals:
+            totals[k] += got.get(k, 0)
+        cards[(mode, block)] = audio
+        ms = np.asarray(times) * 1e3
+        budget = block / sr * 1e3
+        peak = float(np.abs(audio).max())
+        emit("live", mode=mode, block_frames=block, blocks=n_blocks,
+             seconds_of_audio=n_blocks * block / sr, setup_s=setup_s,
+             block_ms_median=float(np.median(ms)),
+             block_ms_p99=float(np.percentile(ms, 99)),
+             block_ms_max=float(ms.max()), realtime_ms=budget,
+             xrt=budget / float(np.median(ms)),
+             over_realtime_share=float((ms > budget).mean()),
+             launches=got, planned_launches=want,
+             play_blocks=played, peak=peak)
+        require(got == want, f"live {mode} {block}: launched {got}, "
+                f"planned {want}")
+        require(bool(np.isfinite(audio).all()) and 0.01 < peak < 1.0,
+                f"live {mode} {block}: peak {peak}")
+        # torch operations a block by device, then kernel launches and the
+        # card's busy time a block, each on the performance's first blocks
+        # played again by a fresh renderer (in the same mode; its
+        # constructor rendered a warm-up block)
+        more = sched[:LIVE_PROFILE_BLOCKS]
+        r = LiveSongRenderer(compiled, block_frames=block,
+                             play_song=mode == "play", device=dev)
+        by_device: dict = {}
+
+        def counted(fn):
+            def run(device, *args):
+                n0 = ops.n
+                out = fn(device, *args)
+                by_device[device.uvid] = by_device.get(device.uvid, 0) \
+                    + ops.n - n0
+                return out
+            return run
+
+        r._render_instrument_seg = counted(r._render_instrument_seg)
+        r._apply_effect_seg = counted(r._apply_effect_seg)
+        with OpCount() as ops:
+            synth.play_live(r, more[:LIVE_PROFILE_BLOCKS // 2])
+        counted_blocks = len(more[:LIVE_PROFILE_BLOCKS // 2])
+        r = LiveSongRenderer(compiled, block_frames=block,
+                             play_song=mode == "play", device=dev)
+        prof = torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA])
+        t0 = time.perf_counter()
+        with prof:
+            synth.play_live(r, more)
+        wall = time.perf_counter() - t0
+        events = [e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        busy_us = sum(e.time_range.elapsed_us() for e in events)
+        n_prof = len(more)
+        emit("live_profile", mode=mode, block_frames=block,
+             blocks=n_prof, torch_ops_per_block=ops.n / counted_blocks,
+             torch_ops_per_block_by_device={
+                 u: v / counted_blocks for u, v in sorted(
+                     by_device.items(), key=lambda kv: -kv[1])},
+             device_events_per_block=len(events) / n_prof,
+             device_busy_ms_per_block=(busy_us / 1e3 / n_prof
+                                       if events else "not measured"),
+             wall_ms_per_block=wall * 1e3 / n_prof,
+             device_idle_share=(1.0 - busy_us / 1e6 / wall
+                                if events else "not measured"))
+
+    # S3 at the live shape: the pad's first filter section of a block
+    captured = []
+    plain_call = sk.biquad_state
+
+    def capture(x, coefs, state):
+        if tuple(x.shape) == (8, 64) and not captured:
+            captured.append((x.clone(), tuple(c.clone() for c in coefs),
+                             tuple(t.clone() for t in state)))
+        return plain_call(x, coefs, state)
+
+    r = LiveSongRenderer(compiled, block_frames=64, device=dev)
+    for key in (48, 55, 60, 64):
+        r.note_on(synth.LIVE_CHANNELS["pad"], key, 100)
+    for _ in range(8):
+        r.render_block()
+    sk.biquad_state = capture
+    try:
+        r.render_block()
+    finally:
+        sk.biquad_state = plain_call
+    require(len(captured) == 1, "no S3 call at [8, 64] in a live block")
+    x, secs, st = captured[0]
+
+    def flat(out):
+        return (out[0], *out[1])
+
+    res = compare("biquad_stream",
+                  lambda: flat(sk.biquad_state(x, secs, st)),
+                  lambda: flat(sk.biquad_state_plain(x, secs, st)),
+                  x.abs().max(), iir_work("S3", 8, 64, coef_bytes(secs), 2),
+                  reps=200, graph=True)
+    emit("stream_kernel_check", call="the live Welsh pad's filter "
+         "section, BLOCK mode with state", mode=sk._coef_mode(secs, 64),
+         **res)
+    require(res["bitwise"], f"S3 at [8, 64] differs from its twin: {res}")
+
+    # the pipelined pull against the plain pull, timed
+    for block, n in ((64, 100), (4096, 12)):
+        outs, per = [], []
+        for pipelined in (False, True):
+            r = LiveSongRenderer(compiled, block_frames=block, device=dev)
+            for ch, key in ((0, 48), (0, 55), (1, 64), (9, 35), (2, 60),
+                            (3, 69)):
+                r.note_on(ch, key, 100)
+            pull = r.render_block_pipelined if pipelined else r.render_block
+            t0 = time.perf_counter()
+            outs.append(np.concatenate([pull() for _ in range(n)]))
+            per.append((time.perf_counter() - t0) * 1e3 / n)
+        equal = bool(np.array_equal(outs[0], outs[1]))
+        emit("live_pipelined", block_frames=block, blocks=n,
+             plain_ms_per_block=per[0], pipelined_ms_per_block=per[1],
+             equal=equal)
+        require(equal, f"pipelined pull differs at {block} frames")
+
+    # the native null sink, paced at realtime, for 2 s at 64 frames
+    if native.available():
+        r = LiveSongRenderer(compiled, block_frames=64, device=dev)
+        r_fd, w_fd = os.pipe()
+        svc = LiveSongService(r, midi_source=os.fdopen(r_fd, "rb",
+                                                       buffering=0))
+        events = synth.live_performance(2.0)
+        t0 = time.perf_counter()
+        for frame, msg in events:
+            wait = t0 + frame / sr - time.perf_counter()
+            if wait > 0:
+                time.sleep(wait)
+            os.write(w_fd, msg)
+        time.sleep(max(0.0, t0 + 2.0 - time.perf_counter()))
+        consumed = svc._audio.frames_consumed()
+        underruns = svc.underruns()
+        blocks = svc.blocks_rendered
+        os.close(w_fd)
+        svc.stop()
+        emit("live_native", seconds=2.0, block_frames=64,
+             frames_consumed=consumed, blocks_rendered=blocks,
+             underruns=underruns, events=svc.events_handled)
+        require(consumed >= 1.5 * sr and svc.events_handled == len(events),
+                f"native sink consumed {consumed} frames, "
+                f"{svc.events_handled} of {len(events)} events")
+    else:
+        emit("live_native", available=False)
+
+    # the CPU twins' renders of the same performances, bit for bit
+    out_dir, procs = twins
+    for p in procs:
+        try:  # within the run's 1200 seconds
+            p.wait(timeout=max(10.0, 1080.0 - (time.monotonic() - START)))
+        except subprocess.TimeoutExpired:
+            p.kill()
+            p.wait()
+        require(p.returncode == 0, f"a live CPU twin process failed: see "
+                f"{out_dir}")
+    for mode, block, seconds in LIVE_RUNS:
+        twin = np.load(out_dir / f"{mode}-{block}.npy")
+        meta = json.loads((out_dir / f"{mode}-{block}.json").read_text())
+        card = cards[(mode, block)]
+        equal = card.shape == twin.shape and bool(np.array_equal(card, twin))
+        emit("live_check", mode=mode, block_frames=block,
+             frames=len(twin), cpu_twin_render_s=meta["seconds"],
+             bit_for_bit=equal)
+        if not equal:
+            k = int(np.argmax(np.abs(card - twin).max(-1) > 0)) // block
+            r = LiveSongRenderer(compiled, block_frames=block,
+                                 play_song=mode == "play", device=dev)
+            r.taps = {}
+            mine = []
+            synth.play_live(r, live_schedule(block, seconds)[:k + 1],
+                            after_block=lambda: mine.append(
+                                tap_digests(r.taps)))
+            parts = [u for u in compiled.order
+                     if u in mine[k] and mine[k][u]
+                     != meta["digests"][k].get(u)]
+            first = parts[0] if parts else "the mix"
+            kind = compiled.devices[first].kind \
+                if first in compiled.devices else "the main mixer's sum"
+            require(False, f"live {mode} {block}: the card differs from "
+                    f"the CPU twins from block {k}, first in {first} "
+                    f"({kind})")
+
+
 def main() -> int:
     import torch
 
@@ -1110,6 +1492,8 @@ def main() -> int:
     synth.write_instrument_assets(assets)
     synth.write_welsh_patches(assets)
     paths = Paths(roots=[assets])
+    live_assets = synth.write_live_assets(work / "live-assets")
+    live_twins = start_live_twins(work, live_assets)
     counters = (drums.LAUNCHES, iir_kernels.LAUNCHES, bk.LAUNCHES,
                 scan_kernels.LAUNCHES, sk.LAUNCHES)
 
@@ -2072,6 +2456,9 @@ def main() -> int:
             f"{diff} LSB")
     del card
 
+    live_phase(dev, work, live_assets, live_twins, zero_launches, launches,
+               totals)
+
     kernels = []
     for name, (src, rep) in KERNELS.items():
         res = main_shape[name]
@@ -2090,4 +2477,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--live-twin"]:
+        sys.exit(live_twin_main(sys.argv[2:]))
     sys.exit(main())

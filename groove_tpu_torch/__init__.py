@@ -17,10 +17,13 @@ Layout (each module names its groove_tpu counterpart):
     ops/       DSP in torch; kernel wrappers with their plain twins
     csrc/      CUDA C++ sources of the kernels
     kernels/   the nvcc build and ctypes binding
-    engine/    the whole-song Renderer and the segment StreamingRenderer
-    io/        WAV reader/writers and the int16 quantizer
+    engine/    the whole-song Renderer, the segment StreamingRenderer and
+               live playback (livesong, live)
+    io/        WAV reader/writers and the int16 quantizer; MIDI input and
+               output, the native audio service (copies)
     testing/   seeded synthetic assets and projects
     cli.py     python -m groove_tpu_torch.cli <project> --wav --perf
+               (--stream, --loop, --live PORT, --play)
 
 Nothing here chooses a device implicitly: every entry point takes one.
 """

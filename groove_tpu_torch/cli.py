@@ -6,6 +6,9 @@
         [--sliced] [--segment-frames 4096] [--stream-batch 8]
     python -m groove_tpu_torch.cli <project> --loop START END \
         [--loop-iterations 4] [--segment-frames 4096]
+    python -m groove_tpu_torch.cli <project> --live MIDI_PORT \
+        [--midi-out MIDI_PORT] [--live-seconds S] [--wav]
+    python -m groove_tpu_torch.cli <project> --wav --play
 
 The whole-timeline path of groove_tpu/cli.py: compile_song (or, for a
 .mid/.midi input, compile_midi_file: channel 10 on the 707 drumkit, the
@@ -19,8 +22,14 @@ effect kind with its carried state; --sliced routes Welsh voices to
 sliced rendering where it wins. --loop START END bounces a loop range
 (beats): [0, END) then --loop-iterations passes of [START, END), the
 effects' state carried across every seam (a sliced device refuses a
-loop, as the reference's does). Assets are found through
-groove_tpu_torch.project.paths.Paths ($GROOVE_ASSETS first). The
+loop, as the reference's does). --live PORT plays the project live:
+raw MIDI bytes from the port (a FIFO, file or pipe) play its instruments
+through its effect chains (engine/livesong.py) into the native audio
+service until Ctrl-C; --midi-out PORT echoes the incoming MIDI to an out
+port; --live-seconds S stops after S seconds, and --wav writes the live
+audio to a WAV instead (paced at realtime). --play streams a finished
+render through the native audio service in real time. Assets are found
+through groove_tpu_torch.project.paths.Paths ($GROOVE_ASSETS first). The
 reference CLI's other flags exit with "not ported yet".
 """
 
@@ -35,8 +44,7 @@ from pathlib import Path
 # flags of groove_tpu/cli.py that this CLI does not run yet
 NOT_PORTED = (
     ("-m", "--mp3"), ("-d", "--debug"), ("-q", "--quiet"),
-    ("-v", "--version"), ("--play",), ("--multidevice",), ("--mesh",),
-    ("--live",), ("--midi-out",),
+    ("-v", "--version"), ("--multidevice",), ("--mesh",),
 )
 
 
@@ -74,6 +82,19 @@ def build_parser() -> argparse.ArgumentParser:
                         "--loop-iterations passes of [START, END) with "
                         "effect state carried across every seam")
     p.add_argument("--loop-iterations", type=int, default=4)
+    p.add_argument("--play", action="store_true",
+                   help="stream the render through the native audio service "
+                        "in real time (null sink when no audio hardware)")
+    p.add_argument("--live", metavar="MIDI_PORT", default=None,
+                   help="play the project live: read raw MIDI bytes from "
+                        "this FIFO/file port and route them through the "
+                        "song's instruments and effect chains to the audio "
+                        "service")
+    p.add_argument("--midi-out", metavar="MIDI_PORT", default=None,
+                   help="with --live: echo incoming MIDI to this out port")
+    p.add_argument("--live-seconds", type=float, default=None,
+                   help="with --live: stop after this many seconds (default: "
+                        "play until Ctrl-C)")
     for flags in NOT_PORTED:
         p.add_argument(*flags, nargs="*", default=None,
                        dest="np_" + flags[-1].lstrip("-").replace("-", "_"),
@@ -144,6 +165,8 @@ def _process_file(input_filename: str, paths, args) -> dict:
     else:
         song = SongSettings.from_project_file(Path(input_filename))
         compiled = compile_song(song, paths, sample_rate=args.sample_rate)
+    if args.live:
+        return _play_live(compiled, input_filename, args)
     if args.loop:
         return _render_loop(compiled, input_filename, args, t0)
     if args.stream:
@@ -186,6 +209,104 @@ def _process_file(input_filename: str, paths, args) -> dict:
         print(f"Rendering queue to {out}")
         write_wav_16bit_stereo(out, samples, args.sample_rate)
         perf["wav"] = str(out)
+    if args.play:
+        perf["underruns"] = _stream_realtime(samples, args.sample_rate)
+    return perf
+
+
+def _stream_realtime(samples, sample_rate: int) -> int | None:
+    """Push a finished render through the native ring-buffer service at
+    realtime pace (the reference's audio pull model); returns its
+    underruns, or None without the native library."""
+    import numpy as np
+
+    from groove_tpu_torch.io import native
+
+    if not native.available():
+        print("native audio service unavailable; skipping --play",
+              file=sys.stderr)
+        return None
+    svc = native.AudioService(sample_rate=sample_rate, buffer_frames=64)
+    try:
+        pos, n = 0, len(samples)
+        while pos < n:
+            need = svc.needs_frames()
+            if need > 0:
+                chunk = samples[pos:pos + need]
+                if chunk.dtype == np.int16:  # render_quantized's samples
+                    chunk = chunk.astype(np.float32) / np.float32(32768.0)
+                svc.write(chunk)
+                pos += len(chunk)
+            else:
+                time.sleep(0.001)
+        while svc.frames_consumed() < n:  # drain
+            time.sleep(0.005)
+        underruns = svc.underruns()
+        print(f"Played {n / sample_rate:.2f}s ({underruns} underruns)")
+        return underruns
+    finally:
+        svc.stop()
+
+
+def _play_live(compiled, input_filename: str, args) -> dict:
+    """--live PORT: MIDI bytes from the port play the project's
+    instruments through its effect chains, on --device, into the native
+    audio service (or with --wav into a WAV, paced at realtime) until
+    Ctrl-C or --live-seconds."""
+    import numpy as np
+
+    from groove_tpu_torch.engine.livesong import (LiveSongRenderer,
+                                                   LiveSongService)
+
+    echo = None
+    if args.midi_out:
+        from groove_tpu_torch.io.midi_output import open_port
+        echo = open_port(args.midi_out)
+    renderer = LiveSongRenderer(compiled, device=args.device)
+    blocks: list = []
+    sink = blocks.append if args.wav else None
+    # print before the open: a FIFO with no writer blocks open(2)
+    print(f"Live: MIDI from {args.live}; Ctrl-C to stop", flush=True)
+    src = open(args.live, "rb", buffering=0)
+    svc = LiveSongService(renderer, midi_source=src, sink=sink,
+                          midi_echo=echo)
+    sr = compiled.sample_rate
+    t0 = time.perf_counter()
+    try:
+        while args.live_seconds is None \
+                or time.perf_counter() - t0 < args.live_seconds:
+            if sink is None:
+                time.sleep(0.05)
+                continue
+            # a sink takes blocks at the audio clock's pace
+            due = t0 + svc.blocks_rendered * renderer.block_frames / sr
+            wait = due - time.perf_counter()
+            if wait > 0:
+                time.sleep(wait)
+            svc.pump(1)
+    except KeyboardInterrupt:
+        pass
+    finally:
+        svc.stop()
+        try:
+            src.close()
+        except Exception:
+            pass
+        if echo is not None:
+            echo.close()
+    perf = {"input": input_filename, "live": args.live,
+            "blocks": svc.blocks_rendered,
+            "underruns": svc.underruns()}
+    if args.wav:
+        from groove_tpu_torch.io.wav import write_wav_16bit_stereo
+
+        out = output_path(input_filename, args.out_dir)
+        audio = np.concatenate(blocks) if blocks \
+            else np.zeros((0, 2), np.float32)
+        write_wav_16bit_stereo(out, audio, sr)
+        print(f"Live audio: {len(audio)} frames to {out}")
+        perf["wav"] = str(out)
+        perf["frames"] = len(audio)
     return perf
 
 

@@ -68,7 +68,8 @@ from groove_tpu_torch.models import sampler as sampler_model
 from groove_tpu_torch.models import simple as simple_model
 from groove_tpu_torch.models import welsh as welsh_model
 from groove_tpu_torch.models.voices import (bucket_notes, note_freqs,
-                                            scatter_notes, time_base)
+                                            row_sum, scatter_notes,
+                                            time_base)
 from groove_tpu_torch.ops import delayfx, dynamics, effects, iir, prng
 from groove_tpu_torch.ops import oscillator as osc_ops
 from groove_tpu_torch.ops import stream as sops
@@ -156,23 +157,17 @@ def _unfold_mono(arr):
     return np.repeat(mono[:, None], 2, axis=1)
 
 
-def _row_sum(rows: torch.Tensor) -> torch.Tensor:
-    """Sum of [m, n] rows in row order, one add after another: a padded
-    (exact-zero) row never regroups the others, so the sum is the same
-    whatever the batch's padding, on every device."""
-    acc = rows[0]
-    for i in range(1, rows.shape[0]):
-        acc = acc + rows[i]
-    return acc
-
-
 class StreamingRenderer:
     """Segment-streamed render of one compiled song on one torch device.
 
     segment_frames must be a multiple of 64 and at least 64. inputs:
     optional host (numpy) input dict to render from instead of this
     renderer's own collection — e.g. groove_tpu's StreamingRenderer.inputs
-    converted to numpy (engine/params.inputs_from_numpy).
+    converted to numpy (engine/params.inputs_from_numpy). seq_notes=False
+    collects no sequenced notes and no oscillator tracks (the live
+    subclass, engine/livesong.py, renders from voice pools and free-runs
+    the always-on kinds): every instrument renders silent here, and the
+    per-segment inputs are the playhead alone.
     """
 
     # SLICED welsh mode: False (every note renders its whole window per
@@ -196,12 +191,18 @@ class StreamingRenderer:
     SLICE_COST_CPU = 2.0
     SLICE_COST_CUDA = 6.0
 
+    # a dict here receives every device's output of the last step (uvid ->
+    # [2, n]), for a caller that locates where two renders part
+    taps = None
+
     def __init__(self, compiled: CompiledSong, device,
-                 segment_frames: int = 65536, inputs=None):
+                 segment_frames: int = 65536, inputs=None,
+                 seq_notes: bool = True):
         if segment_frames % BLOCK or segment_frames < BLOCK:
             raise ValueError(f"segment_frames must be a positive multiple "
                              f"of {BLOCK}, got {segment_frames}")
         self.c = compiled
+        self._seq_notes = bool(seq_notes)
         self.device = torch.device(device)
         self.S = int(segment_frames)
         self.n_segs = max(1, -(-compiled.n_frames // self.S))
@@ -228,6 +229,7 @@ class StreamingRenderer:
             if self.WELSH_SLICED
             and dev.kind in WELSH
             and dev.voice is not None
+            and self._seq_notes
             and dev.notes is not None and dev.notes.count
             and welsh_model.can_slice(dev.voice)
             and (self.WELSH_SLICED != "auto" or self._slice_wins(dev))
@@ -346,7 +348,10 @@ class StreamingRenderer:
                     cv = np.concatenate([cv, pad])
                 h[f"{u}/auto/{pname}"] = cv
             if dev.kind == "oscillator":
-                self._osc_tracks[u] = self._oscillator_track(dev)
+                if self._seq_notes:
+                    self._osc_tracks[u] = self._oscillator_track(dev)
+                continue
+            if not self._seq_notes:
                 continue
             if (dev.role != "instrument" and dev.kind != "calculator") \
                     or dev.notes is None or dev.notes.count == 0:
@@ -476,8 +481,7 @@ class StreamingRenderer:
         rows."""
         xs = {"t0": int(t0)}
         for u, track in self._osc_tracks.items():
-            xs[f"{u}/osc"] = torch.from_numpy(
-                track[t0:t0 + seg_len]).to(self.device)
+            xs[f"{u}/osc"] = self._upload(track[t0:t0 + seg_len])
         for (u, j), cap in self._caps.items():
             idx = self._overlap(u, j, t0, seg_len)
             if idx.size > cap:
@@ -489,9 +493,13 @@ class StreamingRenderer:
             full = np.zeros(cap, np.int64)
             full[: idx.size] = idx
             xs[f"{u}/b{j}/hidx"] = full
-            xs[f"{u}/b{j}/idx"] = torch.from_numpy(full).to(self.device)
-            xs[f"{u}/b{j}/m"] = torch.from_numpy(mask).to(self.device)
+            xs[f"{u}/b{j}/idx"] = self._upload(full)
+            xs[f"{u}/b{j}/m"] = self._upload(mask)
         return xs
+
+    def _upload(self, arr: np.ndarray) -> torch.Tensor:
+        """A per-segment host array on this renderer's device."""
+        return torch.from_numpy(arr).to(self.device)
 
     # ---- launch plan --------------------------------------------------------
 
@@ -557,8 +565,15 @@ class StreamingRenderer:
         return None
 
     def planned_launches(self) -> dict:
-        """Kernel launches of one linear render, by LAUNCHES key: per
-        segment, each sliced bucket one stream-kernel call (K7 or K8),
+        """Kernel launches of one linear render, by LAUNCHES key: the
+        segment's plan (segment_launches) times the segments."""
+        return {key: v * self.n_segs
+                for key, v in self.segment_launches().items()}
+
+    def segment_launches(self, notes: bool = True) -> dict:
+        """Kernel launches of one segment, by LAUNCHES key (with
+        notes=False the effects' alone): each sliced
+        bucket one stream-kernel call (K7 or K8),
         each unsliced Welsh bucket one cascade (K2 for 'refine'/'serial'
         voices, else K3), each FM bucket under a `ratio` curve its
         modulator phase on scan1 (two calls where the span is a multiple
@@ -573,7 +588,7 @@ class StreamingRenderer:
         for u in self.c.order:
             dev = self.c.devices[u]
             k = dev.kind
-            buckets = len(self._spans.get(u, ()))
+            buckets = len(self._spans.get(u, ())) if notes else 0
             if u in self._sliced:
                 layout = next(iter(welsh_model.slice_state_init(
                     0, self._welsh_refine.get(u))))
@@ -584,7 +599,8 @@ class StreamingRenderer:
                 out[key] += buckets
             elif k == "fm-synthesizer" and "ratio" in dev.automation:
                 out["scan1"] += sum(2 if s % fm_model.CBLOCK == 0 else 1
-                                    for s in self._spans.get(u, ()))
+                                    for s in self._spans.get(u, ())
+                                    if notes)
             elif k == "compressor" and self._smoothed_compressor(dev):
                 out["scan_stream"] += 2
             elif k == "reverb":
@@ -593,7 +609,7 @@ class StreamingRenderer:
             elif k.startswith("filter-") and dev.role != "controller":
                 for key, v in self._filter_plan(dev).items():
                     out[key] += v
-        return {key: v * self.n_segs for key, v in out.items() if v}
+        return {key: v for key, v in out.items() if v}
 
     # ---- state -------------------------------------------------------------
 
@@ -675,9 +691,19 @@ class StreamingRenderer:
 
     # ---- one segment -------------------------------------------------------
 
+    @staticmethod
+    def _block_start(t0: int, n: int, length: int) -> int:
+        """First entry of a segment's n / 64 blocks in a block-rate input
+        of `length` entries, clamped so that the slice fits (the
+        reference's dynamic_slice: within the plan it is t0 / 64; a live
+        render past the plan's end reads the last entries)."""
+        return max(0, min(t0 // BLOCK, length - n // BLOCK))
+
     def _block_seg(self, key: str, t0: int, n: int) -> torch.Tensor:
         """The segment's entries of a block-rate input curve."""
-        return self.inputs[key][t0 // BLOCK:(t0 + n) // BLOCK]
+        curve = self.inputs[key]
+        b0 = self._block_start(t0, n, curve.shape[-1])
+        return curve[b0:b0 + n // BLOCK]
 
     def _param_seg(self, dev, name, default, t0, n, override=None):
         """Per-sample [n] tensor if automated or overridden, else a
@@ -844,7 +870,7 @@ class StreamingRenderer:
             host_ctl=self._hc_seg(b, idx), noise_keys=nk)
         for k, v in fst2.items():
             state[prefix + k][slot] = v
-        return _row_sum(mono_rows * m[:, None])
+        return row_sum(mono_rows * m[:, None])
 
     def _apply_effect_seg(self, dev: DeviceIR, x, t0: int, n: int,
                           overrides: dict, state: dict):
@@ -996,7 +1022,6 @@ class StreamingRenderer:
         k, u = dev.kind, dev.uvid
         sr = float(self.c.sample_rate)
         nb = n // BLOCK
-        b0 = t0 // BLOCK
         mode = self._filter_modes.get(u)
         refined, serial = mode == "refine", mode == "serial"
 
@@ -1018,9 +1043,10 @@ class StreamingRenderer:
             if f"{u}/fc/secs" in self.inputs:
                 # the host table's blocks: the same constants at every
                 # segmentation
+                gain_t = self.inputs[f"{u}/fc/gain"]
+                b0 = self._block_start(t0, n, gain_t.shape[-1])
                 fsec = self.inputs[f"{u}/fc/secs"][:, :, b0:b0 + nb]
-                y = x * iir.upsample_hold(
-                    self.inputs[f"{u}/fc/gain"][b0:b0 + nb], n, BLOCK)
+                y = x * iir.upsample_hold(gain_t[b0:b0 + nb], n, BLOCK)
                 secs = [tuple(fsec[i, j] for j in range(5))
                         for i in range(2)]
             elif isinstance(cutoff, float) and isinstance(q, float):
@@ -1036,7 +1062,9 @@ class StreamingRenderer:
                 y = self._section(y, sec, state, pre, refined, serial, nb)
             return y
         if f"{u}/fc/coefs" in self.inputs:
-            co = self.inputs[f"{u}/fc/coefs"][:, b0:b0 + nb]
+            co = self.inputs[f"{u}/fc/coefs"]
+            b0 = self._block_start(t0, n, co.shape[-1])
+            co = co[:, b0:b0 + nb]
             coefs = tuple(co[j] for j in range(5))
         else:
             coefs = self._rbj(k, PB, sr)
@@ -1095,6 +1123,9 @@ class StreamingRenderer:
                     overrides[(tgt, pname)] = (
                         param_mod.to_domain_array(p, per_sample)
                         if p is not None else per_sample)
+        if self.taps is not None:
+            self.taps.clear()
+            self.taps.update(outputs)
         out = outputs.get(MAIN_MIXER_UVID, self._zeros(n))
         return out.T  # [n, 2]
 

@@ -27,7 +27,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from groove_tpu_torch.models.voices import f32, note_freqs, time_base
+from groove_tpu_torch.models.voices import (f32, live_ages, live_freqs,
+                                            note_freqs, time_base)
 from groove_tpu_torch.ops import envelope as env_ops
 from groove_tpu_torch.ops import oscillator as osc_ops
 from groove_tpu_torch.ops import scan_kernels
@@ -194,6 +195,20 @@ def render_notes(params: FmSynthParams, keys, vels, gate_frames, span: int,
     return _voices_at(params, vels, gate_s, t, f_c, ratio=cur.get("ratio"),
                       depth=cur.get("depth"), beta=cur.get("beta"),
                       sample_rate=sample_rate, phases=phases)
+
+
+def render_window(params: FmSynthParams, keys, vels, on_abs, off_abs,
+                  t0: int, n: int, sample_rate: float) -> torch.Tensor:
+    """Live window render -> [V, n]: the block [t0, t0 + n) of voices
+    whose notes started at absolute frame on_abs (off_abs far while held),
+    on keys' device. The voice is a closed form of the note age (the
+    static ratio's modulator phase), so a block at any offset needs no
+    carried state (engine/livesong.py)."""
+    t, gate_s = live_ages(on_abs, off_abs, t0, n, sample_rate)
+    vels = vels.to(torch.float32)
+    f_c = live_freqs(keys)[:, None]
+    active = (vels > 0.0)[:, None]
+    return _voices_at(params, vels, gate_s, t, f_c) * (t >= 0.0) * active
 
 
 def tail_seconds(params: FmSynthParams) -> float:

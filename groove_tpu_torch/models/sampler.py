@@ -239,3 +239,42 @@ def accumulate_oneshots(table_data: torch.Tensor, table_lengths, slots,
         win = out[:, on:on + max_len]
         win.copy_(win + row)
     return out[:, :n_frames]
+
+
+def render_window(table_data: torch.Tensor, table_lengths: torch.Tensor,
+                  table_rates: torch.Tensor, slots, ratios, on_abs, off_abs,
+                  vels, t0: int, n: int, sample_rate: float) -> torch.Tensor:
+    """Live window render -> stereo [V, 2, n]: the block [t0, t0 + n) of
+    sample-playback voices (slot -1 silent, off_abs far while held). The
+    playback position is a closed form of the integer note age (pos = age
+    * step), so any block offset renders without carried state
+    (engine/livesong.py)."""
+    device = table_data.device
+    slots = slots.to(torch.int64)
+    safe = torch.clamp_min(slots, 0)
+    ratios = ratios.to(torch.float32)
+    sr = torch.full((), float(np.float32(sample_rate)), dtype=torch.float32,
+                    device=device)
+    rate_fix = torch.div(table_rates[safe].to(torch.float32), sr)
+    step = (ratios * rate_fix)[:, None]                         # [V, 1]
+    on = on_abs.to(torch.int32)[:, None]
+    off = off_abs.to(torch.int32)[:, None]
+    tj = (int(t0) + torch.arange(n, dtype=torch.int32,
+                                 device=device))[None, :]
+    age = (tj - on).to(torch.float32)                           # frames
+    pos = age * step
+    i0 = torch.floor(pos).to(torch.int64)
+    frac = (pos - i0.to(torch.float32))[:, None, :]
+    length = table_lengths[safe].to(torch.int64)[:, None]
+    valid = (i0 + 1 < length) & (slots[:, None] >= 0) & (age >= 0)
+    gated = age < (off - on).to(torch.float32)                  # note open
+    mask = (valid & gated)[:, None, :]
+    i0c = torch.clamp(i0, 0, table_data.shape[-1] - 2)
+    per_note = table_data[safe]
+    idx = i0c[:, None, :].expand(slots.shape[0], 2, n)
+    a = torch.gather(per_note, -1, idx)
+    b = torch.gather(per_note, -1, idx + 1)
+    out = (a * (1.0 - frac) + b * frac) * mask
+    v = vels.to(torch.float32)
+    return out * torch.div(v, torch.full((), 127.0, dtype=torch.float32,
+                                         device=device))[:, None, None]

@@ -20,7 +20,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from groove_tpu_torch.models.voices import f32, note_freqs, time_base
+from groove_tpu_torch.models.voices import (f32, live_ages, live_freqs,
+                                            note_freqs, time_base)
 from groove_tpu_torch.ops import envelope as env_ops
 from groove_tpu_torch.ops import oscillator as osc_ops
 from groove_tpu_torch.ops import prng
@@ -79,6 +80,20 @@ def envelope_instrument(adsr_seconds, keys, vels, gate_frames, span: int,
     tone = osc_ops.sine(f[:, None] * t)
     v = torch.as_tensor(vels).to(device=device, dtype=torch.float32)
     return tone * env * torch.div(v, f32(127.0, device))[:, None]
+
+
+def envelope_window(adsr_seconds, keys, vels, on_abs, off_abs, t0: int,
+                    n: int, sample_rate: float) -> torch.Tensor:
+    """Live window render of the envelope instrument -> [V, n] on keys'
+    device: a closed form of the integer note age, any block offset
+    (engine/livesong.py)."""
+    a, d, s, r = adsr_seconds
+    t, gate_s = live_ages(on_abs, off_abs, t0, n, sample_rate)
+    env = env_ops.adsr(t, gate_s, a, d, s, r) * (t >= 0.0)
+    tone = osc_ops.sine(live_freqs(keys)[:, None] * t)
+    v = vels.to(torch.float32)[:, None]
+    active = v > 0.0
+    return tone * env * active * torch.div(v, f32(127.0, keys.device))
 
 
 def toy_instrument(fake_value: float, n_frames: int,

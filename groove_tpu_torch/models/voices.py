@@ -45,6 +45,43 @@ def span_for(max_gate_frames: int, tail_seconds: float, sample_rate: int,
     return -(-span // multiple) * multiple
 
 
+def live_ages(on_abs, off_abs, t0: int, n: int, sample_rate: float):
+    """A live block's time bases from integer note frames: (t [V, n] note
+    age in seconds, negative before note-on; gate_s [V, 1]). Ages are
+    int32 differences (t0 + j) - on before the true division, so they stay
+    exact however long the session (float32 frame counts lose the sample
+    past 2**24)."""
+    device = on_abs.device
+    sr = f32(sample_rate, device)
+    on = on_abs.to(torch.int32)[:, None]
+    off = off_abs.to(torch.int32)[:, None]
+    tj = (int(t0) + torch.arange(n, dtype=torch.int32,
+                                 device=device))[None, :]
+    t = torch.div((tj - on).to(torch.float32), sr)
+    gate_s = torch.div((off - on).to(torch.float32), sr)
+    return t, gate_s
+
+
+def live_freqs(keys: torch.Tensor) -> torch.Tensor:
+    """Hz [V] of a live pool's integer keys on their device:
+    440 * 2^((k - 69) / 12) in float64, rounded once (the same bits on
+    every device)."""
+    twelve = torch.full((), 12.0, dtype=torch.float64, device=keys.device)
+    return (440.0 * torch.exp2(torch.div(keys.double() - 69.0, twelve))
+            ).float()
+
+
+def row_sum(rows: torch.Tensor) -> torch.Tensor:
+    """Sum of [m, ...] rows in row order, one add after another: a padded
+    (exact-zero) row never regroups the others, so the sum is the same
+    whatever the batch's padding, on every device (a reduction regroups
+    rows per device and per padding)."""
+    acc = rows[0]
+    for i in range(1, rows.shape[0]):
+        acc = acc + rows[i]
+    return acc
+
+
 def scatter_notes(note_audio: torch.Tensor, on_frames,
                   n_frames: int) -> torch.Tensor:
     """Sum per-note windows into the song timeline, in note order.

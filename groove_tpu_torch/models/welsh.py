@@ -40,6 +40,8 @@ exception: its cumulative sum groups differently on every device.
 
 from __future__ import annotations
 
+from dataclasses import dataclass
+
 import numpy as np
 import torch
 
@@ -48,9 +50,11 @@ from groove_tpu_torch.ops import envelope as env_ops
 from groove_tpu_torch.ops import iir as iir_ops
 from groove_tpu_torch.ops import iir_kernels
 from groove_tpu_torch.ops import oscillator as osc_ops
-from groove_tpu_torch.ops import prng
+from groove_tpu_torch.ops import prng, stream_kernels
 from groove_tpu_torch.project.patches import WelshVoiceParams
-from groove_tpu_torch.models.voices import f32 as _f32, note_freqs
+from groove_tpu_torch.models.fm import in_block_sums
+from groove_tpu_torch.models.voices import f32 as _f32, live_freqs, \
+    note_freqs, row_sum
 
 LN_BASE = float(np.log(T.FREQUENCY_TO_LINEAR_BASE))
 LN_COEF = float(np.log(T.FREQUENCY_TO_LINEAR_COEFFICIENT))
@@ -425,11 +429,31 @@ def _sh_cycles(lfo, span: int, sample_rate: float) -> int:
 # Shared voice-formula terms (torch, on the render's device)
 
 
-def _make_lfo_value(lfo, n_cycles: int, noise_seed: int, device):
+#: S&H bank size for the LIVE paths' noise LFO: live note ages are
+#: unbounded, so the bank wraps (offline banks cover the whole window and
+#: clip). threefry is prefix-stable, so the first cycles equal an offline
+#: bank drawn from the same key.
+_LIVE_SH_CYCLES = 8192
+
+# live S&H banks by (cycles, seed, device): drawn once, not every block
+_LIVE_BANKS: dict = {}
+
+
+def _live_bank(n_cycles: int, noise_seed: int, device) -> torch.Tensor:
+    key = (n_cycles, noise_seed, str(torch.device(device)))
+    if key not in _LIVE_BANKS:
+        _LIVE_BANKS[key] = sh_bank(n_cycles, noise_seed, device)
+    return _LIVE_BANKS[key]
+
+
+def _make_lfo_value(lfo, n_cycles: int, noise_seed: int, device,
+                    wrap: bool = False):
     """-> lfo_value(tv): the LFO's bipolar value * depth at times tv
     (seconds since note-on), or [1, 1] zeros when the LFO is inert.
     'noise' is sample-and-hold at the LFO rate from a bank of n_cycles
-    values (offline: clipped, the bank covers the window)."""
+    values: wrap=True indexes it mod n_cycles (live: a fixed bank, drawn
+    once per device), else clipped (offline: the bank covers the
+    window)."""
     if not (lfo.routing != "none" and lfo.frequency > 0.0
             and lfo.depth != 0.0):
         return lambda tv: torch.zeros((1, 1), dtype=torch.float32,
@@ -438,9 +462,13 @@ def _make_lfo_value(lfo, n_cycles: int, noise_seed: int, device):
     def lfo_value(tv):
         lfo_phase = lfo.frequency * tv
         if lfo.waveform.kind == "noise":
-            vals = sh_bank(n_cycles, noise_seed, device)
             cycle = torch.floor(lfo_phase).to(torch.int64)
-            idx = torch.clamp(cycle, 0, n_cycles - 1)
+            if wrap:
+                vals = _live_bank(n_cycles, noise_seed, device)
+                idx = torch.remainder(cycle, n_cycles)
+            else:
+                vals = sh_bank(n_cycles, noise_seed, device)
+                idx = torch.clamp(cycle, 0, n_cycles - 1)
             return vals[idx] * lfo.depth
         return osc_ops.evaluate(
             lfo.waveform.kind, lfo_phase, lfo.waveform.pulse_width
@@ -956,3 +984,229 @@ def gather_filter_rows(host_ctl: dict):
     fs = host_ctl["fsecs"]
     secs_rows = [tuple(fs[i, j][fidx] for j in range(5)) for i in range(2)]
     return gain_rows, secs_rows
+
+
+# ---------------------------------------------------------------------------
+# LIVE rendering: a block at a time over a fixed voice pool, oscillator
+# phases and the cascade state carried per voice (engine/livesong.py's
+# live_window_block, engine/live.py's live_render_block).
+
+LIVE_FAR = 2**30  # the pool's "held" / "unused" frame (engine/livesong.FAR)
+
+
+def _sr(sample_rate: float, device) -> torch.Tensor:
+    return _f32(sample_rate, device)
+
+
+def live_phases(phase0: torch.Tensor, inc: torch.Tensor):
+    """Exclusive phase integral of per-sample increments inc [R, n] (n a
+    multiple of 64) from phase0 [R] -> (phase [R, n], next phase0 [R]).
+
+    Each 64-frame block k: its inclusive in-block sums c (one scan1 call
+    for every block of every row, fm.in_block_sums), then phase = (o_k +
+    c) - inc from the block's origin o_k, and o_{k+1} = (phase at its last
+    frame + its increment) mod 1 — the reference's per-block formula
+    (ph0 + cumsum(inc) - inc, carried mod 1) applied at every 64 frames.
+    The sums run in one fixed order on every device (no torch.cumsum),
+    and a block of n frames gives the bits of n / 64 blocks of 64."""
+    R, n = inc.shape
+    nb = n // 64
+    inc3 = inc.reshape(R, nb, 64)
+    c = in_block_sums(inc3)
+    origin = phase0
+    origins = []
+    for k in range(nb):
+        origins.append(origin)
+        last = (origin + c[:, k, 63]) - inc3[:, k, 63]
+        origin = osc_ops.frac(last + inc3[:, k, 63])
+    o = origins[0][:, None, None] if nb == 1 \
+        else torch.stack(origins, 1)[:, :, None]
+    return ((o + c) - inc3).reshape(R, n), origin
+
+
+def _live_noise(which: int, t0: int, shape, device) -> torch.Tensor:
+    """White noise keyed per block: fold_in(PRNGKey(which), t0) drawn at
+    `shape` (a constant key would repeat one pattern every block)."""
+    return osc_ops.noise(prng.fold_in(prng.prng_key(which, device), t0),
+                         shape)
+
+
+def _live_voice(params: WelshVoiceParams, t_abs, gate_s, vels, keys,
+                prev_keys, ph1_0, ph2_0, s_a, s_b, t0: int, n: int,
+                sample_rate: float, note_mask):
+    """The shared body of the two live block renders -> (y [V, n] after
+    the cascade, lfo_val, phase1, phase2, (s1a, s2a), (s1b, s2b)). t_abs
+    [V, n]: note-age seconds; note_mask [V, n] (or None) gates the phase
+    increments; the cascade's two sections run on S3
+    (stream_kernels.biquad_state) with their 64-frame block coefficients
+    and the carried (s1, s2)."""
+    device = keys.device
+    V = keys.shape[0]
+    sr = _sr(sample_rate, device)
+    if n % 64:
+        raise ValueError(f"live welsh block must be a 64-multiple, got {n}")
+    base_freq = live_freqs(keys)[:, None]
+    lfo = params.lfo
+    routing = lfo.routing
+    # S&H noise LFO included: a fixed wrapping bank (live ages are
+    # unbounded)
+    lfo_value = _make_lfo_value(lfo, _LIVE_SH_CYCLES, 0, device, wrap=True)
+    lfo_val = lfo_value(t_abs)
+
+    def freq_of(osc, fixed_hz, is_osc2):
+        if fixed_hz is not None:
+            f = torch.full((V, 1), float(np.float32(fixed_hz)),
+                           dtype=torch.float32, device=device)
+        else:
+            f = base_freq * osc.tune_ratio
+        if routing == "pitch" or (routing == "pitch-osc2" and is_osc2):
+            f = f * _exp2(lfo_val)
+        return f.expand(V, n)
+
+    f1 = freq_of(params.oscillator_1, None, False)
+    f2 = freq_of(params.oscillator_2, params.oscillator_2_fixed_hz, True)
+    if params.glide > 0.0 and prev_keys is not None:
+        r_gl = _exp2(torch.div(
+            prev_keys.double() - keys.double(),
+            torch.full((), 12.0, dtype=torch.float64, device=device)))[:, None]
+        gf = _glide_factor(r_gl, params.glide, t_abs)
+        f1 = f1 * gf
+        if params.oscillator_2_fixed_hz is None:
+            f2 = f2 * gf
+    inc1 = torch.div(f1, sr)
+    inc2 = torch.div(f2, sr)
+    if note_mask is not None:
+        # samples before note-on do not advance the phase
+        inc1 = inc1 * note_mask
+        inc2 = inc2 * note_mask
+    # both oscillators' integrals in one scan1 call
+    ph, new_ph = live_phases(torch.cat([ph1_0, ph2_0]),
+                             torch.cat([inc1, inc2]))
+    ph1, ph2 = ph[:V], ph[V:]
+    if params.oscillator_2_sync \
+            and params.oscillator_1.waveform.kind != "none":
+        ph2 = osc_ops.hard_sync_phase(
+            ph1, torch.div(f2, torch.clamp_min(f1, 1e-6)))
+
+    def noise_fn(which):
+        return _live_noise(which, t0, (V, n), device)
+
+    osc_out = _osc_mix(params, ph1, ph2, routing, lfo_val, noise_fn, (V, n))
+
+    # filter controls at the 64-frame control cadence within the block
+    nb = n // 64
+    t_blk = t_abs[:, ::64][:, :nb]
+    cutoff_hz, q = _filter_controls(params, t_blk, gate_s, lfo_value)
+    gain_b, sections = iir_ops.lp24_sections(
+        cutoff_hz.expand(V, nb), _f32(q, device).expand(V, nb), sample_rate)
+    y = osc_out * iir_ops.upsample_hold(gain_b.expand(V, nb), n, 64)
+    y, s_a = stream_kernels.biquad_state(
+        y, tuple(c.expand(V, nb) for c in sections[0]), s_a)
+    y, s_b = stream_kernels.biquad_state(
+        y, tuple(c.expand(V, nb) for c in sections[1]), s_b)
+    return y, lfo_val, new_ph[:V], new_ph[V:], s_a, s_b
+
+
+def live_window_state_init(n_voices: int, device="cuda") -> dict:
+    """Carried state for live_window_block: oscillator phases and the two
+    TDF2 sections' states per voice (note bookkeeping stays on the
+    host)."""
+    z = torch.zeros((n_voices,), dtype=torch.float32, device=device)
+    return {name: z.clone() for name in ("phase1", "phase2", "s1a", "s2a",
+                                         "s1b", "s2b")}
+
+
+def live_window_block(params: WelshVoiceParams, fstate: dict, keys, vels,
+                      on_abs, off_abs, t0: int, n: int, sample_rate: float,
+                      prev_keys=None):
+    """Live full-graph voice block -> (mono [n], next fstate), the
+    reference's live_window_block.
+
+    Note data (keys, vels, absolute on/off frames, int32 on/off) arrives
+    as tensors each block; a voice whose note starts at this block (on ==
+    t0: the host pins note-ons to block boundaries) has its carried phases
+    and filter state reset here. Envelopes, LFO and glide are closed forms
+    of the integer note age; oscillator phases integrate per 64-frame
+    block (live_phases); noise is keyed per block by fold_in(PRNGKey(which),
+    t0); the two cascade sections run on S3 with their state carried."""
+    device = keys.device
+    sr = _sr(sample_rate, device)
+    keys = keys.to(torch.float32)
+    vels = vels.to(torch.float32)
+    on = on_abs.to(torch.int32)[:, None]
+    off = off_abs.to(torch.int32)[:, None]
+    tj = (int(t0) + torch.arange(n, dtype=torch.int32,
+                                 device=device))[None, :]
+    age_i = tj - on                                         # [V, n] int32
+    t_abs = torch.div(torch.clamp_min(age_i, 0).to(torch.float32), sr)
+    gate_s = torch.div((off - on).to(torch.float32), sr)
+    fresh = on[:, 0] == int(t0)
+    started = age_i >= 0
+    active = (vels > 0.0)[:, None]
+
+    def fs(name):
+        return torch.where(fresh, 0.0, fstate[name])
+
+    pv = None if prev_keys is None else prev_keys.to(torch.float32)
+    y, lfo_val, ph1, ph2, s_a, s_b = _live_voice(
+        params, t_abs, gate_s, vels, keys, pv, fs("phase1"), fs("phase2"),
+        (fs("s1a"), fs("s2a")), (fs("s1b"), fs("s2b")), t0, n, sample_rate,
+        started)
+    amp = _amp_env(params, t_abs, gate_s, vels, params.lfo.routing,
+                   lfo_val) * active * started
+    mono = row_sum(y * amp)
+    return mono, {"phase1": ph1, "phase2": ph2, "s1a": s_a[0],
+                  "s2a": s_a[1], "s1b": s_b[0], "s2b": s_b[1]}
+
+
+@dataclass(frozen=True)
+class LiveVoiceState:
+    """Per-voice carried state of live_render_block ([V] each)."""
+
+    phase1: torch.Tensor     # f32, cycles mod 1
+    phase2: torch.Tensor
+    s1a: torch.Tensor        # TDF2 state, filter section A
+    s2a: torch.Tensor
+    s1b: torch.Tensor        # section B
+    s2b: torch.Tensor
+    age: torch.Tensor        # i32 frames since note-on
+    release_age: torch.Tensor  # i32 age at note-off (2**30 while held)
+    keys: torch.Tensor       # f32 MIDI key
+    vels: torch.Tensor       # f32 0..127 (0 = inactive)
+    prev_keys: torch.Tensor  # f32 glide-source key (last played pitch)
+
+
+def live_init_state(n_voices: int, device="cuda") -> LiveVoiceState:
+    def z():
+        return torch.zeros((n_voices,), dtype=torch.float32, device=device)
+
+    return LiveVoiceState(
+        z(), z(), z(), z(), z(), z(),
+        torch.zeros((n_voices,), dtype=torch.int32, device=device),
+        torch.full((n_voices,), LIVE_FAR, dtype=torch.int32, device=device),
+        z(), z(), z())
+
+
+def live_render_block(params: WelshVoiceParams, state: LiveVoiceState,
+                      block: int, sample_rate: float, t0: int = 0):
+    """One streaming block -> (mono [block], next state), the reference's
+    live_render_block: note bookkeeping in the state, LFO and envelopes
+    from the voice age, phases integrated per 64-frame block, the cascade
+    on S3 with its state carried; t0 keys the noise per block."""
+    device = state.keys.device
+    sr = _sr(sample_rate, device)
+    j = torch.arange(block, dtype=torch.float32, device=device)[None, :]
+    t_abs = torch.div(state.age[:, None].to(torch.float32) + j, sr)
+    gate_s = torch.div(torch.clamp_max(
+        state.release_age.to(torch.float32), float(LIVE_FAR))[:, None], sr)
+    y, lfo_val, ph1, ph2, s_a, s_b = _live_voice(
+        params, t_abs, gate_s, state.vels, state.keys, state.prev_keys,
+        state.phase1, state.phase2, (state.s1a, state.s2a),
+        (state.s1b, state.s2b), t0, block, sample_rate, None)
+    amp = _amp_env(params, t_abs, gate_s, state.vels, params.lfo.routing,
+                   lfo_val)
+    mono = row_sum(y * amp)
+    return mono, LiveVoiceState(
+        phase1=ph1, phase2=ph2, s1a=s_a[0], s2a=s_a[1], s1b=s_b[0],
+        s2b=s_b[1], age=state.age + block, release_age=state.release_age,
+        keys=state.keys, vels=state.vels, prev_keys=state.prev_keys)

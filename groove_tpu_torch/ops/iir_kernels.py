@@ -668,7 +668,14 @@ def fma32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     __fmaf_rn), for CPU and CUDA tensors alike. The f32 product is exact
     in f64; TwoSum gives the f64 sum's exact error, which rounds the sum
     to odd (a sticky bit), so the final rounding to f32 is the single
-    correct one — no double-rounding case."""
+    correct one — no double-rounding case. On the CPU the same IEEE
+    operations run in numpy, whose small-array calls cost a fraction of
+    torch's (the twins call this per step of their serial loops)."""
+    if a.device.type == "cpu" and b.device.type == "cpu" \
+            and c.device.type == "cpu":
+        an, bn, cn = np.broadcast_arrays(a.numpy(), b.numpy(), c.numpy())
+        return torch.from_numpy(_fma32_numpy(
+            an.reshape(-1), bn.reshape(-1), cn.reshape(-1)).reshape(an.shape))
     p = a.double() * b.double()
     cd = c.double()
     s = p + cd
@@ -678,6 +685,20 @@ def fma32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     toward = torch.where(err > 0, torch.inf, -torch.inf).to(s.dtype)
     s = torch.where((err != 0) & even, torch.nextafter(s, toward), s)
     return s.float()
+
+
+def _fma32_numpy(a: np.ndarray, b: np.ndarray, c: np.ndarray) -> np.ndarray:
+    """fma32's operations on float32 numpy arrays of one shape."""
+    p = a.astype(np.float64) * b
+    cd = c.astype(np.float64)
+    s = p + cd
+    bp = s - p
+    err = (p - (s - bp)) + (cd - bp)
+    fix = (err != 0) & ((s.view(np.int64) & 1) == 0)
+    if fix.any():
+        s = np.where(fix, np.nextafter(s, np.where(err > 0, np.inf,
+                                                   -np.inf)), s)
+    return s.astype(np.float32)
 
 
 def _per_sample(na: torch.Tensor, npad: int) -> torch.Tensor:
@@ -693,6 +714,9 @@ def phase1(na1, na2, b1m, b2m, z, ln: int):
     """In-block prefix maps over [B, nb, ln] with numerator terms
     b1m * z and b2m * z: shifted rows (p11, p12, q1) and the block maps
     m [B, nb, 4], c [B, nb, 2]."""
+    if z.device.type == "cpu":
+        return tuple(torch.from_numpy(v) for v in _phase1_numpy(
+            *(t.numpy() for t in (na1, na2, b1m, b2m, z)), ln))
     p11s, p12s, q1s = (torch.empty_like(z) for _ in range(3))
     one = torch.ones_like(z[..., 0])
     zero = torch.zeros_like(z[..., 0])
@@ -711,9 +735,35 @@ def phase1(na1, na2, b1m, b2m, z, ln: int):
             torch.stack([q1, q2], -1))
 
 
+def _phase1_numpy(na1, na2, b1m, b2m, z, ln: int):
+    """phase1's operations, in the same order, on numpy float32 arrays
+    (the CPU's twin: a step's small-array calls cost a fraction of
+    torch's)."""
+    na1, na2, b1m, b2m, z = np.broadcast_arrays(na1, na2, b1m, b2m, z)
+    p11s, p12s, q1s = (np.empty(z.shape, np.float32) for _ in range(3))
+    one = np.ones(z.shape[:-1], np.float32)
+    zero = np.zeros(z.shape[:-1], np.float32)
+    p11, p12, p21, p22, q1, q2 = one, zero, zero, one, zero, zero
+    for j in range(ln):
+        p11s[..., j] = p11
+        p12s[..., j] = p12
+        q1s[..., j] = q1
+        a, b, xj = na1[..., j], na2[..., j], z[..., j]
+        c1 = b1m[..., j] * xj
+        c2 = b2m[..., j] * xj
+        p11, p12, p21, p22, q1, q2 = (
+            _fma32_numpy(a, p11, p21), _fma32_numpy(a, p12, p22), b * p11,
+            b * p12, _fma32_numpy(a, q1, q2) + c1, _fma32_numpy(b, q1, c2))
+    return (p11s, p12s, q1s, np.stack([p11, p12, p21, p22], -1),
+            np.stack([q1, q2], -1))
+
+
 def _corr_phase1(na1, na2, d, ln: int):
     """r-only in-block scan of the correction (numerator (1, 0, 0)): the
     shifted r1 rows and the block-end (r1, r2) [B, nb, 2]."""
+    if d.device.type == "cpu":
+        return tuple(torch.from_numpy(v) for v in _corr_phase1_numpy(
+            *np.broadcast_arrays(na1.numpy(), na2.numpy(), d.numpy()), ln))
     q1s = torch.empty_like(d)
     r1 = torch.zeros_like(d[..., 0])
     r2 = torch.zeros_like(d[..., 0])
@@ -724,10 +774,27 @@ def _corr_phase1(na1, na2, d, ln: int):
     return q1s, torch.stack([r1, r2], -1)
 
 
+def _corr_phase1_numpy(na1, na2, d, ln: int):
+    """_corr_phase1's operations, in the same order, in numpy float32."""
+    q1s = np.empty(d.shape, np.float32)
+    r1 = np.zeros(d.shape[:-1], np.float32)
+    r2 = np.zeros(d.shape[:-1], np.float32)
+    for j in range(ln):
+        q1s[..., j] = r1
+        a, b, dj = na1[..., j], na2[..., j], d[..., j]
+        r1, r2 = (_fma32_numpy(a, r1, r2) + a * dj,
+                  _fma32_numpy(b, r1, b * dj))
+    return q1s, np.stack([r1, r2], -1)
+
+
 def chain(m: torch.Tensor, c: torch.Tensor, seed=None):
     """Serial cross-block chain per row from the pair `seed` [B, 2] (zeros
     when None): entry states S [B, nb, 2] and the exit state [B, 2]."""
     B, nb = m.shape[:2]
+    if m.device.type == "cpu":
+        sd = None if seed is None else seed.numpy()
+        return tuple(torch.from_numpy(v) for v in _chain_numpy(
+            m.numpy(), c.numpy(), sd))
     s = torch.empty((B, nb, 2), dtype=m.dtype, device=m.device)
     if seed is None:
         s1 = torch.zeros(B, dtype=m.dtype, device=m.device)
@@ -741,6 +808,24 @@ def chain(m: torch.Tensor, c: torch.Tensor, seed=None):
         s1, s2 = (mk[:, 0] * s1 + mk[:, 1] * s2 + ck[:, 0],
                   mk[:, 2] * s1 + mk[:, 3] * s2 + ck[:, 1])
     return s, torch.stack([s1, s2], -1)
+
+
+def _chain_numpy(m: np.ndarray, c: np.ndarray, seed):
+    """chain's operations, in the same order, in numpy float32."""
+    B, nb = m.shape[:2]
+    s = np.empty((B, nb, 2), m.dtype)
+    if seed is None:
+        s1 = np.zeros(B, m.dtype)
+        s2 = np.zeros_like(s1)
+    else:
+        s1, s2 = seed[:, 0], seed[:, 1]
+    for k in range(nb):
+        s[:, k, 0] = s1
+        s[:, k, 1] = s2
+        mk, ck = m[:, k], c[:, k]
+        s1, s2 = (mk[:, 0] * s1 + mk[:, 1] * s2 + ck[:, 0],
+                  mk[:, 2] * s1 + mk[:, 3] * s2 + ck[:, 1])
+    return s, np.stack([s1, s2], -1)
 
 
 def phase2(m: torch.Tensor, c: torch.Tensor) -> torch.Tensor:

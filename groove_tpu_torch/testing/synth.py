@@ -862,3 +862,261 @@ def midi_song(measures: int = 4, bpm: float = 120.0, fmt: int = 1,
         return smf_bytes([tempo + progs + drums + pads + lead], division, 0)
     return smf_bytes([tempo, [progs[0]] + pads, [progs[1]] + lead, drums],
                      division, 1)
+
+
+# ---- live analogue ---------------------------------------------------------
+
+# The pad: a resonant low-pass pad whose second oscillator is noise, with a
+# sample-and-hold LFO on the cutoff and a short glide
+LIVE_PAD = {
+    "oscillator-1": {"waveform": "sawtooth", "tune": {"float": 1.0},
+                     "mix-pct": 1.0},
+    "oscillator-2": {"waveform": "noise", "tune": {"float": 1.0},
+                     "mix-pct": 0.8},
+    "oscillator-2-track": True, "oscillator-2-sync": False, "noise": 0.1,
+    "lfo": {"routing": "filter-cutoff", "waveform": "noise",
+            "frequency": 6.0, "depth": {"pct": 0.15}},
+    "glide": 0.04, "unison": False, "polyphony": "multi",
+    "filter-type-24db": {"cutoff-hz": 900.0, "cutoff-pct": 0.45},
+    "filter-type-12db": {"cutoff-hz": 900.0, "cutoff-pct": 0.45},
+    "filter-resonance": 0.5, "filter-envelope-weight": 0.6,
+    "filter-envelope": {"attack": 0.05, "decay": 0.8, "sustain": 0.4,
+                        "release": 0.5},
+    "amp-envelope": {"attack": 0.02, "decay": 0.6, "sustain": 0.7,
+                     "release": 0.3},
+}
+# MIDI channel of each live instrument (the free-running oscillator takes
+# none)
+LIVE_CHANNELS = {"pad": 0, "fm": 1, "sampler": 2, "envelope": 3,
+                 "drums": 9}
+LIVE_VOICES = 8  # voices a pool, the reference's default
+LIVE_SIDECHAIN = "duck"
+
+
+def write_live_assets(root) -> Path:
+    """The live analogue's assets under `root`: the 707 kit at 44.1 kHz
+    and the sampler's 48 kHz WAV."""
+    write_assets(root)
+    write_sampler_wav(root)
+    return Path(root)
+
+
+def live_project(measures: int = 2, bpm: float = 120.0) -> dict:
+    """The live analogue: a song a player plays along with from a MIDI
+    keyboard, every live instrument kind through the kitchen sink's effect
+    kinds into a bus.
+
+        pad (welsh-raw LIVE_PAD, ch 0) -> pad-comp (compressor, its
+            threshold driven by the sidechain `duck`: the pad ducks under
+            the drums) -> pad-verb (reverb) -> bus
+        fm (ch 1) -> fm-delay -> bus, and a send of 0.3 into pad-verb
+        drums (707, ch 9) -> duck (passthrough) -> drum-comp (smoothed
+            compressor) -> bus
+        sampler (ch 2) -> samp-lp (low-pass 12 dB under a cutoff trip) ->
+            bus
+        envelope (ch 3) -> env-hp (high-pass 12 dB at 40 Hz: its poles
+            take the serial scan) -> bus
+        osc (a 220 Hz sine, always on) -> osc-lp (low-pass 24 dB,
+            static) -> bus
+        bus (gain) -> limiter -> main-mixer
+
+    The sequenced patterns (dyads on the pad in quarters, the north
+    star's beat, an FM line in eighths) are what a play-along plays;
+    `measures` of them. Assets:
+    write_live_assets."""
+    beat = north_star_project(1, bpm)["patterns"][0]
+    rng = np.random.default_rng(6)
+    scale = [60, 62, 64, 67, 69, 72]
+    patterns = [beat,
+                {"id": "pad-chords", "note-value": "quarter",
+                 "notes": [[48, 53, 45, 43], [60, 57, 57, 55]]},
+                {"id": "fm-line", "note-value": "eighth",
+                 "notes": [[int(x) for x in rng.choice(scale, 8)]]}]
+    ch = LIVE_CHANNELS
+    devices = [
+        {"instrument": ["pad", {"welsh-raw": [
+            {"midi-in": ch["pad"], "gain": 0.15}, dict(LIVE_PAD)]}]},
+        {"instrument": ["fm", {"fm-synthesizer": [
+            {"midi-in": ch["fm"]}, dict(FM_LEAD)]}]},
+        {"instrument": ["drums", {"drumkit": [{"midi-in": ch["drums"]},
+                                              {"name": "707"}]}]},
+        {"instrument": ["sampler", {"sampler": [
+            {"midi-in": ch["sampler"]},
+            {"filename": SAMPLER_WAV, "root": 69}]}]},
+        {"instrument": ["envelope", {"envelope": {
+            "attack": 0.01, "decay": 0.2, "sustain": 0.5, "release": 0.3,
+            "midi-in": ch["envelope"]}}]},
+        {"instrument": ["osc", {"oscillator": {"waveform": "sine",
+                                               "frequency": 220.0}}]},
+        {"controller": [LIVE_SIDECHAIN,
+                        {"signal-passthrough-controller": [{}]}]},
+        {"effect": ["pad-comp", {"compressor": {
+            "threshold": 0.5, "ratio": 0.25, "attack": 0.0,
+            "release": 0.0}}]},
+        {"effect": ["pad-verb", {"reverb": {"attenuation": 0.5,
+                                            "seconds": 1.2}}]},
+        {"effect": ["fm-delay", {"delay": {"delay": 0.125}}]},
+        {"effect": ["drum-comp", {"compressor": {
+            "threshold": 0.1, "ratio": 0.3, "attack": 0.005,
+            "release": 0.1}}]},
+        {"effect": ["samp-lp", {"filter-low-pass-12db": {
+            "cutoff": 3000.0, "q": 0.7}}]},
+        {"effect": ["env-hp", {"filter-high-pass-12db": {
+            "cutoff": 40.0, "q": 0.707}}]},
+        {"effect": ["osc-lp", {"filter-low-pass-24db": {
+            "cutoff": 1500.0, "passband-ripple": 0.707}}]},
+        {"effect": ["osc-level", {"gain": {"ceiling": 0.05}}]},
+        {"effect": ["bus", {"gain": {"ceiling": 0.6}}]},
+        {"effect": ["limiter", {"limiter": {"minimum": -0.9,
+                                            "maximum": 0.9}}]},
+    ]
+    cables = [["pad", "pad-comp", "pad-verb", "bus"],
+              ["fm", "fm-delay", "bus"],
+              ["drums", LIVE_SIDECHAIN, "drum-comp", "bus"],
+              ["sampler", "samp-lp", "bus"],
+              ["envelope", "env-hp", "bus"],
+              ["osc", "osc-lp", "osc-level", "bus"],
+              ["bus", "limiter", "main-mixer"]]
+    tracks = [{"id": "pad-track", "midi-channel": ch["pad"],
+               "patterns": ["pad-chords"] * measures},
+              {"id": "drum-track", "midi-channel": ch["drums"],
+               "patterns": ["beat"] * measures},
+              {"id": "fm-track", "midi-channel": ch["fm"],
+               "patterns": ["fm-line"] * measures}]
+    lo, hi = _trip_value(800.0), _trip_value(6000.0)
+    p = _song("live analogue", bpm, devices, cables, patterns, tracks,
+              [("samp-lp", ("cutoff", lo, hi, measures))])
+    p["controls"] = [{"id": "duck-pad", "source": LIVE_SIDECHAIN,
+                      "target": {"id": "pad-comp", "param": "threshold"}}]
+    p["sends"] = [{"source": "fm", "aux": "pad-verb", "amount": 0.3}]
+    return p
+
+
+def live_performance(seconds: float, sample_rate: int = 44100,
+                     seed: int = 0) -> list[tuple[int, bytes]]:
+    """A seeded scripted performance on LIVE_CHANNELS: [(frame, MIDI
+    bytes)] in frame order. Pad chords of 4 notes a second (gliding from
+    the last chord), an FM line in sixteenths held across each other with
+    a burst of 10 held notes a bar (more than a pool holds: steals), the
+    drums' kick, snare and hats (repeated keys: round robins) with short
+    note-offs, sampler quarters and envelope dyads. Note-offs are 0x8n or
+    a note-on of velocity 0, and a run of notes on one channel uses
+    running status, as a keyboard's stream does."""
+    rng = np.random.default_rng(seed)
+    sr = sample_rate
+    ev: list[tuple[int, int, bytes]] = []  # (frame, order, bytes)
+    ch = LIVE_CHANNELS
+
+    def note(c, key, vel, t_on, t_off, zero_off=False):
+        on_f, off_f = int(t_on * sr), int(t_off * sr)
+        ev.append((on_f, 1, bytes([0x90 | c, key, vel])))
+        off = bytes([0x90 | c, key, 0]) if zero_off \
+            else bytes([0x80 | c, key, 0])
+        ev.append((max(off_f, on_f + 1), 0, off))
+
+    chords = [(48, 55, 60, 64), (53, 57, 60, 65), (45, 52, 57, 60),
+              (43, 50, 55, 59)]
+    beat = 0.125  # a sixteenth at 120 bpm
+    n_steps = int(seconds / beat)
+    for k in range(int(np.ceil(seconds))):
+        for key in chords[k % 4]:
+            note(ch["pad"], key, int(rng.integers(60, 110)),
+                 k + 0.002 * (key % 3), k + 0.9, zero_off=bool(k % 2))
+    for s in range(n_steps):
+        t = s * beat
+        if s % 16 == 8:  # a burst past the pool's 8 voices
+            for i in range(10):
+                note(ch["fm"], 60 + i, 90, t + i * 0.004, t + 1.2)
+        elif rng.random() < 0.7:
+            note(ch["fm"], int(rng.choice([60, 62, 64, 67, 69, 72, 74])),
+                 int(rng.integers(50, 120)), t, t + 0.4, zero_off=True)
+        for key, every in ((35, 4), (38, 8), (42, 2)):
+            if s % every == (4 if key == 38 else 0):
+                note(ch["drums"], key, int(rng.integers(80, 127)), t,
+                     t + 0.02)
+        if s % 4 == 2:
+            note(ch["sampler"], int(rng.choice([57, 60, 64, 67])), 100, t,
+                 t + 0.3)
+        if s % 8 == 0:
+            for key in (64, 69):
+                note(ch["envelope"], key, 70, t, t + 0.6)
+    ev.sort(key=lambda e: (e[0], e[1]))
+    return [(f, b) for f, _, b in ev if f < int(seconds * sr)]
+
+
+def running_status(events: list[tuple[int, bytes]]) -> bytes:
+    """The performance as one byte stream with running status: a message
+    whose status byte repeats the previous one's drops it."""
+    out, last = bytearray(), None
+    for _, msg in events:
+        out += msg[1:] if msg[0] == last else msg
+        last = msg[0]
+    return bytes(out)
+
+
+def write_live_performance(path, events: list[tuple[int, bytes]]) -> Path:
+    """The performance's bytes as a file a MIDI port would deliver
+    (running_status)."""
+    path = Path(path)
+    path.write_bytes(running_status(events))
+    return path
+
+
+def block_schedule(events: list[tuple[int, bytes]], block_frames: int,
+                   n_blocks: int) -> list[tuple[bytes, int]]:
+    """The performance's running-status byte stream cut per block: entry k
+    holds the bytes and the message count of the events in [k, k + 1) x
+    block_frames (delivered before block k renders, they pin to its
+    start). Concatenated, the bytes are write_live_performance's file
+    (events past the last block left out)."""
+    out = [[bytearray(), 0] for _ in range(n_blocks)]
+    last = None
+    for f, msg in events:
+        k = f // block_frames
+        if k < n_blocks:
+            out[k][0] += msg[1:] if msg[0] == last else msg
+            out[k][1] += 1
+        last = msg[0]
+    return [(bytes(b), n) for b, n in out]
+
+
+def play_live(renderer, schedule, timeout: float = 10.0, times=None,
+              after_block=None) -> np.ndarray:
+    """Play a block_schedule through a LiveSongService whose MIDI port is
+    a pipe, as a keyboard's bytes would arrive: before each block, that
+    block's bytes go into the pipe and the service's input thread parses
+    them; the block renders once every message has reached the renderer.
+    times: a list that receives each block's render seconds (the pull,
+    fetch included); after_block(): called after each block. Returns the
+    audio [blocks x block_frames, 2]."""
+    import os
+    import time
+
+    from groove_tpu_torch.engine.livesong import LiveSongService
+
+    r_fd, w_fd = os.pipe()
+    reader = os.fdopen(r_fd, "rb", buffering=0)
+    blocks: list = []
+    svc = LiveSongService(renderer, midi_source=reader, sink=blocks.append)
+    expect = 0
+    try:
+        for data, count in schedule:
+            if data:
+                os.write(w_fd, data)
+                expect += count
+                deadline = time.monotonic() + timeout
+                while svc.events_handled < expect:
+                    if time.monotonic() > deadline:
+                        raise TimeoutError("MIDI bytes never reached the "
+                                           "renderer")
+                    time.sleep(0.0002)
+            t0 = time.perf_counter()
+            svc.pump(1)
+            if times is not None:
+                times.append(time.perf_counter() - t0)
+            if after_block is not None:
+                after_block()
+    finally:
+        os.close(w_fd)
+        svc.stop()
+    return np.concatenate(blocks)

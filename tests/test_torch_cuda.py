@@ -34,6 +34,8 @@ import no jax, so the machine with the card runs them:
 
 from __future__ import annotations
 
+import json
+
 import numpy as np
 import pytest
 import torch
@@ -1168,3 +1170,168 @@ def test_unsliced_stream_on_card_equals_cpu(cuda_device, tmp_path, make,
     one = -(-compiled.n_frames // 64) * 64
     assert np.array_equal(on_card, StreamingRenderer(
         compiled, cuda_device, one).render(quantize=True))
+
+
+# ---- live playback (engine/livesong.py, engine/live.py) ---------------------
+
+@pytest.fixture(scope="module")
+def live_assets(tmp_path_factory):
+    return synth.write_live_assets(tmp_path_factory.mktemp("live"))
+
+
+@pytest.fixture(scope="module")
+def live_song(live_assets):
+    return compile_song(SongSettings.from_json(synth.live_project(1)),
+                        Paths(roots=[live_assets]))
+
+
+@pytest.mark.parametrize("mode,block,seconds",
+                         [("live", 64, 0.3), ("play", 64, 0.1),
+                          ("live", 4096, 1.0), ("play", 4096, 1.0)])
+def test_live_blocks_on_card_equal_cpu(cuda_device, live_song, mode, block,
+                                       seconds):
+    """The live analogue played by the scripted performance through
+    LiveSongService (MIDI bytes through a pipe) on the card and on the
+    CPU twins: bit for bit, and the card's launches = live_launches()."""
+    from groove_tpu_torch.engine.livesong import LiveSongRenderer
+    from groove_tpu_torch.ops import stream_kernels as sk
+
+    sched = synth.block_schedule(synth.live_performance(seconds), block,
+                                 int(seconds * 44100) // block)
+    outs = []
+    for device in (cuda_device, "cpu"):
+        r = LiveSongRenderer(live_song, block_frames=block,
+                             play_song=mode == "play", device=device)
+        before = {**sk.LAUNCHES, **scan_kernels.LAUNCHES}
+        outs.append(synth.play_live(r, sched))
+        if str(device) != "cpu":
+            got = {k: v - before[k] for k, v in {
+                **sk.LAUNCHES, **scan_kernels.LAUNCHES}.items()
+                if v != before[k]}
+            plan = r.live_launches()
+            assert got == {k: v * len(sched) for k, v in plan.items()
+                           if k in before}
+    assert np.abs(outs[1]).max() > 0.01
+    np.testing.assert_array_equal(outs[0], outs[1])
+
+
+def test_live_one_block_is_the_whole_performance_on_card(cuda_device,
+                                                         live_assets):
+    """Notes from frame 0 (offs later): 64 blocks of 64 frames = one block
+    of 4096 on the card, bit for bit, and = the CPU twins' (the pad's
+    noise off: it is keyed per block; the free-running oscillator muted:
+    its phase origin is taken per block)."""
+    from groove_tpu_torch.engine.livesong import FAR, LiveSongRenderer
+
+    project = synth.live_project(1)
+    pad = project["devices"][0]["instrument"][1]["welsh-raw"][1]
+    pad.update({"noise": 0.0, "oscillator-2": {
+        "waveform": "sine", "tune": {"float": 2.0}, "mix-pct": 0.8}})
+    project["patch-cables"] = [c for c in project["patch-cables"]
+                               if c[0] != "osc"]
+    song = compile_song(SongSettings.from_json(project),
+                        Paths(roots=[live_assets]))
+    chord = [(0, 48), (0, 55), (1, 64), (2, 60), (9, 35), (9, 42), (3, 69)]
+    offs = {48: 1024, 55: 2048, 64: 640, 60: 3008, 69: 1536}
+
+    def small(device):
+        r = LiveSongRenderer(song, device=device)
+        for ch, key in chord:
+            r.note_on(ch, key, 100)
+        out = []
+        for b in range(64):
+            for ch, key in chord:
+                if offs.get(key) == b * 64:
+                    r.note_off(ch, key)
+            out.append(r.render_block())
+        return np.concatenate(out)
+
+    big = LiveSongRenderer(song, block_frames=4096, device=cuda_device)
+    for ch, key in chord:
+        big.note_on(ch, key, 100)
+    for u, pool in big._pools.items():
+        for v in range(big.n_voices):
+            k = int(pool["keys"][v])
+            if pool["on"][v] < FAR and k in offs \
+                    and song.devices[u].kind != "drumkit":
+                pool["off"][v] = offs[k]
+    whole = big.render_block()
+    blocks = small(cuda_device)
+    assert np.abs(whole).max() > 0.01
+    np.testing.assert_array_equal(blocks, whole)
+    np.testing.assert_array_equal(blocks, small("cpu"))
+
+
+def test_live_welsh_voice_on_card_equals_cpu(cuda_device, tmp_path):
+    """live_window_block (S3 for both sections, scan1 for the phases) and
+    live_render_block through LiveSynth, card = CPU twins bit for bit,
+    4 blocks of 64 = 1 block of 256."""
+    from groove_tpu_torch.engine.live import LiveSynth
+    from groove_tpu_torch.models import welsh
+    from groove_tpu_torch.project.patches import WelshPatchSettings
+
+    params = WelshPatchSettings.from_json_str(json.dumps(
+        synth.LIVE_PAD)).derive_welsh_voice_params()
+    rng = np.random.default_rng(0)
+    keys = torch.from_numpy(rng.integers(40, 80, 8).astype(np.int32))
+    vels = torch.from_numpy(rng.uniform(30, 127, 8).astype(np.float32))
+    on = torch.tensor([0, 0, 0, 64, 64, 128, 2**30, 0], dtype=torch.int32)
+    off = torch.full((8,), 2**30, dtype=torch.int32)
+    off[0] = 200
+    prev = keys.float() - 2.0
+    outs = {}
+    for device in (cuda_device, "cpu"):
+        st = welsh.live_window_state_init(8, device)
+        parts = []
+        for b in range(6):
+            m, st = welsh.live_window_block(
+                params, st, keys.to(device), vels.to(device), on.to(device),
+                off.to(device), 64 * b, 64, 44100.0,
+                prev_keys=prev.to(device))
+            parts.append(m.cpu())
+        outs[str(device)] = torch.cat(parts)
+    assert torch.equal(outs["cpu"], outs[str(cuda_device)])
+    paths = Paths(roots=[synth.write_welsh_patches(
+        tmp_path, {"pad": synth.LIVE_PAD})])
+    synths = [LiveSynth("pad", n_voices=4, paths=paths, device=d)
+              for d in (cuda_device, "cpu")]
+    got = []
+    for s in synths:
+        s.note_on(60, 100)
+        s.note_on(67, 90)
+        blocks = [s.render_block() for _ in range(5)]
+        s.note_off(60)
+        blocks += [s.render_block() for _ in range(5)]
+        got.append(np.concatenate(blocks))
+    np.testing.assert_array_equal(got[0], got[1])
+
+
+def test_s3_at_the_live_shape(cuda_device):
+    """S3 at [8, 64] in BLOCK mode with state (one coefficient set a row,
+    [8, 1]): kernel = twin bit for bit, chained calls = one call."""
+    from groove_tpu_torch.ops import stream_kernels as sk
+
+    rng = np.random.default_rng(9)
+    x = torch.from_numpy(rng.standard_normal((8, 256)).astype(np.float32)
+                         ).to(cuda_device)
+    _, secs = iir.lp24_sections(
+        torch.from_numpy(rng.uniform(200, 8000, (8, 4)).astype(np.float32)
+                         ).to(cuda_device),
+        torch.full((8, 4), 0.9, device=cuda_device), 44100.0)
+    st = (torch.from_numpy(rng.standard_normal(8).astype(np.float32) * .1)
+          .to(cuda_device), torch.zeros(8, device=cuda_device))
+    sec = secs[0]
+    first = tuple(c[:, :1] for c in sec)
+    assert sk._coef_mode(first, 64) == iir_kernels.BLOCK
+    y, s2 = sk.biquad_state(x[:, :64], first, st)
+    yp, sp = sk.biquad_state_plain(x[:, :64], first, st)
+    assert torch.equal(y, yp) and all(torch.equal(a, b)
+                                      for a, b in zip(s2, sp))
+    whole, sw = sk.biquad_state(x, sec, st)
+    parts, s = [], st
+    for b in range(4):
+        yb, s = sk.biquad_state(x[:, 64 * b:64 * b + 64],
+                                tuple(c[:, b:b + 1] for c in sec), s)
+        parts.append(yb)
+    assert torch.equal(torch.cat(parts, 1), whole)
+    assert all(torch.equal(a, b) for a, b in zip(s, sw))

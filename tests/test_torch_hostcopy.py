@@ -19,6 +19,8 @@ import dataclasses
 import enum
 import importlib
 import json
+import subprocess
+import sys
 import wave
 from fractions import Fraction
 from pathlib import Path
@@ -45,6 +47,9 @@ COPIES = {
     "compiler/automation.py": (),
     "compiler/params.py": ("to_domain_array",),
     "io/midi_smf.py": (),
+    "io/midi_input.py": (),
+    "io/midi_output.py": (),
+    "io/native.py": (),
 }
 WAV_FUNCTIONS = ("_chunk_to_i2", "write_wav_16bit_stereo",
                  "write_wav_16bit_stereo_stream", "read_wav")
@@ -77,12 +82,14 @@ def test_port_imports_neither_groove_tpu_nor_jax():
 
 
 def test_import_walk_covers_the_effect_layer():
-    """The walk above reads the effect layer's modules and the scan
-    kernel's wrapper, as it reads every module of the port."""
+    """The walk above reads the effect layer's modules, the scan kernel's
+    wrapper and the live path's, as it reads every module of the port."""
     files = {p.relative_to(PORT).as_posix() for p in _port_files()
              if p.is_relative_to(PORT)}
     assert {"ops/dynamics.py", "ops/delayfx.py", "ops/scan_kernels.py",
-            "models/simple.py", "engine/render.py"} <= files
+            "models/simple.py", "engine/render.py", "engine/live.py",
+            "engine/livesong.py", "io/midi_input.py", "io/midi_output.py",
+            "io/native.py"} <= files
 
 
 def _function(path: Path, name: str) -> str:
@@ -343,3 +350,92 @@ def test_wav_read_and_write_match(tmp_path):
         (xj, rj), (xt, rt) = jw.read_wav(f), tw.read_wav(f)
         assert rt == rj and xt.dtype == xj.dtype and np.array_equal(xt, xj)
     assert tw.read_wav(files[0])[0].shape == x.shape
+
+
+def test_native_library_path_is_the_repository_native_dir():
+    """io/native.py's _LIB_PATH (parents[2] / "native") resolves to the
+    repository's native/ from the port's io/ as from groove_tpu's."""
+    from groove_tpu.io import native as jnative
+    from groove_tpu_torch.io import native as tnative
+
+    assert tnative._LIB_PATH == jnative._LIB_PATH == \
+        REPO / "native" / "libgroove_native.so"
+
+
+def test_midi_io_copies_behave_as_the_originals():
+    """The byte parser and encoder of both packages on one stream: the
+    same messages, and the encoder's running status the same bytes."""
+    from groove_tpu.io import midi_input as jin, midi_output as jout
+    from groove_tpu_torch.io import midi_input as tin, midi_output as tout
+
+    events = synth.live_performance(1.5)
+    data = synth.running_status(events) + bytes([0xF0, 1, 2, 0xF7, 0xB3,
+                                                 7, 90, 0xE1, 0, 64])
+    got = {}
+    for name, mod in (("j", jin), ("t", tin)):
+        out = []
+        mod.MidiByteParser(lambda *m, out=out: out.append(m)).feed(data)
+        got[name] = out
+    assert got["t"] == got["j"] and len(got["t"]) == len(events) + 2
+    enc = {name: b"".join(mod.MidiByteEncoder().encode(*m)
+                          for m in got["t"][:1])
+           for name, mod in (("j", jout), ("t", tout))}
+    assert enc["t"] == enc["j"]
+    ej, et = jout.MidiByteEncoder(), tout.MidiByteEncoder()
+    assert b"".join(et.encode(*m) for m in got["t"]) == \
+        b"".join(ej.encode(*m) for m in got["t"])
+
+
+def test_cli_live_refuses_jax_and_plays_a_midi_file(tmp_path):
+    """`cli --live FILE --device cpu --wav --live-seconds S --midi-out
+    ECHO` in a process that refuses jax and groove_tpu: the MIDI file's
+    bytes play the project through its chain into the WAV sink until the
+    CLI stops itself; the echo port receives the same messages."""
+    project = synth.write_project(tmp_path / "live.json", {
+        "clock": {"bpm": 120},
+        "devices": [
+            {"instrument": ["w", {"welsh-raw": [{"midi-in": 0},
+                                                dict(synth.WELSH_LEAD)]}]},
+            {"instrument": ["f", {"fm-synthesizer": [{"midi-in": 1},
+                                                     dict(synth.FM_LEAD)]}]},
+            {"effect": ["g", {"gain": {"ceiling": 0.5}}]}],
+        "patch-cables": [["w", "g", "main-mixer"], ["f", "g", "main-mixer"]]})
+    events = [(0, bytes([0x90, 60, 100])), (0, bytes([0x91, 64, 90])),
+              (0, bytes([0x91, 67, 90])), (0, bytes([0x80, 60, 0]))]
+    midi = synth.write_live_performance(tmp_path / "keys.mid", events)
+    echo = tmp_path / "echo.mid"
+    code = f"""
+import sys
+
+class _Refuse:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "groove_tpu"):
+            raise ImportError(name + " is blocked in this process")
+        return None
+
+sys.meta_path.insert(0, _Refuse())
+from groove_tpu_torch import cli
+perf = []
+rc = cli.main([{str(project)!r}, "--live", {str(midi)!r}, "--device", "cpu",
+               "--wav", "--out-dir", {str(tmp_path / "out")!r},
+               "--live-seconds", "0.4", "--midi-out", {str(echo)!r}],
+              perf_out=perf)
+assert rc == 0, rc
+print(perf[0]["frames"], perf[0]["blocks"])
+"""
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300, cwd=str(REPO))
+    assert res.returncode == 0, res.stderr[-3000:]
+    frames, blocks = map(int, res.stdout.split()[-2:])
+    from groove_tpu_torch.io.midi_input import MidiByteParser
+    from groove_tpu_torch.io.wav import read_wav
+
+    x, rate = read_wav(tmp_path / "out" / "live.wav")
+    assert rate == 44100 and len(x) == frames == blocks * 64 > 0
+    assert np.abs(x).max() > 1e-3
+    parsed = {}
+    for name, data in (("in", midi.read_bytes()), ("echo", echo.read_bytes())):
+        out = []
+        MidiByteParser(lambda *m, out=out: out.append(m)).feed(data)
+        parsed[name] = out
+    assert parsed["echo"] == parsed["in"] and len(parsed["in"]) == 4

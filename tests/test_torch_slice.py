@@ -396,7 +396,7 @@ def test_unported_parts_raise(assets, case):
         next(sliced(c, "cpu", 4096).stream_loop(0, 1))
 
 
-@pytest.mark.parametrize("flag", [["--play"], ["--live", "midi.fifo"],
+@pytest.mark.parametrize("flag", [["--mp3"], ["--multidevice"],
                                   ["-q"], ["--mesh"]])
 def test_cli_refuses_unported_flags(flag):
     with pytest.raises(SystemExit, match="not ported yet"):

@@ -203,13 +203,13 @@ def _with(project, devices=None, cables=None, **extra):
 def test_unported_stream_cases_raise(tmp_path, capsys):
     """What still refuses: a loop of a sliced device (its carried note
     state cannot follow a seek, as in the reference), through the renderer
-    and the CLI, and the CLI's live and multi-device flags."""
+    and the CLI, and the CLI's multi-device and mesh flags."""
     base = synth.welsh_project(1, BPM)
     c = _compiled(base)
     with pytest.raises(NotImplementedError, match="linear-stream only"):
         next(Sliced(c, "cpu", 4096).stream_loop(0, 1))
     path = synth.write_project(tmp_path / "w.json", base)
-    for flag in (["--live", "midi.fifo"], ["--multidevice"]):
+    for flag in (["--mesh"], ["--multidevice"]):
         with pytest.raises(SystemExit, match="not ported yet"):
             cli.main([str(path), "--device", "cpu", *flag])
     assert cli.main([str(path), "--loop", "0", "1", "--sliced",
