@@ -745,6 +745,41 @@ def scan_calls(r, bus) -> list:
     ]
 
 
+def library_drums(hits, n: int) -> dict:
+    """Tensor.index_add_ as K1's library call: every hit's window (its
+    table row times vel / 127, cut at its limit and at n), prepared
+    before the timing as one [2, m] array with its m target frames, added
+    into a zeroed [2, n] along the time axis. The order of its atomic adds
+    is the card's, so it is not bitwise the kernel. A yardstick only: the
+    port never calls it."""
+    import torch
+
+    from groove_tpu_torch.ops.drums import CHUNK
+
+    table, counts, slots, starts, shifts, limits, vels = hits
+    cnt, sl, st, sh, li = (t.cpu().tolist()
+                           for t in (counts, slots, starts, shifts, limits))
+    scale = vels / torch.full_like(vels, 127.0)
+    wins, idx = [], []
+    for c, count in enumerate(cnt):
+        for i in range(count):
+            on = c * CHUNK + st[c][i] + 64 * sh[c][i]
+            ln = min(li[c][i], n - on)
+            if ln > 0:
+                wins.append(table[sl[c][i], :, :ln] * scale[c, i])
+                idx.append(torch.arange(on, on + ln, device=table.device))
+    values, index = torch.cat(wins, 1), torch.cat(idx)
+
+    def call():
+        out = torch.zeros((2, n), dtype=torch.float32, device=table.device)
+        return out.index_add_(1, index, values)
+
+    ms, y = cuda_ms(call, 20)
+    return {"library_ms": ms, "library_call": "Tensor.index_add_ (dim 1)",
+            "library_out": y, "windows": len(wins),
+            "window_elements": int(values.shape[1])}
+
+
 def library_scan(x, a, b, dim: int = -1) -> dict:
     """torch's prototype associative_scan (torch._higher_order_ops) on the
     linear scan's inputs: one call over (a, b x) along `dim` with the
@@ -998,8 +1033,9 @@ def fm_phase_calls(r) -> list:
     """scan1's calls for the FM analogue's automated modulator phase, as
     models/fm.modulator_phase makes them on the ratio voice's bucket:
     (label, x, a, b, axis, mode). The in-block sums of [rows, nb, 64]
-    handed over as [rows, 64, nb] along axis 1 (block space) and the
-    block prefix [rows, nb] on the time axis; then the in-block sums on
+    handed over as [rows, 64, nb] along axis 1 (block space), the block
+    prefix [rows, nb] on the time axis and the sum of what its rounding
+    lost (fm.exclusive_mod1); then the in-block sums on
     the layout not taken, [rows, nb, 64] along its last axis (one
     64-step lane a thread block), for the record."""
     import torch
@@ -1019,10 +1055,14 @@ def fm_phase_calls(r) -> list:
     inc3 = inc.reshape(rows, span // fm.CBLOCK, fm.CBLOCK)
     incl = fm.in_block_sums(inc3)
     blk = incl[..., -1].contiguous()
+    y = scan1(blk, 1.0)
+    lost = blk - (y - torch.nn.functional.pad(y[..., :-1], (1, 0)))
     return [
         ("fm in-block sums, [rows, 64, nb] on axis 1",
          inc3.transpose(1, 2), 1.0, 1.0, 1, LINEAR),
         ("fm block prefix, [rows, nb]", blk, 1.0, 1.0, -1, LINEAR),
+        ("fm block prefix's rounding, [rows, nb]", lost, 1.0, 1.0, -1,
+         LINEAR),
         ("fm in-block sums, [rows, nb, 64] on its last axis (not taken)",
          inc3, 1.0, 1.0, -1, LINEAR),
     ]
@@ -1204,6 +1244,269 @@ class OpCount:
 
     def __exit__(self, *exc):
         self._mode.__exit__(*exc)
+
+
+FRONTEND_TEMPO = 132.0   # the tempo the service and the web GUI set
+FRONTEND_LOOP = (8.0, 16.0)  # the loop range bounced twice (beats)
+FRONTEND_PLAY_S = 2.0    # seconds of playback through the null sink
+FRONTEND_PIANO = (0, 60, 110)  # the piano strip's note: channel, key, vel
+FRONTEND_LIVE_BLOCKS = 32  # 64-frame blocks in one /api/audio/live chunk
+
+
+def frontends_phase(dev, work: Path, files: dict, per_song: dict,
+                    zero_launches, launches, totals) -> None:
+    """Phase 8: the interactive front ends on the card, at the 3-minute
+    size. EngineService(device="cuda", use_audio=True) on the kitchen-sink
+    analogue's project file: render-wav = the CLI's --wav byte for byte,
+    with the launches PER_RENDER plans (counts set to 0 just before, read
+    just after); set_tempo then render-wav = a fresh Renderer's
+    render_quantized at the new tempo; a loop bounce = StreamingRenderer.
+    stream_loop called directly; one instrument on the worker = the main
+    thread's _render_instrument; play, then stop, through the native null
+    sink. The web GUI in process on port 0 over the Welsh analogue: state,
+    a tempo command, /api/audio = the CLI's WAV at that tempo, and the
+    first chunk of /api/audio/live after a piano note = the CPU twins'
+    LiveSongRenderer, 64-frame blocks (S3 and scan1 launched). The CLI's
+    --debug --quiet --mp3 on the north star. One "frontends" line: each
+    check's result and milliseconds; any "error" event fails the run."""
+    import json as json_
+    import threading
+    import urllib.request
+
+    import numpy as np
+
+    from groove_tpu_torch import cli
+    from groove_tpu_torch.compiler.song import compile_song
+    from groove_tpu_torch.engine.livesong import LiveSongRenderer
+    from groove_tpu_torch.engine.render import Renderer
+    from groove_tpu_torch.engine.service import EngineService
+    from groove_tpu_torch.engine.stream import StreamingRenderer
+    from groove_tpu_torch.gui.web import WebGui, make_server
+    from groove_tpu_torch.io import native
+    from groove_tpu_torch.io.wav import _chunk_to_i2, write_wav_16bit_stereo
+    from groove_tpu_torch.project.schema import SongSettings
+    from groove_tpu_torch.testing import synth
+    from groove_tpu_torch.utils.profiling import sync
+
+    fe = work / "frontends"
+    fe.mkdir(parents=True, exist_ok=True)
+    os.environ["GROOVE_TPU_PREFS"] = str(fe / "prefs.json")
+    require(native.available(), "the native audio library did not build")
+    checks = {}
+    t_phase = time.perf_counter()
+
+    def check(name: str, ok: bool, t0: float, **facts) -> None:
+        checks[name] = {"ok": bool(ok),
+                        "ms": (time.perf_counter() - t0) * 1e3, **facts}
+
+    def wav_bytes(path: Path, samples) -> bytes:
+        write_wav_16bit_stereo(path, samples, 44100)
+        return path.read_bytes()
+
+    # the service on the card, its sink's consumed frames recorded
+    consumed = []
+
+    class Recorded(native.AudioService):
+        def stop(self):
+            consumed.append(self.frames_consumed())
+            super().stop()
+
+    events = []
+    native_service = native.AudioService
+    native.AudioService = Recorded
+    svc = EngineService(on_event=lambda k, d: events.append((k, d)),
+                        use_audio=True, device=dev)
+    try:
+        # 1. render-wav = cli --wav of the same project, launches as planned
+        t0 = time.perf_counter()
+        svc.open_project(files["kitchen-sink"])
+        require(svc.sync(), "service: open timed out")
+        compiled = svc.ensure_compiled()
+        zero_launches()
+        svc.render_wav(fe / "service.wav")
+        require(svc.sync(), "service: render-wav timed out")
+        sync(dev)
+        got = launches()
+        for k in totals:
+            totals[k] += got[k]
+        cli_wav = Path(per_song["kitchen-sink"][0]["wav"]).read_bytes()
+        first = (fe / "service.wav").read_bytes()
+        want = {k: PER_RENDER["kitchen-sink"].get(k, 0) for k in got}
+        check("service_wav_equals_cli_wav", first == cli_wav, t0,
+              bytes=len(first), launches={k: v for k, v in got.items() if v},
+              planned=PER_RENDER["kitchen-sink"],
+              launches_as_planned=got == want)
+        require(got == want, f"service render launched {got}, planned {want}")
+        # 2. a tempo change, rendered again = a fresh Renderer at it
+        t0 = time.perf_counter()
+        svc.set_tempo(FRONTEND_TEMPO)
+        svc.render_wav(fe / "service-tempo.wav")
+        require(svc.sync(), "service: tempo render timed out")
+        second = (fe / "service-tempo.wav").read_bytes()
+        song = SongSettings.from_project_file(files["kitchen-sink"])
+        song.clock.bpm = FRONTEND_TEMPO
+        fresh = Renderer(compile_song(song), dev).render_quantized()
+        check("tempo_render_equals_a_fresh_renderer",
+              second != first
+              and second == wav_bytes(fe / "fresh.wav", fresh), t0,
+              bpm=FRONTEND_TEMPO, frames=len(fresh))
+        # 3. a loop bounce = stream_loop called directly
+        t0 = time.perf_counter()
+        svc.set_loop(*FRONTEND_LOOP)
+        zero_launches()
+        svc.render_loop_wav(fe / "loop.wav", iterations=2)
+        require(svc.sync(), "service: loop bounce timed out")
+        sync(dev)
+        got = launches()
+        compiled = svc.ensure_compiled()
+        zero_launches()
+        direct = np.concatenate(list(StreamingRenderer(compiled, dev)
+                                     .stream_loop(*FRONTEND_LOOP,
+                                                  iterations=2)))
+        sync(dev)
+        direct_got = launches()
+        stream_names = ("scan_stream", "comb_stream", "biquad_stream")
+        same = (fe / "loop.wav").read_bytes() \
+            == wav_bytes(fe / "direct-loop.wav", direct)
+        check("loop_bounce_equals_stream_loop",
+              same and got == direct_got
+              and all(got[k] > 0 for k in stream_names), t0,
+              bytes_equal=same, launches_equal=got == direct_got,
+              loop_beats=list(FRONTEND_LOOP), frames=len(direct),
+              launches={k: v for k, v in got.items() if v})
+        # 4. one instrument on the worker = the main thread's render
+        t0 = time.perf_counter()
+        iso = svc.rendered_samples(device="drums")
+        r = Renderer(compiled, dev)
+        alone = r._render_instrument(r.inputs, compiled.devices["drums"],
+                                     compiled.n_frames).cpu().numpy().T
+        check("isolated_instrument_equals_main_thread",
+              iso is not None and np.array_equal(iso, alone)
+              and float(abs(alone).max()) > 0.01, t0, device="drums",
+              frames=len(alone))
+        del r
+        # 5. play, then stop, through the native null sink
+        t0 = time.perf_counter()
+        svc.clear_loop()
+        svc.play()
+        deadline = time.monotonic() + 120.0
+        while not svc.is_playing() and time.monotonic() < deadline:
+            time.sleep(0.01)
+        time.sleep(FRONTEND_PLAY_S)
+        svc.stop()
+        require(svc.sync(), "service: stop timed out")
+        kinds = [k for k, _ in events]
+        check("play_and_stop_through_the_null_sink",
+              "playback-started" in kinds and "playback-stopped" in kinds
+              and len(consumed) == 1
+              and consumed[0] > 0.5 * FRONTEND_PLAY_S * 44100, t0,
+              frames_consumed=consumed[:1], seconds=FRONTEND_PLAY_S)
+    finally:
+        svc.shutdown()
+        native.AudioService = native_service
+    errors = [d for k, d in events if k == "error"]
+    require(not errors, f"the service reported errors: {errors}")
+
+    # 6. the web GUI over the Welsh analogue
+    welsh = synth.welsh_project(SONG_MEASURES, SONG_BPM)
+    welsh_path = synth.write_project(fe / "welsh.json", welsh)
+    before = set(threading.enumerate())
+    gui = WebGui(use_audio=False, device=dev)
+    srv = make_server(gui, 0)
+    server = threading.Thread(target=srv.serve_forever, daemon=True)
+    server.start()
+    base = f"http://127.0.0.1:{srv.server_address[1]}"
+
+    def get(path: str) -> bytes:
+        with urllib.request.urlopen(base + path, timeout=600) as resp:
+            return resp.read()
+
+    def cmd(name: str, **a) -> dict:
+        req = urllib.request.Request(
+            base + "/api/cmd", data=json_.dumps({"cmd": name, **a}).encode(),
+            method="POST")
+        with urllib.request.urlopen(req, timeout=600) as resp:
+            return json_.loads(resp.read())
+
+    try:
+        t0 = time.perf_counter()
+        ok = cmd("open", path=str(welsh_path))["ok"]
+        ok = ok and cmd("bpm", value=FRONTEND_TEMPO)["ok"]
+        state = json_.loads(get("/api/state"))
+        check("web_state_and_tempo_command",
+              ok and state["bpm"] == FRONTEND_TEMPO
+              and state["title"] == welsh["title"], t0,
+              tracks=len(state["tracks"]))
+        t0 = time.perf_counter()
+        audio = get("/api/audio")
+        at_tempo = synth.write_project(
+            fe / "welsh-at-tempo.json",
+            {**welsh, "clock": {**welsh["clock"], "bpm": FRONTEND_TEMPO}})
+        rc = cli.main([str(at_tempo), "--wav", "--quiet", "--device",
+                       str(dev), "--out-dir", str(fe / "cli")])
+        cli_wav = (fe / "cli" / "welsh-at-tempo.wav").read_bytes()
+        check("web_audio_equals_cli_wav", rc == 0 and audio == cli_wav, t0,
+              bytes=len(audio))
+        t0 = time.perf_counter()
+        live = gui.live_renderer()
+        channel, key, vel = FRONTEND_PIANO
+        ok = cmd("note_on", key=key, velocity=vel, channel=channel)["ok"]
+        zero_launches()
+        with urllib.request.urlopen(base + "/api/audio/live",
+                                    timeout=600) as resp:
+            head = resp.read(44)
+            pcm = resp.read(4 * 64 * FRONTEND_LIVE_BLOCKS)
+        got = launches()
+        card_ms = (time.perf_counter() - t0) * 1e3
+        twin = LiveSongRenderer(gui.model.svc.ensure_compiled(), n_voices=8,
+                                device="cpu")
+        twin.note_on(channel, key, vel)
+        want = _chunk_to_i2(np.concatenate(
+            [twin.render_block() for _ in range(FRONTEND_LIVE_BLOCKS)]))
+        block = np.frombuffer(pcm, "<i2").reshape(-1, 2)
+        same = bool(np.array_equal(block, want))
+        check("web_live_chunk_equals_cpu_twins",
+              ok and head[:4] == b"RIFF" and live.device == dev and same
+              and abs(block).max() > 0
+              and got["biquad_stream"] > 0 and got["scan1"] > 0, t0,
+              pcm_equal=same,
+              blocks=FRONTEND_LIVE_BLOCKS, block_frames=64,
+              card_chunk_ms=card_ms, peak_lsb=int(abs(block).max()),
+              launches={k: v for k, v in got.items() if v})
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        gui.model.svc.shutdown()
+        # the live listener's request thread renders on until it finds its
+        # connection closed: no launch of it may land in a later count
+        for t in set(threading.enumerate()) - before:
+            t.join(timeout=120.0)
+    require(not set(threading.enumerate()) - before,
+            "the web GUI's threads did not end")
+    errors = [d for k, d in gui.model.events if k == "error"]
+    require(not errors, f"the web GUI reported errors: {errors}")
+
+    # 7. cli --debug --quiet --mp3 on the north star
+    t0 = time.perf_counter()
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = cli.main([str(files["north-star"]), "--wav", "--debug",
+                       "--quiet", "--mp3", "--device", str(dev), "--out-dir",
+                       str(fe / "debug")])
+    rows = [ln.split() for ln in out.getvalue().splitlines()]
+    north = compile_song(SongSettings.from_project_file(files["north-star"]))
+    debug_wav = (fe / "debug" / "north-star.wav").read_bytes()
+    check("cli_debug_quiet_mp3",
+          rc == 0 and [r[1] for r in rows] == list(north.order)
+          and all(r[-1] == "ms" and float(r[-2]) >= 0 for r in rows)
+          and err.getvalue().strip() == "MP3 output is not yet implemented"
+          and debug_wav == Path(per_song["north-star"][0]["wav"]).read_bytes(),
+          t0, rows={r[1]: float(r[-2]) for r in rows})
+    emit("frontends", checks=checks,
+         seconds=time.perf_counter() - t_phase)
+    failed = [k for k, v in checks.items() if not v["ok"]]
+    require(not failed, f"frontends: {failed} failed: "
+            f"{ {k: checks[k] for k in failed} }")
 
 
 def live_phase(dev, work: Path, assets: Path, twins, zero_launches,
@@ -1582,6 +1885,7 @@ def main() -> int:
 
     # ---- 3. kernels vs twins at the main path's shapes --------------------
     results = []
+    library = {}
     r = renderer(synth.north_star_project, CHECK_MEASURES)
     hits, bus = drum_bus(r)
     n = r.c.n_frames
@@ -1589,6 +1893,12 @@ def main() -> int:
         "drums", lambda: drums.accumulate_hits(*hits, n_frames=n),
         lambda: drums.accumulate_hits_plain(*hits, n_frames=n),
         bus.abs().max(), drum_work(hits, n), graph=True))
+    # Tensor.index_add_ on the same hits' prepared windows (library_ms)
+    lib = library_drums(hits, n)
+    lib["library_max_abs_err_vs_kernel"] = float(
+        (lib.pop("library_out") - bus).abs().max())
+    emit("library", name="drums", shape=[2, n], ms=results[-1]["ms"], **lib)
+    library["drums"] = lib["library_ms"]
     nd = 3 * drums.CHUNK + 64
     dense = dense_hits(nd, dev)
     results.append(compare(
@@ -1643,7 +1953,6 @@ def main() -> int:
     # compressor's follower, an all-pass and a comb in block space, a
     # length off the chunk; torch's associative_scan on the first call's
     # inputs (library_ms), the call whose result main_shape keeps
-    library = {}
     rk = renderer(synth.kitchen_sink_project, CHECK_MEASURES)
     _, bus_k = drum_bus(rk)
     for i, (label, *call) in enumerate(scan_calls(rk, bus_k)):
@@ -2456,6 +2765,8 @@ def main() -> int:
             f"{diff} LSB")
     del card
 
+    frontends_phase(dev, work, files, per_song, zero_launches, launches,
+                    totals)
     live_phase(dev, work, live_assets, live_twins, zero_launches, launches,
                totals)
 

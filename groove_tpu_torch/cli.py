@@ -9,6 +9,8 @@
     python -m groove_tpu_torch.cli <project> --live MIDI_PORT \
         [--midi-out MIDI_PORT] [--live-seconds S] [--wav]
     python -m groove_tpu_torch.cli <project> --wav --play
+    python -m groove_tpu_torch.cli <project> --wav --debug [--quiet] [--mp3]
+    python -m groove_tpu_torch.cli --version
 
 The whole-timeline path of groove_tpu/cli.py: compile_song (or, for a
 .mid/.midi input, compile_midi_file: channel 10 on the 707 drumkit, the
@@ -28,9 +30,14 @@ through its effect chains (engine/livesong.py) into the native audio
 service until Ctrl-C; --midi-out PORT echoes the incoming MIDI to an out
 port; --live-seconds S stops after S seconds, and --wav writes the live
 audio to a WAV instead (paced at realtime). --play streams a finished
-render through the native audio service in real time. Assets are found
-through groove_tpu_torch.project.paths.Paths ($GROOVE_ASSETS first). The
-reference CLI's other flags exit with "not ported yet".
+render through the native audio service in real time. -d/--debug prints
+each device's own render time (utils/profiling.profile_render), -q/--quiet
+leaves out the status lines, -m/--mp3 says that MP3 output is not
+implemented (as the reference does) and renders on, -v/--version prints
+the version; an input of "-" is skipped, as the reference skips it.
+Assets are found through groove_tpu_torch.project.paths.Paths
+($GROOVE_ASSETS first). --multidevice and --mesh exit with "not ported
+yet".
 """
 
 from __future__ import annotations
@@ -42,10 +49,7 @@ import time
 from pathlib import Path
 
 # flags of groove_tpu/cli.py that this CLI does not run yet
-NOT_PORTED = (
-    ("-m", "--mp3"), ("-d", "--debug"), ("-q", "--quiet"),
-    ("-v", "--version"), ("--multidevice",), ("--mesh",),
-)
+NOT_PORTED = (("--multidevice",), ("--mesh",))
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -57,8 +61,16 @@ def build_parser() -> argparse.ArgumentParser:
                    help="project files (JSON, JSON5) or MIDI files")
     p.add_argument("-w", "--wav", action="store_true",
                    help="render as WAVE file(s) (appears next to source)")
+    p.add_argument("-m", "--mp3", action="store_true",
+                   help="render as MP3 (not yet implemented)")
+    p.add_argument("-d", "--debug", action="store_true",
+                   help="print each device's own render time")
     p.add_argument("-p", "--perf", action="store_true",
                    help="print perf information")
+    p.add_argument("-q", "--quiet", action="store_true",
+                   help="suppress status updates")
+    p.add_argument("-v", "--version", action="store_true",
+                   help="print version and exit")
     p.add_argument("--sample-rate", type=int, default=44100)
     p.add_argument("--out-dir", type=str, default=None,
                    help="write WAVs here instead of next to the input")
@@ -119,6 +131,10 @@ def main(argv=None, perf_out: list | None = None) -> int:
     """Render each input; returns 0, or 1 if any file failed. perf_out,
     when given, receives one dict of timings per rendered file."""
     args = build_parser().parse_args(argv)
+    if args.version:
+        from groove_tpu_torch import __version__
+        print(f"groove-tpu-torch {__version__}")
+        return 0
     for flags in NOT_PORTED:
         if getattr(args, "np_" + flags[-1].lstrip("-").replace("-", "_")) \
                 is not None:
@@ -128,9 +144,13 @@ def main(argv=None, perf_out: list | None = None) -> int:
         require_cuda()
     from groove_tpu_torch.project.paths import Paths
 
+    if args.mp3:
+        print("MP3 output is not yet implemented", file=sys.stderr)
     paths = Paths()
     rc = 0
     for input_filename in args.input:
+        if input_filename == "-":
+            continue
         try:
             perf = _process_file(input_filename, paths, args)
         except (OSError, ValueError, NotImplementedError) as e:
@@ -144,19 +164,13 @@ def main(argv=None, perf_out: list | None = None) -> int:
     return rc
 
 
-def _sync(device) -> None:
-    import torch
-
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-
-
 def _process_file(input_filename: str, paths, args) -> dict:
     from groove_tpu_torch.project.schema import SongSettings
     from groove_tpu_torch.compiler.song import compile_midi_file, \
         compile_song
     from groove_tpu_torch.engine.render import Renderer
     from groove_tpu_torch.io.wav import write_wav_16bit_stereo
+    from groove_tpu_torch.utils.profiling import sync
 
     t0 = time.perf_counter()
     if input_filename.endswith((".mid", ".midi")):
@@ -172,11 +186,18 @@ def _process_file(input_filename: str, paths, args) -> dict:
     if args.stream:
         return _render_streamed(compiled, input_filename, args, t0)
     renderer = Renderer(compiled, device=args.device)
-    _sync(renderer.device)
+    sync(renderer.device)
     setup_s = time.perf_counter() - t0
     if args.perf:
         print(f"Orchestrator instantiation time: {setup_s:.2f}s")
-    print(f"Performing to queue ({compiled.n_frames} frames) ", end="")
+    if args.debug:
+        # each device's own render time, like the reference's dipstick
+        # metrics
+        from groove_tpu_torch.utils.profiling import profile_render
+        for name, seconds in profile_render(renderer):
+            print(f"  {name}: {seconds * 1000:.2f} ms")
+    say = _status(args)
+    say(f"Performing to queue ({compiled.n_frames} frames) ", end="")
     render_fn = renderer.render_quantized if args.wav else renderer.render
     t1 = time.perf_counter()
     samples = render_fn()  # includes the kernel build on first use
@@ -187,7 +208,7 @@ def _process_file(input_filename: str, paths, args) -> dict:
         t2 = time.perf_counter()
         samples = render_fn()
         render_s = time.perf_counter() - t2
-    print(".")
+    say(".")
     n = len(samples)
     audio_s = n / args.sample_rate
     perf = {"input": input_filename, "frames": n, "setup_s": setup_s,
@@ -206,15 +227,25 @@ def _process_file(input_filename: str, paths, args) -> dict:
             print(f" xRT: {audio_s / render_s:.1f}x realtime")
     if args.wav:
         out = output_path(input_filename, args.out_dir)
-        print(f"Rendering queue to {out}")
+        say(f"Rendering queue to {out}")
         write_wav_16bit_stereo(out, samples, args.sample_rate)
         perf["wav"] = str(out)
     if args.play:
-        perf["underruns"] = _stream_realtime(samples, args.sample_rate)
+        perf["underruns"] = _stream_realtime(samples, args.sample_rate,
+                                             args.quiet)
     return perf
 
 
-def _stream_realtime(samples, sample_rate: int) -> int | None:
+def _status(args):
+    """print, or nothing under --quiet (the status lines; --perf and
+    --debug output is asked for and stays)."""
+    if args.quiet:
+        return lambda *a, **k: None
+    return print
+
+
+def _stream_realtime(samples, sample_rate: int,
+                     quiet: bool = False) -> int | None:
     """Push a finished render through the native ring-buffer service at
     realtime pace (the reference's audio pull model); returns its
     underruns, or None without the native library."""
@@ -242,7 +273,8 @@ def _stream_realtime(samples, sample_rate: int) -> int | None:
         while svc.frames_consumed() < n:  # drain
             time.sleep(0.005)
         underruns = svc.underruns()
-        print(f"Played {n / sample_rate:.2f}s ({underruns} underruns)")
+        if not quiet:
+            print(f"Played {n / sample_rate:.2f}s ({underruns} underruns)")
         return underruns
     finally:
         svc.stop()
@@ -266,7 +298,7 @@ def _play_live(compiled, input_filename: str, args) -> dict:
     blocks: list = []
     sink = blocks.append if args.wav else None
     # print before the open: a FIFO with no writer blocks open(2)
-    print(f"Live: MIDI from {args.live}; Ctrl-C to stop", flush=True)
+    _status(args)(f"Live: MIDI from {args.live}; Ctrl-C to stop", flush=True)
     src = open(args.live, "rb", buffering=0)
     svc = LiveSongService(renderer, midi_source=src, sink=sink,
                           midi_echo=echo)
@@ -304,7 +336,7 @@ def _play_live(compiled, input_filename: str, args) -> dict:
         audio = np.concatenate(blocks) if blocks \
             else np.zeros((0, 2), np.float32)
         write_wav_16bit_stereo(out, audio, sr)
-        print(f"Live audio: {len(audio)} frames to {out}")
+        _status(args)(f"Live audio: {len(audio)} frames to {out}")
         perf["wav"] = str(out)
         perf["frames"] = len(audio)
     return perf
@@ -336,7 +368,7 @@ def _render_loop(compiled, input_filename: str, args, t0: float) -> dict:
     total = write_wav_16bit_stereo_stream(out, chunks, args.sample_rate)
     render_s = time.perf_counter() - t1
     expect = le + args.loop_iterations * (le - ls)
-    print(f"Looped [{start_beats:g}, {end_beats:g}) beats x"
+    _status(args)(f"Looped [{start_beats:g}, {end_beats:g}) beats x"
           f"{args.loop_iterations}: {total} frames (expected {expect}) "
           f"-> {out}")
     return {"input": input_filename, "frames": total,
@@ -350,17 +382,18 @@ def _render_streamed(compiled, input_filename: str, args, t0: float) -> dict:
     import torch
 
     from groove_tpu_torch.io.wav import write_wav_16bit_stereo_stream
+    from groove_tpu_torch.utils.profiling import sync
 
     r = _streaming_class(args)(compiled, args.device,
                                segment_frames=args.segment_frames)
-    device = torch.device(args.device)
-    _sync(device)
+    sync(torch.device(args.device))
     setup_s = time.perf_counter() - t0
     batch = max(1, min(args.stream_batch, r.n_segs))
     if args.perf:
         print(f"Orchestrator instantiation time: {setup_s:.2f}s")
-    print(f"Streaming {compiled.n_frames} frames in {r.n_segs} x {r.S}-frame "
-          f"segments (batch {batch}) ", end="", flush=True)
+    say = _status(args)
+    say(f"Streaming {compiled.n_frames} frames in {r.n_segs} x {r.S}-frame "
+        f"segments (batch {batch}) ", end="", flush=True)
     chunks = r.stream(batch_segments=batch, quantize=True)
     t1 = time.perf_counter()
     if args.wav:
@@ -369,7 +402,7 @@ def _render_streamed(compiled, input_filename: str, args, t0: float) -> dict:
     else:
         total = sum(len(c) for c in chunks)
     render_s = time.perf_counter() - t1
-    print(".")
+    say(".")
     audio_s = total / args.sample_rate
     perf = {"input": input_filename, "frames": total, "setup_s": setup_s,
             "render_s": render_s,
@@ -381,7 +414,7 @@ def _render_streamed(compiled, input_filename: str, args, t0: float) -> dict:
         print(f" Streamed render: {render_s:.2f}s for {total} frames "
               f"(incl. the WAV write) — {perf['xrt']:.1f}x realtime")
     if args.wav:
-        print(f"Rendering queue to {out}")
+        say(f"Rendering queue to {out}")
         perf["wav"] = str(out)
     return perf
 

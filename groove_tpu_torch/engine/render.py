@@ -509,10 +509,14 @@ class Renderer:
                 else len(self._chunk_rows(count, span))
         return out
 
-    def _render_welsh_merged(self, inputs, n: int) -> dict:
-        """uvid -> mono [n] for every merged Welsh device, job by job."""
+    def _render_welsh_merged(self, inputs, n: int, only=None) -> dict:
+        """uvid -> mono [n] for every merged Welsh device (or only the
+        device `only`, with the same jobs in the same order), job by
+        job."""
         monos: dict = {}
         for kind, j, span, fid, uvid, _count in self._welsh_jobs():
+            if only is not None and uvid != only:
+                continue
             b = f"wm/b{j}/{uvid}"
             mono = self._cascade_packet(inputs, b, uvid, span, fid, n) \
                 if kind == "packet" \
@@ -602,9 +606,11 @@ class Renderer:
         return torch.zeros((n,), dtype=torch.float32, device=self.device)
 
     def _render_instrument(self, inputs, dev: DeviceIR, n: int,
-                           welsh_monos: dict):
+                           welsh_monos: dict | None = None):
         """One instrument -> stereo [2, n] (groove_tpu/engine/render.py:
-        675-816)."""
+        675-816). Without welsh_monos (an instrument rendered on its own:
+        utils/profiling, utils/spectrum, the service's isolated render) a
+        Welsh device renders its own merged jobs."""
         if dev.kind == "oscillator":
             mono = self._render_oscillator(dev, n)
             return torch.stack([mono, mono])
@@ -625,6 +631,8 @@ class Renderer:
                     self.device)
                 g = self._param(inputs, dev, "gain", dev.voice.gain, n)
                 return torch.stack([mono * left * g, mono * right * g])
+            if welsh_monos is None:
+                welsh_monos = self._render_welsh_merged(inputs, n, only=u)
             mono = welsh_monos.get(u, self._mono_zeros(n))
             # the voice DCA (centre pan) then the synth DCA with its
             # pan/gain automation
@@ -717,16 +725,15 @@ class Renderer:
     def fm_launches(self) -> dict:
         """scan1 launches of one render by the FM voices, from the plan:
         a device with a `ratio` curve integrates its modulator phase in
-        each chunk of each bucket, two launches where the span is a
-        multiple of 64 (every planned span is), else one."""
+        each chunk of each bucket (fm.phase_scans launches)."""
         count = 0
         for u, spans in self._buckets.items():
             if "ratio" not in self.c.devices[u].automation:
                 continue
             for j, span in enumerate(spans):
                 rows = int(self._host_on[f"{u}/b{j}/on"].shape[0])
-                per = 2 if span % fm_model.CBLOCK == 0 else 1
-                count += per * len(self._chunk_rows(rows, span))
+                count += fm_model.phase_scans(span) \
+                    * len(self._chunk_rows(rows, span))
         return {"scan1": count}
 
     def _apply_effect(self, inputs, dev: DeviceIR, x, n: int, overrides):

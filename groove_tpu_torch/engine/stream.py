@@ -576,8 +576,8 @@ class StreamingRenderer:
         bucket one stream-kernel call (K7 or K8),
         each unsliced Welsh bucket one cascade (K2 for 'refine'/'serial'
         voices, else K3), each FM bucket under a `ratio` curve its
-        modulator phase on scan1 (two calls where the span is a multiple
-        of 64, every bucket's is), each smoothing compressor two S1 calls,
+        modulator phase on scan1 (fm.phase_scans calls), each smoothing
+        compressor two S1 calls,
         each reverb six S2 calls, each filter section one S3 call (two
         when refined) or one S4 call. Kernels it never launches are
         left out."""
@@ -598,7 +598,7 @@ class StreamingRenderer:
                     else "lp24"
                 out[key] += buckets
             elif k == "fm-synthesizer" and "ratio" in dev.automation:
-                out["scan1"] += sum(2 if s % fm_model.CBLOCK == 0 else 1
+                out["scan1"] += sum(fm_model.phase_scans(s)
                                     for s in self._spans.get(u, ())
                                     if notes)
             elif k == "compressor" and self._smoothed_compressor(dev):

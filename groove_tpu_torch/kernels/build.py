@@ -18,6 +18,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -65,6 +66,7 @@ SIGNATURES = {
 }
 
 _lib = None
+_LOAD_LOCK = threading.Lock()
 
 
 def sources() -> list[Path]:
@@ -134,9 +136,15 @@ def library() -> ctypes.CDLL:
     """The loaded kernel library (built on first use). Loading it allows
     the stream kernels and scan1's time-axis kernel their dynamic shared
     memory, once, so that no call has to (csrc/lp24_stream.cu
-    lp24_stream_init, csrc/scan1.cu scan1_init)."""
+    lp24_stream_init, csrc/scan1.cu scan1_init). The first use may come
+    from any thread (the engine service's worker, a web request): one
+    thread builds and loads while the others wait."""
     global _lib
-    if _lib is None:
+    if _lib is not None:
+        return _lib
+    with _LOAD_LOCK:
+        if _lib is not None:
+            return _lib
         from groove_tpu_torch.ops.iir_kernels import stream_smem_bytes
         from groove_tpu_torch.ops.scan_kernels import STAGE_BYTES
 

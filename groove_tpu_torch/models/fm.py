@@ -14,18 +14,21 @@ Device-independent bits: the time base is a host literal, the gate
 seconds and the modulator's increments are true divisions by float32
 tensors, the carrier argument is formed in float32 in the reference's
 order (one rounding an operation), and both sines are taken in float64
-and rounded once. A `ratio` curve integrates the modulator phase as the
-reference does (64-sample blocks: each block's inclusive sum, an
-exclusive prefix over blocks, an exclusive prefix within each block),
-every sum on the first-order scan kernel with a = 1
-(ops/scan_kernels.scan1), whose card equals its CPU twin bit for bit;
-it groups its terms unlike XLA's cumsum, so against groove_tpu it is
-held to a dBFS bar, not bitwise."""
+and rounded once. A `ratio` curve integrates the modulator phase in the
+reference's 64-sample blocks (each block's inclusive sum, an exclusive
+prefix over blocks, an exclusive prefix within each block), every sum
+on the first-order scan kernel with a = 1 (ops/scan_kernels.scan1),
+whose card equals its CPU twin bit for bit; the block prefix carries
+its rounding and is reduced mod 1 (exclusive_mod1), where the
+reference's cumsum holds the whole phase of up to thousands of cycles
+in float32, so against groove_tpu it is held to a dBFS bar, not
+bitwise."""
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from groove_tpu_torch.models.voices import (f32, live_ages, live_freqs,
                                             note_freqs, time_base)
@@ -84,12 +87,15 @@ def modulator_phase(params: FmSynthParams, f_c, t, ratio,
                     sample_rate: float | None) -> torch.Tensor:
     """Modulator phase [n, m] in cycles: the static closed form, or for a
     per-sample `ratio` curve the exclusive sum of the increments
-    ratio * f_c / sample_rate, regrouped per 64-sample block when m is a
-    multiple of 64 (each block's inclusive sum, its last column the block
-    sum; an exclusive prefix over blocks; the exclusives as inclusive -
-    increment, as the reference forms them), else one flat exclusive
-    sum. Every sum is a scan1 call with a = 1; no torch.cumsum or
-    torch.sum."""
+    ratio * f_c / sample_rate, reduced mod 1 (sin is 1-periodic).
+
+    When m is a multiple of 64 the sum is regrouped per 64-sample block as
+    the reference regroups it: each block's inclusive sums (in_block_sums,
+    its last column the block sum), the exclusives within a block as
+    inclusive - increment, and each block's origin, the exclusive sum of
+    the block sums mod 1 (exclusive_mod1); else the whole row is one
+    exclusive_mod1. Every sum is a scan1 call with a = 1; no torch.cumsum
+    or torch.sum."""
     if ratio is None:
         return (params.ratio * f_c) * t
     f_m = ratio * f_c                                        # [n, m]
@@ -97,15 +103,39 @@ def modulator_phase(params: FmSynthParams, f_c, t, ratio,
     del f_m
     n, m = inc.shape
     if m % CBLOCK == 0:
-        nb = m // CBLOCK
-        inc3 = inc.reshape(n, nb, CBLOCK)
+        inc3 = inc.reshape(n, m // CBLOCK, CBLOCK)
         incl = in_block_sums(inc3)
-        blk = incl[..., -1].contiguous()                     # [n, nb]
-        blk_prefix = scan_kernels.scan1(blk, 1.0) - blk      # exclusive
+        origin = exclusive_mod1(incl[..., -1].contiguous())  # [n, nb]
         within = incl - inc3
         del incl, inc, inc3
-        return (blk_prefix[..., None] + within).reshape(n, m)
-    return scan_kernels.scan1(inc, 1.0) - inc                # exclusive
+        return (origin[..., None] + within).reshape(n, m)
+    return exclusive_mod1(inc)
+
+
+def phase_scans(span: int) -> int:
+    """scan1 calls modulator_phase makes for a `ratio` curve over `span`
+    samples: the in-block sums and exclusive_mod1's two, or exclusive_mod1
+    alone."""
+    return 3 if span % CBLOCK == 0 else 2
+
+
+def exclusive_mod1(x: torch.Tensor) -> torch.Tensor:
+    """Exclusive sums of non-negative x [..., m] along the last axis, mod
+    1, with the rounding of the running sum carried (two scan1 calls).
+
+    The inclusive sums y (scan1) round at the running sum's magnitude: a
+    phase of 3500 cycles has a float32 ulp of 2.4e-4 cycles. Each step's
+    increment as y took it, y_t - y_{t-1}, is exact (Sterbenz: the sums
+    only grow), and so is what its rounding lost, x_t - (y_t - y_{t-1});
+    so the exact exclusive sum is y_{t-1} plus the exclusive sum of those
+    losses, a second scan1 of terms a few ulps of y small. y_{t-1} mod 1
+    is exact too, and the result, frac(y_{t-1}) + the losses' sum, rounds
+    once near 1. The steps and their order are the same on every
+    device."""
+    y = scan_kernels.scan1(x, 1.0)
+    prev = F.pad(y[..., :-1], (1, 0))
+    lost = scan_kernels.scan1(x - (y - prev), 1.0)
+    return osc_ops.frac(prev) + F.pad(lost[..., :-1], (1, 0))
 
 
 def in_block_sums(inc3: torch.Tensor) -> torch.Tensor:

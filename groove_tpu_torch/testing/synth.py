@@ -549,6 +549,20 @@ def welsh_patch_project(measures: int = 1, bpm: float = 120.0) -> dict:
     }
 
 
+def oscillator_project() -> dict:
+    """A sine instrument at 440 Hz and one whole note at 128 bpm (the
+    reference's demos/instruments/oscillator-sine-a4.json, which its
+    service and GUI tests open): no assets."""
+    return {
+        "title": "oscillator sine a4", "clock": {"bpm": 128.0},
+        "devices": [{"instrument": ["oscillator-1", {"oscillator": {
+            "waveform": "sine", "frequency": 440.0}}]}],
+        "patch-cables": [["oscillator-1", "main-mixer"]],
+        "patterns": [{"id": "p", "note-value": "whole", "notes": [[69]]}],
+        "tracks": [{"id": "t", "midi-channel": 0, "patterns": ["p"]}],
+    }
+
+
 def write_project(path, project: dict) -> Path:
     path = Path(path)
     path.write_text(json.dumps(project, indent=1))

@@ -68,3 +68,45 @@ def test_signatures_cover_every_entry_point():
         head = text[text.index(f'extern "C" int {name}('):]
         params = head[:head.index(")")].count(",") + 1
         assert params == len(argtypes), name
+
+
+def test_library_loads_once_across_threads(monkeypatch):
+    """The first use of the library may come from any thread (the engine
+    service's worker, a web request): however many threads ask at once,
+    it is built and loaded once, and each gets the same library."""
+    import sys
+    import threading
+    import time
+    from types import SimpleNamespace
+
+    calls = {"build": 0, "load": 0}
+
+    def fake_build():
+        calls["build"] += 1
+        time.sleep(0.05)  # a build takes a while: others arrive meanwhile
+        return {"path": "fake.so", "seconds": 0.0, "log": ""}
+
+    def fake_cdll(path):
+        calls["load"] += 1
+        fns = {name: SimpleNamespace() for name in build.SIGNATURES}
+        fns.update(lp24_stream_init=lambda *a: 0, scan1_init=lambda *a: 0)
+        return SimpleNamespace(**fns)
+
+    monkeypatch.setattr(build, "_lib", None)
+    monkeypatch.setattr(build, "build", fake_build)
+    monkeypatch.setattr(build.ctypes, "CDLL", fake_cdll)
+    got = []
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=lambda: got.append(build.library()))
+                   for _ in range(32)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=30)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(t.is_alive() for t in threads)
+    assert calls == {"build": 1, "load": 1}
+    assert len(got) == 32 and all(lib is got[0] for lib in got)

@@ -1335,3 +1335,69 @@ def test_s3_at_the_live_shape(cuda_device):
         parts.append(yb)
     assert torch.equal(torch.cat(parts, 1), whole)
     assert all(torch.equal(a, b) for a, b in zip(s, sw))
+
+
+# ---- the engine service on the card (front ends) ---------------------------
+
+def test_service_wav_is_render_quantized_on_card(cuda_device, tmp_path,
+                                                 monkeypatch):
+    """EngineService on the card: render-wav (the float render quantized on
+    the host by io.wav) writes render_quantized's int16 (quantized on the
+    device) byte for byte, which the CLI's --wav writes; no error event."""
+    from groove_tpu_torch.engine.service import EngineService
+    from groove_tpu_torch.io.wav import write_wav_16bit_stereo
+
+    assets = synth.write_assets(tmp_path / "assets", max_seconds=0.4)
+    monkeypatch.setenv("GROOVE_ASSETS", str(assets))
+    song = synth.write_project(tmp_path / "ks.json",
+                               synth.kitchen_sink_project(1))
+    events = []
+    svc = EngineService(on_event=lambda k, d: events.append((k, d)),
+                        use_audio=False, device=cuda_device)
+    try:
+        svc.open_project(song)
+        svc.render_wav(tmp_path / "service.wav")
+        assert svc.sync()
+        compiled = svc.ensure_compiled()
+    finally:
+        svc.shutdown()
+    assert not [d for k, d in events if k == "error"], events
+    q = Renderer(compiled, cuda_device).render_quantized()
+    write_wav_16bit_stereo(tmp_path / "device.wav", q, 44100)
+    assert (tmp_path / "service.wav").read_bytes() == \
+        (tmp_path / "device.wav").read_bytes()
+    assert np.abs(q).max() > 1000
+
+
+def test_service_worker_render_equals_main_thread(cuda_device, tmp_path,
+                                                  monkeypatch):
+    """rendered_samples renders on the service's worker thread (its own
+    current stream, the kernel library loaded there first): the master,
+    one instrument alone and a loop bounce equal the same renders made on
+    the main thread, bit for bit."""
+    from groove_tpu_torch.engine.service import EngineService
+    from groove_tpu_torch.kernels import build
+
+    assets = synth.write_assets(tmp_path / "assets", max_seconds=0.4)
+    monkeypatch.setenv("GROOVE_ASSETS", str(assets))
+    song = synth.write_project(tmp_path / "ns.json",
+                               synth.north_star_project(1))
+    monkeypatch.setattr(build, "_lib", None)  # the worker loads it
+    svc = EngineService(use_audio=False, device=cuda_device)
+    try:
+        svc.open_project(song)
+        master = svc.rendered_samples()
+        drums = svc.rendered_samples(device="drums")
+        svc.set_loop(1.0, 3.0)
+        looped = svc.rendered_samples(loop_iterations=2)
+        compiled = svc.ensure_compiled()
+    finally:
+        svc.shutdown()
+    r = Renderer(compiled, cuda_device)
+    assert np.array_equal(master, r.render())
+    alone = r._render_instrument(r.inputs, compiled.devices["drums"],
+                                 compiled.n_frames)
+    assert np.array_equal(drums, alone.cpu().numpy().T)
+    want = np.concatenate(list(StreamingRenderer(compiled, cuda_device)
+                               .stream_loop(1.0, 3.0, iterations=2)))
+    assert np.array_equal(looped, want) and np.abs(master).max() > 0.05

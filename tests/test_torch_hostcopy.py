@@ -10,7 +10,16 @@ Departures of the copies, each checked here by behaviour:
                        fixed reference-asset location ($GROOVE_ASSETS,
                        then the working directory);
   compiler/params.py   to_domain_array works on torch tensors (the
-                       original on jax arrays)."""
+                       original on jax arrays);
+  gui/model.py         _browser_roots lists the roots Paths searches
+                       ($GROOVE_ASSETS/projects, then ./projects);
+                       TuiModel builds its service on a torch device.
+The front ends over the port's engines (engine/service.py, shell.py,
+utils/spectrum.py, gui/tui.py, gui/web.py) are copies but for the names
+listed in COPIES, which take a torch device and render on the port's
+engines (tests/test_torch_service.py, test_torch_frontends.py,
+test_torch_webgui.py and test_torch_spectrum.py hold them by
+behaviour)."""
 
 from __future__ import annotations
 
@@ -50,6 +59,17 @@ COPIES = {
     "io/midi_input.py": (),
     "io/midi_output.py": (),
     "io/native.py": (),
+    "project/save.py": (),
+    "engine/factory.py": (),
+    "engine/service.py": ("EngineService",),
+    "shell.py": ("main",),
+    "utils/spectrum.py": ("_render_project", "main"),
+    "gui/__init__.py": (),
+    "gui/__main__.py": (),
+    "gui/prefs.py": (),
+    "gui/model.py": ("_browser_roots", "TuiModel"),
+    "gui/tui.py": ("main",),
+    "gui/web.py": ("WebGui", "main"),
 }
 WAV_FUNCTIONS = ("_chunk_to_i2", "write_wav_16bit_stereo",
                  "write_wav_16bit_stereo_stream", "read_wav")
@@ -83,13 +103,17 @@ def test_port_imports_neither_groove_tpu_nor_jax():
 
 def test_import_walk_covers_the_effect_layer():
     """The walk above reads the effect layer's modules, the scan kernel's
-    wrapper and the live path's, as it reads every module of the port."""
+    wrapper, the live path's and the front ends', as it reads every
+    module of the port."""
     files = {p.relative_to(PORT).as_posix() for p in _port_files()
              if p.is_relative_to(PORT)}
     assert {"ops/dynamics.py", "ops/delayfx.py", "ops/scan_kernels.py",
             "models/simple.py", "engine/render.py", "engine/live.py",
             "engine/livesong.py", "io/midi_input.py", "io/midi_output.py",
-            "io/native.py"} <= files
+            "io/native.py", "engine/service.py", "engine/factory.py",
+            "project/save.py", "shell.py", "utils/spectrum.py",
+            "utils/profiling.py", "gui/model.py", "gui/prefs.py",
+            "gui/tui.py", "gui/web.py"} <= files
 
 
 def _function(path: Path, name: str) -> str:

@@ -39,6 +39,17 @@ from groove_tpu_torch.project.schema import SongSettings as TSong
 from groove_tpu_torch.testing import synth
 
 
+@pytest.fixture(autouse=True, scope="module")
+def few_threads():
+    """Two torch threads while this module runs: its renders are
+    thousands of small torch calls, and beside other test processes a
+    full thread team per call stalls on busy cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(min(2, threads))
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(scope="module")
 def assets(tmp_path_factory):
     return synth.write_live_assets(tmp_path_factory.mktemp("live-assets"))
@@ -94,10 +105,11 @@ def _db(ref: np.ndarray, got: np.ndarray) -> float:
 # (mode, block frames) -> (seconds, bar dB). Measured: live-only -99.3 dB
 # at 64 frames and -76.3 at 256, play-along -124.4 and -109.0. A longer
 # performance reads lower at 256 frames (0.4 s: -60.1): the reference
-# integrates a block's phases in one 256-step cumsum, the port per 64
-# frames from an origin mod 1, and the pad's sawtooth edges land a sample
-# apart where the two round a phase to either side of a wrap (the pad
-# alone -34 dB of its own peak, and -75 with a sine for its sawtooth)
+# integrates a block's phases in one 256-step float32 cumsum, the port per
+# 64 frames from an origin mod 1, and the pad's sawtooth edges land a
+# sample apart where the two round a phase to either side of a wrap. The
+# reference is the one that strays: see
+# test_live_256_frames_against_a_float64_phase_integral
 PERFORMANCES = {("live", 64): (0.1, -91.0), ("live", 256): (0.2, -68.0),
                 ("play", 64): (0.03, -116.0), ("play", 256): (0.06, -101.0)}
 
@@ -126,6 +138,52 @@ def test_live_analogue_vs_reference(assets, mode, block):
     assert got.shape == ref.shape == (n_blocks * block, 2)
     assert np.abs(ref).max() > 0.02
     assert _db(ref, got) < bar, _db(ref, got)
+
+
+def _f64_live_phases(phase0, inc):
+    """welsh.live_phases with the block's integral in float64: phase0 +
+    the exclusive sum of inc, reduced mod 1 in float64 and rounded once
+    to float32; the next origin likewise."""
+    i = inc.double()
+    ph = phase0.double()[:, None] + (torch.cumsum(i, 1) - i)
+    nxt = torch.remainder(ph[:, -1] + i[:, -1], 1.0)
+    return torch.remainder(ph, 1.0).float(), nxt.float()
+
+
+def test_live_256_frames_against_a_float64_phase_integral(assets,
+                                                          monkeypatch):
+    """The live analogue for 0.4 s at 256-frame blocks, the reference's
+    lookahead block, live-only: the port and groove_tpu against the port
+    with its phase integrals taken in float64 (_f64_live_phases), all else
+    the same. Measured: the port -116.0 dB, groove_tpu -60.1 (its float32
+    cumsum over 256 frames flips the pad's sawtooth edges), the port
+    against groove_tpu -60.1: the divergence is the reference's
+    rounding. Bar about 8 dB above the port's reading."""
+    seconds, block = 0.4, 256
+    project = synth.live_project()
+    n_blocks = int(seconds * 44100) // block
+    sched = synth.block_schedule(synth.live_performance(seconds), block,
+                                 n_blocks)
+
+    def port():
+        return synth.play_live(_live(_compile(project, assets),
+                                     block_frames=block), sched)
+
+    got = port()
+    monkeypatch.setattr(livesong.welsh_model, "live_phases",
+                        _f64_live_phases)
+    exact = port()
+    ref_r = JLive(_compile(project, assets, ref=True), block_frames=block)
+    parser = MidiByteParser(ref_r.handle_midi)
+    ref = []
+    for data, _ in sched:
+        parser.feed(data)
+        ref.append(ref_r.render_block())
+    ref = np.concatenate(ref)
+    assert got.shape == exact.shape == ref.shape == (n_blocks * block, 2)
+    port_db, ref_db = _db(exact, got), _db(exact, ref)
+    assert port_db < -108.0, (port_db, ref_db)
+    assert port_db < ref_db - 40.0, (port_db, ref_db)
 
 
 def test_live_launch_plan(assets):
