@@ -113,8 +113,10 @@ Phases, one JSON line each:
      in synchronised stages (profile_offline.staged_render: the
      scatter's share); an unknown instrument kind warns and renders
      silence; each note batch's own peak bytes per element (bucket_peaks)
-     of the FM, Welsh and MIDI songs, held under the card's element cap
-     (engine/render.NOTE_PEAK_BYTES_PER_ELEM);
+     of the FM, Welsh and MIDI songs and of the Welsh voice branches the
+     analogue leaves out (testing/synth.WELSH_VARIANTS: a gliding lead, a
+     lead under a pitch LFO on host phase tables, a unison pad), held
+     under the card's element cap (engine/render.NOTE_PEAK_BYTES_PER_ELEM);
   5. outputs: each 3-minute WAV's shape and peak; the north-star and
      high-sweep WAVs against the CPU render of the same song (the twins)
      bit for bit, and a 10-second filter-bank render through the CLI
@@ -165,6 +167,26 @@ Phases, one JSON line each:
      performance, bit for bit (rendered meanwhile by two background
      processes, `chip_smoke.py --live-twin`, with no card visible; a
      difference names the first device whose block output parts).
+  8. the front ends (frontends_phase: the engine service, the web GUI,
+     cli --debug), run before 7.
+  9. multi-device and timeline-sharded rendering (parallel_phase, run
+     before 7; the card's one device as logical shards): the 3-minute
+     kitchen sink through parallel.multidevice.MultiDeviceRenderer on
+     every visible device (within 1e-6 of the peak of Renderer,
+     render_quantized = the host quantization, the CLI's WAV to 1 LSB,
+     launches = its sub-renderers' = PER_RENDER; steady ms beside
+     Renderer's; the host synchronisations each component's dispatch
+     makes, of five songs, by source line); the same song through
+     parallel.meshrender.MeshRenderer on 4 shards (auto iterations K:
+     within 2e-4 of the peak of the stream, (K + 1) x 4 steps, launches
+     (K + 1) x 4 x a segment's plan; steady ms beside cli --stream's);
+     parallel.timeshard.biquad_timesharded on 4 shards of a 10-second
+     sweep against one S3 chain (bar TIMESHARD_BAR_DB; 8 S3 launches);
+     parallel.mesh.sharded_welsh_mix_step, 8 tracks on 4 shards, against
+     the plain loop (1e-4); the 3-minute Welsh analogue through cli
+     --stream --sliced at 4096 frames with
+     StreamingRenderer.WELSH_SLICE_MERGE: the unmerged WAV's bits, one
+     K7 and one K8 a segment, steady seconds beside the unmerged run's.
 Then the kernel summary line, the nvidia-smi line, and the result line.
 Without a CUDA device it exits non-zero before printing any result.
 Synthetic assets and outputs go to build/chip_smoke/ in this checkout.
@@ -275,6 +297,12 @@ PERF1_CHECK_MEASURES = 43  # 10 s
 PER_RENDER["instruments"] = {}
 MIDI_MEASURES = 90  # 162 s: 45 measures at 120 bpm, 45 at 150
 MIDI_CHECK_MEASURES = 4  # 8 s
+# the Welsh voice branches whose note batches bucket_peaks also measures
+# (testing/synth.WELSH_VARIANTS), and their lengths in measures: the
+# pitch-LFO lead at 40 (80 s), where its bucket takes the host phase
+# tables (its 3-minute bucket is past welsh.HOST_PHASE_MAX_ELEMS)
+WELSH_VARIANT_MEASURES = {"glide": SONG_MEASURES, "pitch-lfo": 40,
+                          "unison": SONG_MEASURES}
 
 
 def emit(phase: str, **fields) -> None:
@@ -1580,9 +1608,9 @@ def live_phase(dev, work: Path, assets: Path, twins, zero_launches,
         by_device: dict = {}
 
         def counted(fn):
-            def run(device, *args):
+            def run(device, *args, **kw):
                 n0 = ops.n
-                out = fn(device, *args)
+                out = fn(device, *args, **kw)
                 by_device[device.uvid] = by_device.get(device.uvid, 0) \
                     + ops.n - n0
                 return out
@@ -1736,6 +1764,264 @@ def live_phase(dev, work: Path, assets: Path, twins, zero_launches,
             require(False, f"live {mode} {block}: the card differs from "
                     f"the CPU twins from block {k}, first in {first} "
                     f"({kind})")
+
+
+# ---- 9. multi-device and timeline-sharded rendering -----------------------
+MESH_SHARDS = 4  # logical shards of the mesh and the time-sharded biquad
+TIMESHARD_FRAMES = 441344  # 10 s, a multiple of 4 shards x 64
+# biquad_timesharded against one S3 chain over the whole signal, dBFS of
+# its peak: measured on the CPU twins (equal bits at this size, the state
+# of a shard 2.5 s long forgotten below float32), held to -120
+TIMESHARD_BAR_DB = -120.0
+MIX_TRACKS = 8  # sharded_welsh_mix_step: 8 tracks on MESH_SHARDS shards
+
+
+def host_syncs(fn) -> dict:
+    """The host synchronisations `fn` makes (torch's sync debug mode), by
+    the port's innermost source line that makes each one."""
+    import collections
+    import traceback
+    import warnings
+
+    import torch
+
+    sites = collections.Counter()
+
+    def hook(message, category, filename, lineno, file=None, line=None):
+        frames = [f for f in traceback.extract_stack()
+                  if "groove_tpu_torch" in f.filename]
+        where = (f"{Path(frames[-1].filename).relative_to(ROOT)}:"
+                 f"{frames[-1].lineno}" if frames
+                 else f"{Path(filename).name}:{lineno}")
+        sites[where] += 1
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = hook
+        torch.cuda.set_sync_debug_mode(1)
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    return dict(sites)
+
+
+def parallel_phase(dev, work: Path, files: dict, per_song: dict, paths,
+                   zero_launches, launches, totals) -> None:
+    """Phase 9: groove_tpu_torch/parallel/ and the merged sliced-Welsh
+    cascade on the card, every device a logical shard of cuda:0 (the
+    machine has one card). Each run's launches are counted from zero just
+    before it and read just after; every check fails the run."""
+    import numpy as np
+    import torch
+
+    from groove_tpu_torch import cli
+    from groove_tpu_torch.compiler.song import compile_song
+    from groove_tpu_torch.engine.render import Renderer
+    from groove_tpu_torch.engine.stream import StreamingRenderer
+    from groove_tpu_torch.io.wav import read_wav
+    from groove_tpu_torch.models import welsh
+    from groove_tpu_torch.models.voices import scatter_notes
+    from groove_tpu_torch.ops import iir
+    from groove_tpu_torch.ops import stream as sops
+    from groove_tpu_torch.parallel.mesh import sharded_welsh_mix_step
+    from groove_tpu_torch.parallel.meshrender import MeshRenderer
+    from groove_tpu_torch.parallel.multidevice import MultiDeviceRenderer
+    from groove_tpu_torch.parallel.timeshard import biquad_timesharded
+    from groove_tpu_torch.project.schema import SongSettings
+    from groove_tpu_torch.testing import synth
+    from groove_tpu_torch.utils.profiling import sync
+
+    t_phase = time.perf_counter()
+
+    def counted(fn):
+        zero_launches()
+        out = fn()
+        sync(dev)
+        got = launches()
+        for k in totals:
+            totals[k] += got[k]
+        return out, {k: v for k, v in got.items() if v}
+
+    def compiled(path):
+        return compile_song(SongSettings.from_project_file(path), paths)
+
+    def steady_ms(fn, reps: int = 3) -> float:
+        fn()
+        best = float("inf")
+        for _ in range(reps):
+            sync(dev)
+            t0 = time.perf_counter()
+            fn()
+            sync(dev)
+            best = min(best, (time.perf_counter() - t0) * 1e3)
+        return best
+
+    # 1. the 3-minute kitchen sink through MultiDeviceRenderer on every
+    # visible device
+    ks = compiled(files["kitchen-sink"])
+    single = Renderer(ks, dev)
+    md = MultiDeviceRenderer(ks)
+    f_single = single.render()
+    f_multi = md.render()
+    peak = max(1.0, float(np.abs(f_single).max()))
+    rel = float(np.abs(f_multi - f_single).max()) / peak
+    q, got = counted(md.render_quantized)
+    host = np.clip(np.trunc(f_multi.astype(np.float64) * 32767.0),
+                   -32768, 32767).astype(np.int16)
+    wav = np.round(per_song["kitchen-sink"][1] * 32768.0).astype(np.int32)
+    lsb = int(np.abs(wav - q).max())
+    plan: dict = {}
+    for _, _, r in md.assignments:
+        _, alone = counted(r.render_quantized)
+        for k, v in alone.items():
+            plan[k] = plan.get(k, 0) + v
+    ms_single, ms_multi = (steady_ms(single.render_quantized),
+                           steady_ms(md.render_quantized))
+    # the first use of torch's sync debug mode reports one synchronisation
+    # of its own, outside any render: recorded apart
+    syncs = {"(no work)": {"sites": host_syncs(lambda: None)}}
+    for name, path in (("kitchen-sink", files["kitchen-sink"]),
+                       ("perf-1-10s", work / "perf-1-10s.json"),
+                       ("fm", files["fm"]),
+                       ("instruments", files["instruments"]),
+                       ("welsh", work / "welsh.json")):
+        m = md if name == "kitchen-sink" else \
+            MultiDeviceRenderer(compiled(path), [dev])
+        m.render_device()
+        syncs[name] = {"components": len(m.assignments), "sites": host_syncs(
+            lambda m=m: [r.render_device() for _, _, r in m.assignments])}
+    emit("parallel", check="multidevice kitchen sink",
+         devices=[str(d) for d in md.devices],
+         components=len(md.assignments), max_err_over_peak=rel,
+         quantized_equals_host=bool(np.array_equal(q, host)),
+         max_lsb_vs_cli_wav=lsb, launches=got, sub_renderer_launches=plan,
+         planned_per_render=PER_RENDER["kitchen-sink"],
+         steady_ms=ms_multi, single_renderer_steady_ms=ms_single,
+         host_syncs_in_dispatch=syncs)
+    require(rel <= 1e-6, f"multidevice: {rel} of the peak from Renderer")
+    require(np.array_equal(q, host), "multidevice: render_quantized is not "
+            "the host quantization")
+    require(lsb <= 1, f"multidevice: {lsb} LSB from the CLI's WAV")
+    require(got == plan == PER_RENDER["kitchen-sink"],
+            f"multidevice launched {got}, its sub-renderers {plan}")
+    del single, md, f_single, f_multi
+
+    # 2. the same song through MeshRenderer on MESH_SHARDS logical shards
+    stream = StreamingRenderer(ks, dev, STREAM_SEGMENT).render()
+    mr = MeshRenderer(ks, [dev] * MESH_SHARDS)
+    steps = [0]
+    step = mr.stream.step
+
+    def counting_step(*a):
+        steps[0] += 1
+        return step(*a)
+
+    mr.stream.step = counting_step
+    out, got = counted(mr.render)
+    n_steps = steps[0]
+    rounds = mr.iterations + 1
+    want = {k: rounds * MESH_SHARDS * v
+            for k, v in mr.stream.segment_launches().items()}
+    peak = max(1.0, float(np.abs(stream).max()))
+    rel = float(np.abs(out - stream).max()) / peak
+    ms_mesh = steady_ms(mr.render_quantized, reps=2)
+    emit("parallel", check="mesh kitchen sink", shards=MESH_SHARDS,
+         shard_frames=mr.S, iterations=mr.iterations, steps=n_steps,
+         max_err_over_peak=rel, launches=got, planned=want,
+         steady_ms=ms_mesh,
+         cli_stream_render_ms=per_song["kitchen-sink-stream"][0]["render_s"]
+         * 1e3)
+    require(n_steps == rounds * MESH_SHARDS,
+            f"mesh: {n_steps} steps, not {rounds} x {MESH_SHARDS}")
+    require(rel < 2e-4, f"mesh: {rel} of the peak from the stream")
+    require(got == want, f"mesh launched {got}, planned {want}")
+    del mr, out, stream, ks
+
+    # 3. biquad_timesharded on MESH_SHARDS shards of a 10-second sweep
+    n = TIMESHARD_FRAMES
+    x = np.random.default_rng(3).standard_normal(n).astype(np.float32)
+    cutoff = np.geomspace(200.0, 6000.0, n).astype(np.float32)
+    coefs = iir.rbj_low_pass(cutoff, 0.707, 44100.0)
+    y, got = counted(lambda: biquad_timesharded(
+        torch.from_numpy(x), coefs, [dev] * MESH_SHARDS))
+    xd = torch.from_numpy(x).to(dev)[None]
+    cd = tuple(torch.from_numpy(c).to(dev) for c in coefs)
+    zero = torch.zeros(1, device=dev)
+    chain = sops.biquad_stream(xd, cd, (zero, zero))[0][0]
+    err = float((y - chain).abs().max())
+    peak = max(1.0, float(chain.abs().max()))
+    db = 20.0 * float(np.log10(err / peak + 1e-30))
+    ms_ts, ms_chain, _, _ = in_turns(
+        lambda: biquad_timesharded(xd[0], cd, [dev] * MESH_SHARDS),
+        lambda: sops.biquad_stream(xd, cd, (zero, zero)), 5)
+    emit("parallel", check="timesharded biquad", frames=n,
+         shards=MESH_SHARDS, max_abs_err=err, err_dbfs=db,
+         bar_dbfs=TIMESHARD_BAR_DB, bitwise=bool(torch.equal(y, chain)),
+         launches=got, ms=ms_ts, one_chain_ms=ms_chain)
+    require(db <= TIMESHARD_BAR_DB, f"timeshard: {db:.1f} dBFS from one "
+            "S3 chain")
+    require(got == {"biquad_stream": 2 * MESH_SHARDS},
+            f"timeshard launched {got}")
+    del x, y, xd, cd, chain
+
+    # 4. sharded_welsh_mix_step: 8 tracks on MESH_SHARDS shards against
+    # the plain loop (tests/test_parallel.py's shapes), the Welsh
+    # analogue's lead
+    voice = compiled(work / "welsh.json").devices["lead"].voice
+    n_frames, span, sr = 1024, 512, 44100.0
+    rng = np.random.default_rng(0)
+    keys = rng.integers(48, 72, (MIX_TRACKS, 2)).astype(np.int32)
+    vels = np.full((MIX_TRACKS, 2), 127.0, np.float32)
+    gates = np.full((MIX_TRACKS, 2), 256, np.int32)
+    ons = np.tile(np.array([[0, 256]], np.int32), (MIX_TRACKS, 1))
+    gains = np.linspace(0.2, 0.9, MIX_TRACKS).astype(np.float32)
+    step = sharded_welsh_mix_step(voice, n_frames, span, sr,
+                                  [dev] * MESH_SHARDS)
+    sharded, got = counted(lambda: step(keys, vels, gates, ons, gains))
+    mix = torch.zeros((2, n_frames), device=dev)
+    for t in range(MIX_TRACKS):
+        mono = welsh.render_notes(
+            voice, torch.from_numpy(keys[t]).to(dev),
+            torch.from_numpy(vels[t]).to(dev),
+            torch.from_numpy(gates[t]).to(dev), span, sr)
+        track = iir.biquad_best(scatter_notes(mono, ons[t], n_frames),
+                                iir.rbj_low_pass(8000.0, 0.707, sr))
+        mix = mix + torch.stack([track, track]) * float(gains[t])
+    err = float((sharded - mix).abs().max())
+    emit("parallel", check="sharded welsh mix step", tracks=MIX_TRACKS,
+         shards=MESH_SHARDS, max_abs_err=err,
+         mix_peak=float(mix.abs().max()), launches=got)
+    require(err < 1e-4 and float(mix.abs().max()) > 0.1,
+            f"sharded welsh mix: {err} from the plain loop")
+
+    # 5. the 3-minute Welsh analogue streamed sliced with the merged
+    # cascade: the unmerged WAV's bits, one K7 and one K8 a segment
+    StreamingRenderer.WELSH_SLICE_MERGE = True
+    try:
+        perf = []
+        rc, got = counted(lambda: cli.main(
+            [str(work / "welsh.json"), "--wav", "--perf", "--stream",
+             "--sliced", "--segment-frames", str(WELSH_SEGMENT), "--device",
+             "cuda", "--out-dir", str(work / "out-merged")], perf_out=perf))
+    finally:
+        StreamingRenderer.WELSH_SLICE_MERGE = False
+    require(rc == 0 and len(perf) == 1, "cli failed on welsh merged")
+    info = perf[0]["stream"]
+    segs = info["segments"]
+    want = {"lp24_stream": segs, "lp24_refined_stream": segs}
+    audio = read_wav(Path(perf[0]["wav"]))[0]
+    same = bool(np.array_equal(audio, per_song["welsh"][1]))
+    emit("parallel", check="welsh merged sliced stream", segments=segs,
+         launches=got, planned_launches=info["planned_launches"],
+         equals_unmerged_wav=same, render_s=perf[0]["render_s"],
+         unmerged_render_s=per_song["welsh"][0]["render_s"])
+    require(got == want == info["planned_launches"],
+            f"welsh merged launched {got}, planned "
+            f"{info['planned_launches']}, want {want}")
+    require(same, "welsh merged: the WAV differs from the unmerged one")
+    emit("parallel", seconds=time.perf_counter() - t_phase)
 
 
 def main() -> int:
@@ -2378,11 +2664,18 @@ def main() -> int:
          scatter_share=stages["scatter"] / staged_s)
     del rf
     # each note batch's own peak bytes per element, of the FM analogue's
-    # and the MIDI file's buckets
+    # and the MIDI file's buckets, and of the Welsh voice branches the
+    # analogue leaves out: a gliding lead, a lead under a pitch LFO (host
+    # phase tables), a unison pad
+    variants = {f"welsh-{name}": compile_song(SongSettings.from_json(
+        synth.welsh_variant_project(name, measures, SONG_BPM)), paths)
+        for name, measures in WELSH_VARIANT_MEASURES.items()}
     for name, song in (("fm", fm_song),
-                       ("midi", compile_midi_file(files["midi"], paths))):
+                       ("midi", compile_midi_file(files["midi"], paths)),
+                       *variants.items()):
         peak_per_elem[name] = bucket_peaks(Renderer(song, dev))
         emit("bucket_peaks", project=name, batches=peak_per_elem[name])
+    del variants
     # an instrument of a kind no renderer knows: a warning and silence
     # (the device's toy plays 0.0, so the song is the CLI's WAV)
     ri = Renderer(synth.unknown_instrument(compile_song(
@@ -2767,6 +3060,8 @@ def main() -> int:
 
     frontends_phase(dev, work, files, per_song, zero_launches, launches,
                     totals)
+    parallel_phase(dev, work, files, per_song, paths, zero_launches, launches,
+                   totals)
     live_phase(dev, work, live_assets, live_twins, zero_launches, launches,
                totals)
 

@@ -19,13 +19,18 @@ Layout (each module names its groove_tpu counterpart):
     kernels/   the nvcc build and ctypes binding
     engine/    the whole-song Renderer, the segment StreamingRenderer and
                live playback (livesong, live)
+    parallel/  rendering over several devices: independent components
+               (multidevice), timeline shards (meshrender, timeshard),
+               track shards and songs one a device (mesh)
     io/        WAV reader/writers and the int16 quantizer; MIDI input and
                output, the native audio service (copies)
     testing/   seeded synthetic assets and projects
     cli.py     python -m groove_tpu_torch.cli <project> --wav --perf
-               (--stream, --loop, --live PORT, --play)
+               (--stream, --loop, --live PORT, --play, --multidevice,
+               --mesh)
 
-Nothing here chooses a device implicitly: every entry point takes one.
+Every entry point takes a device; parallel/'s take a device list, by
+default every visible CUDA device, and never fall back to the CPU.
 """
 
 __version__ = "0.1.0"

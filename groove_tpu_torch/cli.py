@@ -10,6 +10,7 @@
         [--midi-out MIDI_PORT] [--live-seconds S] [--wav]
     python -m groove_tpu_torch.cli <project> --wav --play
     python -m groove_tpu_torch.cli <project> --wav --debug [--quiet] [--mp3]
+    python -m groove_tpu_torch.cli <project> --wav (--multidevice | --mesh)
     python -m groove_tpu_torch.cli --version
 
 The whole-timeline path of groove_tpu/cli.py: compile_song (or, for a
@@ -35,9 +36,13 @@ each device's own render time (utils/profiling.profile_render), -q/--quiet
 leaves out the status lines, -m/--mp3 says that MP3 output is not
 implemented (as the reference does) and renders on, -v/--version prints
 the version; an input of "-" is skipped, as the reference skips it.
-Assets are found through groove_tpu_torch.project.paths.Paths
-($GROOVE_ASSETS first). --multidevice and --mesh exit with "not ported
-yet".
+--multidevice renders the song's independent components concurrently,
+one Renderer each, round-robin over the devices
+(parallel/multidevice.py); --mesh shards its timeline, one shard a
+device, relaxing the carried states across the seams
+(parallel/meshrender.py). Their devices: every visible CUDA device for
+--device cuda, else the one --device names. Assets are found through
+groove_tpu_torch.project.paths.Paths ($GROOVE_ASSETS first).
 """
 
 from __future__ import annotations
@@ -47,10 +52,6 @@ import re
 import sys
 import time
 from pathlib import Path
-
-# flags of groove_tpu/cli.py that this CLI does not run yet
-NOT_PORTED = (("--multidevice",), ("--mesh",))
-
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
@@ -107,10 +108,14 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--live-seconds", type=float, default=None,
                    help="with --live: stop after this many seconds (default: "
                         "play until Ctrl-C)")
-    for flags in NOT_PORTED:
-        p.add_argument(*flags, nargs="*", default=None,
-                       dest="np_" + flags[-1].lstrip("-").replace("-", "_"),
-                       help=argparse.SUPPRESS)
+    p.add_argument("--multidevice", action="store_true",
+                   help="render the song's independent components "
+                        "concurrently across the devices "
+                        "(parallel/multidevice.py)")
+    p.add_argument("--mesh", action="store_true",
+                   help="shard the song's timeline across the devices with "
+                        "state relaxation across the seams "
+                        "(parallel/meshrender.py)")
     return p
 
 
@@ -135,10 +140,6 @@ def main(argv=None, perf_out: list | None = None) -> int:
         from groove_tpu_torch import __version__
         print(f"groove-tpu-torch {__version__}")
         return 0
-    for flags in NOT_PORTED:
-        if getattr(args, "np_" + flags[-1].lstrip("-").replace("-", "_")) \
-                is not None:
-            raise SystemExit(f"{flags[-1]}: not ported yet, see ROADMAP.md")
     if args.device.startswith("cuda"):
         from groove_tpu_torch import require_cuda
         require_cuda()
@@ -185,18 +186,34 @@ def _process_file(input_filename: str, paths, args) -> dict:
         return _render_loop(compiled, input_filename, args, t0)
     if args.stream:
         return _render_streamed(compiled, input_filename, args, t0)
-    renderer = Renderer(compiled, device=args.device)
-    sync(renderer.device)
+    say = _status(args)
+    devices = _devices(args)
+    if args.multidevice:
+        from groove_tpu_torch.parallel.multidevice import \
+            MultiDeviceRenderer
+        renderer = MultiDeviceRenderer(compiled, devices)
+        say(f"Multi-device: {len(renderer.assignments)} components "
+            f"across {len(devices)} device(s)")
+    elif args.mesh:
+        from groove_tpu_torch.parallel.meshrender import MeshRenderer
+        renderer = MeshRenderer(compiled, devices)
+        say(f"Mesh: timeline sharded {renderer.n_devices} ways x "
+            f"{renderer.S} frames, {renderer.iterations} relaxation "
+            f"round(s)")
+    else:
+        renderer = Renderer(compiled, device=args.device)
+    for dev in devices:
+        sync(dev)
     setup_s = time.perf_counter() - t0
     if args.perf:
         print(f"Orchestrator instantiation time: {setup_s:.2f}s")
-    if args.debug:
+    if args.debug and not (args.multidevice or args.mesh):
         # each device's own render time, like the reference's dipstick
-        # metrics
+        # metrics; the multi-device renderers are sets of renders, not
+        # one profileable graph
         from groove_tpu_torch.utils.profiling import profile_render
         for name, seconds in profile_render(renderer):
             print(f"  {name}: {seconds * 1000:.2f} ms")
-    say = _status(args)
     say(f"Performing to queue ({compiled.n_frames} frames) ", end="")
     render_fn = renderer.render_quantized if args.wav else renderer.render
     t1 = time.perf_counter()
@@ -234,6 +251,18 @@ def _process_file(input_filename: str, paths, args) -> dict:
         perf["underruns"] = _stream_realtime(samples, args.sample_rate,
                                              args.quiet)
     return perf
+
+
+def _devices(args) -> list:
+    """The devices a render runs on: for --multidevice and --mesh with
+    --device cuda every visible CUDA device, else the one device --device
+    names."""
+    import torch
+
+    if args.device == "cuda" and (args.multidevice or args.mesh):
+        from groove_tpu_torch.parallel import resolve_devices
+        return resolve_devices()
+    return [torch.device(args.device)]
 
 
 def _status(args):

@@ -224,11 +224,13 @@ class LiveSongRenderer(StreamingRenderer):
     # ---- live instrument rendering ------------------------------------------
 
     def _render_instrument_seg(self, dev: DeviceIR, xs, t0: int, n: int,
-                               state: dict) -> torch.Tensor:
+                               state: dict,
+                               sliced_merged=None) -> torch.Tensor:
         u = dev.uvid
         sr = float(self.c.sample_rate)
         if self.play_song:
-            base = super()._render_instrument_seg(dev, xs, t0, n, state)
+            base = super()._render_instrument_seg(dev, xs, t0, n, state,
+                                                  sliced_merged)
         else:
             base = self._zeros(n)
         if u not in self._pools:

@@ -216,7 +216,10 @@ def compute_filter_fidelity(compiled) -> dict:
 # Welsh analogue's lead, 629 x 81664, and the MIDI analogue's, 720 x
 # 80768: the threefry noise's int64 words), a Welsh voice without 28.0
 # (the pad, 720 x 114816), FM 32.0 (each bucket of the FM analogue, the
-# largest 360 x 123648). That holds a whole bucket of a long song in one
+# largest 360 x 123648); and the voice branches the analogue leaves out
+# (testing/synth.WELSH_VARIANTS): a gliding lead with noise 72.0 (629 x
+# 81664), a lead under a pitch LFO on host phase tables 64.1 (280 x
+# 81664), a unison pad 28.0 (2160 x 114816). That holds a whole bucket of a long song in one
 # launch (some 290M elements on an 80 GB card). The reference sizes its
 # accelerator cap the same way for its own memory (12 x 16M elements x ~5
 # live arrays, a quarter of a 16 GB card).
@@ -708,7 +711,9 @@ class Renderer:
         mono = self._mono_zeros(n)
         for j, span in enumerate(self._buckets[u]):
             b = f"{u}/b{j}"
-            on = self._host_on[f"{b}/on"]
+            # the note-on frames on the device: uploading the host copy
+            # would wait for the device's queue
+            on = inputs[f"{b}/on"]
 
             def render(lo: int, hi: int, hc, b=b, span=span, on=on):
                 return fm_model.render_notes(

@@ -33,15 +33,15 @@ Sliced Welsh voices (WELSH_SLICED True, or "auto" where _slice_wins):
 each segment renders exactly its slice of every active note, carrying
 each note's cascade state from segment to segment in the stream kernels
 K7 and K8. They stream linearly only: a loop's seek rewinds note ages,
-which the carried note state cannot follow.
+which the carried note state cannot follow. With WELSH_SLICE_MERGE on, a
+segment gathers every sliced (device, bucket) job's rows by state layout
+and runs ONE cascade per layout (one K7 and one K8 launch a segment in
+all), then splits the rows back (_render_sliced_merged).
 
 Loop-range playback (stream_loop) rides the same step: [0, loop_end),
 then [loop_start, loop_end) repeatedly, with all state carried across
 the seam like the reference's clock seek; loop boundaries quantize to the
 64-frame grid. Notes gated past the loop end truncate at the seam.
-
-Not ported: the reference's WELSH_SLICE_MERGE (one merged cascade launch
-for every sliced bucket of a segment), off by default there.
 """
 
 from __future__ import annotations
@@ -176,6 +176,16 @@ class StreamingRenderer:
     # per device by the work model in _slice_wins — the CLI --sliced
     # configuration).
     WELSH_SLICED = False
+
+    # Merge every sliced (device, bucket) cascade job of a segment into ONE
+    # stream-kernel launch per carried-state layout (_render_sliced_merged).
+    # Off by default, as in the reference, which measured the merge slower
+    # on its chip (the concatenation, split and state scatter cost more
+    # than the launches saved). Unlike the reference, which merges on its
+    # kernel backends only, the flag holds on every device: the kernels
+    # and their twins are row-independent, so merged and unmerged segments
+    # are the same bits on the card and on the CPU.
+    WELSH_SLICE_MERGE = False
 
     # Per-sample cost of the sliced stateful cascade RELATIVE to the
     # unsliced whole-window path, the _slice_wins work model's one
@@ -573,7 +583,8 @@ class StreamingRenderer:
     def segment_launches(self, notes: bool = True) -> dict:
         """Kernel launches of one segment, by LAUNCHES key (with
         notes=False the effects' alone): each sliced
-        bucket one stream-kernel call (K7 or K8),
+        bucket one stream-kernel call (K7 or K8; with WELSH_SLICE_MERGE
+        one call a state layout in all),
         each unsliced Welsh bucket one cascade (K2 for 'refine'/'serial'
         voices, else K3), each FM bucket under a `ratio` curve its
         modulator phase on scan1 (fm.phase_scans calls), each smoothing
@@ -585,6 +596,7 @@ class StreamingRenderer:
                "lp24_refined": 0, "lp24": 0, "scan1": 0,
                "scan_stream": 0, "comb_stream": 0, "biquad_stream": 0,
                "biquad_serial_stream": 0}
+        merged: set = set()  # the state layouts of merged sliced jobs
         for u in self.c.order:
             dev = self.c.devices[u]
             k = dev.kind
@@ -592,7 +604,11 @@ class StreamingRenderer:
             if u in self._sliced:
                 layout = next(iter(welsh_model.slice_state_init(
                     0, self._welsh_refine.get(u))))
-                out[STATE_KERNEL[layout]] += buckets
+                if self.WELSH_SLICE_MERGE:
+                    if buckets:
+                        merged.add(layout)
+                else:
+                    out[STATE_KERNEL[layout]] += buckets
             elif k in WELSH:
                 key = "lp24_refined" if self._welsh_refine.get(u) \
                     else "lp24"
@@ -609,6 +625,8 @@ class StreamingRenderer:
             elif k.startswith("filter-") and dev.role != "controller":
                 for key, v in self._filter_plan(dev).items():
                     out[key] += v
+        for layout in merged:
+            out[STATE_KERNEL[layout]] += 1
         return {key: v for key, v in out.items() if v}
 
     # ---- state -------------------------------------------------------------
@@ -736,9 +754,11 @@ class StreamingRenderer:
             warn(msg)
 
     def _render_instrument_seg(self, dev: DeviceIR, xs, t0: int, n: int,
-                               state: dict) -> torch.Tensor:
+                               state: dict,
+                               sliced_merged=None) -> torch.Tensor:
         """One instrument's [2, n] segment (groove_tpu/engine/stream.py
-        :713-870)."""
+        :713-870). sliced_merged: {(uvid, bucket): mono [n]} of the
+        segment's merged cascade (_render_sliced_merged), or None."""
         u = dev.uvid
         sr = float(self.c.sample_rate)
         if dev.kind == "oscillator":
@@ -757,6 +777,11 @@ class StreamingRenderer:
         inp = self.inputs
         out = self._zeros(n)
         for j, span in enumerate(self._spans[u]):
+            if dev.kind in WELSH and u in self._sliced:
+                mono = sliced_merged[(u, j)] if sliced_merged is not None \
+                    else self._sliced_bucket(dev, j, xs, t0, n, state)
+                out = out + torch.stack([mono, mono])  # DCA applied after
+                continue
             b = f"{u}/b{j}"
             idx = xs[f"{b}/idx"]
             m = xs[f"{b}/m"]
@@ -774,11 +799,7 @@ class StreamingRenderer:
                 placed = scatter_notes(note_audio, on_rel, n + span)
                 return placed[..., span:span + n]
 
-            if dev.kind in WELSH and u in self._sliced:
-                mono = self._sliced_bucket(dev, j, xs, t0, n, state, keys,
-                                           vels, gate, ids)
-                out = out + torch.stack([mono, mono])  # DCA applied after
-            elif dev.kind in WELSH:
+            if dev.kind in WELSH:
                 pv = inp[f"{b}/prev"][idx] if f"{b}/prev" in inp else None
                 mono = place(welsh_model.render_notes(
                     dev.voice, keys, vels, gate, span, sr,
@@ -845,12 +866,13 @@ class StreamingRenderer:
             out = torch.stack([out[0] * left * g, out[1] * right * g])
         return out
 
-    def _sliced_bucket(self, dev, j, xs, t0, n, state, keys, vels, gate,
-                       ids) -> torch.Tensor:
-        """A sliced bucket's mono segment: exactly this segment's slice of
-        every active note, cascade state carried per note. Padded rows go
-        to the bucket's scratch slot, so duplicate writes can never touch
-        a real note's state; their audio is masked at the sum."""
+    def _slice_job(self, dev, j, xs, t0, n, state) -> dict:
+        """A sliced bucket's segment up to its cascade: the cascade input
+        rows and sections of exactly this segment's slice of every active
+        note (welsh.render_notes_slice_pre), the rows' carried states and
+        their slots. Padded rows go to the bucket's scratch slot, so
+        duplicate writes can never touch a real note's state; their audio
+        is masked at the sum."""
         u = dev.uvid
         b = f"{u}/b{j}"
         idx, m = xs[f"{b}/idx"], xs[f"{b}/m"]
@@ -863,14 +885,67 @@ class StreamingRenderer:
                for k in state if k.startswith(prefix)}
         nk = {w: keys_w[idx]
               for w, keys_w in self._noise_keys[(u, j)].items()}
-        mono_rows, fst2 = welsh_model.render_notes_slice(
-            dev.voice, keys, vels, gate, age0, n, float(self.c.sample_rate),
-            fst, inp[f"{b}/tfull"], inp[f"{b}/tbfull"], note_ids=ids,
-            fidelity=self._welsh_refine.get(u),
-            host_ctl=self._hc_seg(b, idx), noise_keys=nk)
+        y, secs_b, ctx = welsh_model.render_notes_slice_pre(
+            dev.voice, inp[f"{b}/keys"][idx], inp[f"{b}/vels"][idx] * m,
+            inp[f"{b}/gate"][idx], age0, n, float(self.c.sample_rate),
+            inp[f"{b}/tfull"], inp[f"{b}/tbfull"],
+            note_ids=inp[f"{b}/ids"][idx], host_ctl=self._hc_seg(b, idx),
+            noise_keys=nk)
+        return {"key": (u, j), "dev": dev, "y": y, "secs": secs_b,
+                "ctx": ctx, "fst": fst, "state": state, "slot": slot,
+                "m": m, "prefix": prefix}
+
+    def _finish_slice_job(self, job: dict, y, fst2: dict) -> torch.Tensor:
+        """A sliced job after its cascade: its states scattered into their
+        slots, its mono segment summed row after row."""
         for k, v in fst2.items():
-            state[prefix + k][slot] = v
-        return row_sum(mono_rows * m[:, None])
+            job["state"][job["prefix"] + k][job["slot"]] = v
+        mono_rows = welsh_model.finish_slice(job["dev"].voice, y, job["ctx"])
+        return row_sum(mono_rows * job["m"][:, None])
+
+    def _sliced_bucket(self, dev, j, xs, t0, n, state) -> torch.Tensor:
+        """A sliced bucket's mono segment: its job through its own
+        cascade launch, cascade state carried per note."""
+        job = self._slice_job(dev, j, xs, t0, n, state)
+        y, fst2 = welsh_model.cascade_slices(
+            job["y"], job["secs"], job["fst"],
+            self._welsh_refine.get(dev.uvid))
+        return self._finish_slice_job(job, y, fst2)
+
+    def _render_sliced_merged(self, xs, t0: int, n: int, state) -> dict:
+        """The segment's sliced Welsh cascades in ONE launch per carried-
+        state layout ('p4': K7, 'p20': K8; the reference's
+        _render_sliced_merged): every sliced (device, bucket) job's rows
+        and sections concatenated by layout, one cascade_slices over them,
+        the rows split back in job order, each job finished and its states
+        scattered into its slots. Rows are per-note data, so concatenating
+        them changes no row's bits. Returns {(uvid, bucket): mono [n]}."""
+        nb = n // BLOCK
+        groups: dict[str, list] = {}
+        for u in self.c.order:
+            if u not in self._sliced:
+                continue
+            dev = self.c.devices[u]
+            for j in range(len(self._spans[u])):
+                job = self._slice_job(dev, j, xs, t0, n, state)
+                (layout,) = job["fst"]
+                groups.setdefault(layout, []).append(job)
+        out = {}
+        for layout, jobs in groups.items():
+            rows = [job["y"].shape[0] for job in jobs]
+            secs = [tuple(torch.cat([job["secs"][s][i].expand(r, nb)
+                                     for job, r in zip(jobs, rows)])
+                          for i in range(5)) for s in range(2)]
+            y, st = welsh_model.cascade_slices(
+                torch.cat([job["y"] for job in jobs]), secs,
+                {layout: torch.cat([job["fst"][layout] for job in jobs])},
+                None)
+            lo = 0
+            for job, r in zip(jobs, rows):
+                out[job["key"]] = self._finish_slice_job(
+                    job, y[lo:lo + r], {layout: st[layout][lo:lo + r]})
+                lo += r
+        return out
 
     def _apply_effect_seg(self, dev: DeviceIR, x, t0: int, n: int,
                           overrides: dict, state: dict):
@@ -1091,11 +1166,13 @@ class StreamingRenderer:
         sends_by_aux: dict = {}
         for src, aux, amount in c.sends:
             sends_by_aux.setdefault(aux, []).append((src, amount))
+        merged = self._render_sliced_merged(xs, t0, n, state) \
+            if self.WELSH_SLICE_MERGE and self._sliced else None
         for uvid in c.order:
             dev = c.devices[uvid]
             if dev.role == "instrument" or dev.kind == "calculator":
-                outputs[uvid] = self._render_instrument_seg(dev, xs, t0, n,
-                                                            state)
+                outputs[uvid] = self._render_instrument_seg(
+                    dev, xs, t0, n, state, sliced_merged=merged)
                 continue
             acc = self._zeros(n)
             for s in c.sinks.get(uvid, []):

@@ -43,9 +43,9 @@ from groove_tpu_torch.ops.iir_kernels import (BLOCK, CBLOCK, SAMPLE, SCALAR,
                                               Streams, as_f32, block_views,
                                               check_input, dispatch, fma32,
                                               fold_back, geometry, is_scalar,
-                                              phase1, phase2, ptr, raw_stream,
-                                              rows_of, rows_view, scalar32,
-                                              stream_of, strides_of,
+                                              on_device, phase1, phase2, ptr,
+                                              raw_stream, rows_of, rows_view,
+                                              scalar32, stream_of, strides_of,
                                               tiled_buffers)
 
 # kernel launches per wrapper (one per call of the C entry point)
@@ -195,9 +195,10 @@ def _launch_tiled(x2: torch.Tensor, ln: int, views=None, values=None,
     else:
         arrays, strides, count = views, strides_of(views), views[0].shape[1]
         values = [0.0] * 5
-    err = library().biquad_tiled(
-        mode, x2.data_ptr(), *(ptr(a) for a in arrays), strides, count,
-        *values, y.data_ptr(), *ptrs, B, n, ln, raw_stream(x2.device))
+    with on_device(x2.device):
+        err = library().biquad_tiled(
+            mode, x2.data_ptr(), *(ptr(a) for a in arrays), strides, count,
+            *values, y.data_ptr(), *ptrs, B, n, ln, raw_stream(x2.device))
     if err:
         raise RuntimeError(f"biquad kernel launch failed: CUDA error {err}")
     return y
@@ -220,10 +221,11 @@ def _launch(x2: torch.Tensor, st: Streams, ln: int) -> torch.Tensor:
     m = torch.empty((B, nb, 4), **f32)
     c = torch.empty((B, nb, 2), **f32)
     s = torch.empty((B, nb, 2), **f32)
-    err = library().biquad_scan(
-        st.mode, ptr(xp), *(ptr(t) for t in st.arrays), *st.values,
-        *st.layout, ptr(y), ptr(p11), ptr(p12), ptr(q1), ptr(m), ptr(c),
-        ptr(s), B, n, npad, ln, stream_of(x2))
+    with on_device(x2.device):
+        err = library().biquad_scan(
+            st.mode, ptr(xp), *(ptr(t) for t in st.arrays), *st.values,
+            *st.layout, ptr(y), ptr(p11), ptr(p12), ptr(q1), ptr(m), ptr(c),
+            ptr(s), B, n, npad, ln, stream_of(x2))
     if err:
         raise RuntimeError(f"biquad kernel launch failed: CUDA error {err}")
     return y
@@ -289,9 +291,10 @@ def _launch_serial(x2: torch.Tensor, st: Streams) -> torch.Tensor:
         xp[:, :n] = x2
         x2 = xp
     y = torch.empty((B, stride), dtype=torch.float32, device=x2.device)
-    err = library().biquad_serial_scan(
-        st.mode, ptr(x2), *(ptr(t) for t in st.arrays), *st.values,
-        *st.layout, ptr(y), B, n, stride, stream_of(x2))
+    with on_device(x2.device):
+        err = library().biquad_serial_scan(
+            st.mode, ptr(x2), *(ptr(t) for t in st.arrays), *st.values,
+            *st.layout, ptr(y), B, n, stride, stream_of(x2))
     if err:
         raise RuntimeError(f"biquad serial kernel launch failed: CUDA "
                            f"error {err}")

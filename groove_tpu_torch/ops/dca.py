@@ -11,7 +11,11 @@ import torch
 
 
 def pan_gains(pan, device=None):
-    pan = torch.as_tensor(pan, dtype=torch.float32, device=device)
+    # a number is filled on the device: a host-to-device copy would wait
+    # for the device's queue
+    pan = torch.as_tensor(pan, dtype=torch.float32, device=device) \
+        if torch.is_tensor(pan) \
+        else torch.full((), float(pan), dtype=torch.float32, device=device)
     left = 1.0 - 0.25 * (pan + 1.0) ** 2
     right = 1.0 - (0.5 * pan - 0.5) ** 2
     return left, right

@@ -131,11 +131,12 @@ def _launch(table, counts, slots, starts, shifts, limits, vels,
         raise ValueError("drum kernel: the table needs rows of a multiple "
                          "of 4 frames, 16-byte alignment and < 2^31 floats")
     y = torch.empty((2, n_frames), dtype=torch.float32, device=table.device)
-    err = build.library().drums_accumulate(
-        table.data_ptr(), table.shape[-1], counts.data_ptr(),
-        slots.data_ptr(), starts.data_ptr(), shifts.data_ptr(),
-        limits.data_ptr(), vels.data_ptr(), nchunks, M, CHUNK, y.data_ptr(),
-        n_frames, iir_kernels.raw_stream(table.device))
+    with iir_kernels.on_device(table.device):
+        err = build.library().drums_accumulate(
+            table.data_ptr(), table.shape[-1], counts.data_ptr(),
+            slots.data_ptr(), starts.data_ptr(), shifts.data_ptr(),
+            limits.data_ptr(), vels.data_ptr(), nchunks, M, CHUNK,
+            y.data_ptr(), n_frames, iir_kernels.raw_stream(table.device))
     if err:
         raise RuntimeError(f"drum kernel launch failed: CUDA error {err}")
     return y

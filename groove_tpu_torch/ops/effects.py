@@ -16,17 +16,25 @@ def gain(x, ceiling):
     return x * ceiling
 
 
+def _on(v, x, dtype=None):
+    """A number or tensor as a tensor on x's device; a number is filled
+    there (no host-to-device copy, which would wait for the device)."""
+    if torch.is_tensor(v):
+        return torch.as_tensor(v, dtype=dtype, device=x.device)
+    return torch.full((), v, dtype=dtype, device=x.device)
+
+
 def limiter(x, minimum, maximum):
     """Clamp |x| into [minimum, maximum], keeping the sign."""
-    lo = torch.as_tensor(minimum, dtype=x.dtype, device=x.device)
-    hi = torch.as_tensor(maximum, dtype=x.dtype, device=x.device)
+    lo = _on(minimum, x, x.dtype)
+    hi = _on(maximum, x, x.dtype)
     return torch.sign(x) * torch.minimum(torch.maximum(torch.abs(x), lo), hi)
 
 
 def bitcrusher(x, bits):
     """Drop `bits` (floored, clamped to 0..15) low-order bits of the
     16-bit image |x| * 32767 truncated toward zero, sign reapplied."""
-    b = torch.clamp(torch.floor(torch.as_tensor(bits, device=x.device)),
+    b = torch.clamp(torch.floor(_on(bits, x)),
                     0, 15).to(torch.int32)
     step = torch.bitwise_left_shift(torch.ones_like(b), b).to(x.dtype)
     mag = torch.trunc(torch.abs(x) * I16_MAX)

@@ -55,6 +55,7 @@ coefficient reads as 0, as in the reference's zero-padded tiles.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 
 import numpy as np
@@ -171,6 +172,18 @@ def raw_stream(device: torch.device) -> int:
 
 def stream_of(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(raw_stream(t.device))
+
+
+def on_device(device: torch.device):
+    """The guard every call into the kernel library runs under: `device`
+    (the launch's tensors' CUDA device) made current, so that the
+    library's per-device set-up (cudaGetDevice, then the dynamic shared
+    memory attribute) and the launch itself happen on the device whose
+    stream the call passes, whichever device was current before. (A CPU
+    device makes no guard: only the tests' fake libraries take one here.)"""
+    if device.type != "cuda":
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
 
 
 def check_input(x2: torch.Tensor, what: str) -> None:
@@ -381,10 +394,11 @@ def _launch_refined_tiled(x2: torch.Tensor, den) -> torch.Tensor:
     ln = geometry(n)[0]
     (y, ya), _scratch, ptrs = tiled_buffers(x2, ln, outputs=2, pairs=5,
                                             carries=4)
-    err = library().lp24_refined_tiled(
-        x2.data_ptr(), *(d.data_ptr() for d in den), strides_of(den),
-        den[0].shape[1], y.data_ptr(), ya.data_ptr(), *ptrs, B, n, ln,
-        raw_stream(x2.device))
+    with on_device(x2.device):
+        err = library().lp24_refined_tiled(
+            x2.data_ptr(), *(d.data_ptr() for d in den), strides_of(den),
+            den[0].shape[1], y.data_ptr(), ya.data_ptr(), *ptrs, B, n, ln,
+            raw_stream(x2.device))
     if err:
         raise RuntimeError(f"lp24 kernel launch failed: CUDA error {err}")
     return y
@@ -408,10 +422,11 @@ def _launch_lp24_tiled(x2: torch.Tensor, ln: int, den=None, values=None,
     else:
         arrays, strides, count = den, strides_of(den), den[0].shape[1]
         values = [0.0] * 4
-    err = library().lp24_tiled(
-        mode, x2.data_ptr(), *(ptr(a) for a in arrays), strides, count,
-        *values, y.data_ptr(), ya.data_ptr(), *ptrs, B, n, ln,
-        raw_stream(x2.device))
+    with on_device(x2.device):
+        err = library().lp24_tiled(
+            mode, x2.data_ptr(), *(ptr(a) for a in arrays), strides, count,
+            *values, y.data_ptr(), ya.data_ptr(), *ptrs, B, n, ln,
+            raw_stream(x2.device))
     if err:
         raise RuntimeError(f"lp24 kernel launch failed: CUDA error {err}")
     return y
@@ -497,11 +512,12 @@ def _launch(refined: bool, x2: torch.Tensor, st: Streams, ln: int,
     if state is not None:
         check_input(state, "lp24 stream kernel state")
         state_out = torch.empty_like(state)
-    err = library().lp24_cascade(
-        int(refined), st.mode, ptr(xp), *(ptr(t) for t in st.arrays),
-        *st.values, *st.layout, ptr(state), ptr(state_out), ptr(y),
-        ptr(p11), ptr(p12), ptr(q1), ptr(ya), ptr(y0), ptr(d), ptr(m),
-        ptr(c), ptr(s), B, n, npad, ln, stream_of(x2))
+    with on_device(x2.device):
+        err = library().lp24_cascade(
+            int(refined), st.mode, ptr(xp), *(ptr(t) for t in st.arrays),
+            *st.values, *st.layout, ptr(state), ptr(state_out), ptr(y),
+            ptr(p11), ptr(p12), ptr(q1), ptr(ya), ptr(y0), ptr(d), ptr(m),
+            ptr(c), ptr(s), B, n, npad, ln, stream_of(x2))
     if err:
         raise RuntimeError(f"lp24 kernel launch failed: CUDA error {err}")
     return y if state is None else (y, state_out)
@@ -574,11 +590,12 @@ def _launch_stream(refined: bool, x2, den, st):
     y = torch.empty_like(x2)
     st2 = torch.empty_like(st)
     a1a, a2a, a1b, a2b = den
-    err = library().lp24_stream(
-        refined, x2.data_ptr(), a1a.data_ptr(), a2a.data_ptr(),
-        a1b.data_ptr(), a2b.data_ptr(), *a1a.stride(), *a2a.stride(),
-        *a1b.stride(), *a2b.stride(), st.data_ptr(), st2.data_ptr(),
-        y.data_ptr(), x2.shape[0], x2.shape[1], raw_stream(x2.device))
+    with on_device(x2.device):
+        err = library().lp24_stream(
+            refined, x2.data_ptr(), a1a.data_ptr(), a2a.data_ptr(),
+            a1b.data_ptr(), a2b.data_ptr(), *a1a.stride(), *a2a.stride(),
+            *a1b.stride(), *a2b.stride(), st.data_ptr(), st2.data_ptr(),
+            y.data_ptr(), x2.shape[0], x2.shape[1], raw_stream(x2.device))
     if err:
         raise RuntimeError(
             f"lp24 stream kernel launch failed: CUDA error {err}")
@@ -635,7 +652,8 @@ def launch_floor(device) -> None:
     call's time."""
     from groove_tpu_torch.kernels.build import library
 
-    err = library().launch_floor(raw_stream(torch.device(device)))
+    with on_device(torch.device(device)):
+        err = library().launch_floor(raw_stream(torch.device(device)))
     if err:
         raise RuntimeError(f"empty kernel launch failed: CUDA error {err}")
 

@@ -48,7 +48,11 @@ def prng_key(seed: int, device="cpu") -> torch.Tensor:
     seed = int(seed)
     if not 0 <= seed <= _M:
         raise ValueError(f"seed {seed} outside [0, 2**32)")
-    return torch.tensor([0, seed], dtype=torch.int64, device=device)
+    # filled on the device: a host-to-device copy (or an item assignment)
+    # would wait for the device's queue
+    return torch.cat([torch.zeros(1, dtype=torch.int64, device=device),
+                      torch.full((1,), seed, dtype=torch.int64,
+                                 device=device)])
 
 
 def fold_in(key: torch.Tensor, data) -> torch.Tensor:
@@ -56,7 +60,10 @@ def fold_in(key: torch.Tensor, data) -> torch.Tensor:
     (0, data). data: an int or an integer tensor (one fold per element,
     keys [..., 2] broadcast against it) — the vmapped fold_in of
     oscillator.noise_rows."""
-    d = torch.as_tensor(data, dtype=torch.int64, device=key.device) & _M
+    d = (torch.as_tensor(data, dtype=torch.int64, device=key.device)
+         if torch.is_tensor(data)
+         else torch.full((), int(data), dtype=torch.int64,
+                         device=key.device)) & _M
     o1, o2 = threefry2x32(key[..., 0], key[..., 1], torch.zeros_like(d), d)
     return torch.stack([o1, o2], dim=-1)
 
@@ -68,8 +75,8 @@ def _to_uniform(bits: torch.Tensor, minval: float,
     For [-1, 1) every step is exact."""
     fb = ((bits >> 9) | 0x3F800000).to(torch.int32)
     floats = fb.view(torch.float32) - 1.0
-    lo = torch.tensor(minval, dtype=torch.float32, device=bits.device)
-    hi = torch.tensor(maxval, dtype=torch.float32, device=bits.device)
+    lo = torch.full((), minval, dtype=torch.float32, device=bits.device)
+    hi = torch.full((), maxval, dtype=torch.float32, device=bits.device)
     return torch.maximum(lo, floats * (hi - lo) + lo)
 
 

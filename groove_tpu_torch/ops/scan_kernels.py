@@ -41,7 +41,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from groove_tpu_torch.ops.iir_kernels import dispatch, ptr, stream_of
+from groove_tpu_torch.ops.iir_kernels import dispatch, on_device, ptr, \
+    stream_of
 
 LINEAR, MAX_DECAY = 0, 1  # csrc/scan1.cu Mode
 TIME, LANES = 0, 1        # csrc/scan1.cu Layout
@@ -194,9 +195,11 @@ def _launch(xv: torch.Tensor, ca: _Coef, cb: _Coef,
     y = torch.empty((R, S, D), dtype=torch.float32, device=xv.device)
     scratch = torch.empty((p.scratch_words,), dtype=torch.int64,
                           device=xv.device)
-    err = library().scan1(mode, ptr(xv), *xv.stride(), *ca.args(),
-                          *cb.args(), ptr(y), ptr(scratch), R, S, D, p.chunk,
-                          p.layout, p.threads, p.stages, stream_of(xv))
+    with on_device(xv.device):
+        err = library().scan1(mode, ptr(xv), *xv.stride(), *ca.args(),
+                              *cb.args(), ptr(y), ptr(scratch), R, S, D,
+                              p.chunk, p.layout, p.threads, p.stages,
+                              stream_of(xv))
     if err:
         raise RuntimeError(f"scan1 kernel launch failed: CUDA error {err}")
     return y

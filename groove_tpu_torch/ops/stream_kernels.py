@@ -46,8 +46,9 @@ from groove_tpu_torch.ops.biquad_kernels import _prepare_serial, _streams
 from groove_tpu_torch.ops.iir_kernels import (BLOCK as BLOCK_MODE, SAMPLE,
                                               SCALAR, as_f32, block_views,
                                               chain, check_input, dispatch,
-                                              fold_back, is_scalar, phase1,
-                                              ptr, raw_stream, rows_of,
+                                              fold_back, is_scalar,
+                                              on_device, phase1, ptr,
+                                              raw_stream, rows_of,
                                               scalar32, stream_of,
                                               strides_of, tiled_buffers)
 
@@ -185,10 +186,11 @@ def _launch_scan(x2, ca, cb, y0, mode):
     last = torch.empty((R,), **f32)
     scratch = torch.empty((p.scratch_words,), dtype=torch.int64,
                           device=x2.device)
-    err = library().scan_stream(
-        mode, ptr(x2), x2.stride(0), *_value_args(ca), *_value_args(cb),
-        ptr(y0), ptr(last), ptr(y), ptr(scratch), R, S, p.span,
-        stream_of(x2))
+    with on_device(x2.device):
+        err = library().scan_stream(
+            mode, ptr(x2), x2.stride(0), *_value_args(ca), *_value_args(cb),
+            ptr(y0), ptr(last), ptr(y), ptr(scratch), R, S, p.span,
+            stream_of(x2))
     if err:
         raise RuntimeError(f"scan_stream kernel launch failed: CUDA error "
                            f"{err}")
@@ -358,9 +360,10 @@ def _launch_comb(mode, x2, g, ng, c1, hx, hy):
     hx2 = torch.empty_like(hx)
     hy2 = torch.empty_like(hx) if hy is not None else None
     pg, gv, grs = _value_args(g)
-    err = library().comb_stream(
-        mode, ptr(x2), pg, gv, grs, ng, c1, ptr(hx), ptr(hy), ptr(hx2),
-        ptr(hy2), ptr(y), R, S, D, stream_of(x2))
+    with on_device(x2.device):
+        err = library().comb_stream(
+            mode, ptr(x2), pg, gv, grs, ng, c1, ptr(hx), ptr(hy), ptr(hx2),
+            ptr(hy2), ptr(y), R, S, D, stream_of(x2))
     if err:
         raise RuntimeError(f"comb_stream kernel launch failed: CUDA error "
                            f"{err}")
@@ -517,10 +520,11 @@ def _launch_biquad(x2, mode, coefs, views, st):
     else:
         arrays, strides, count = views, strides_of(views), views[0].shape[1]
         values = [0.0] * 5
-    err = library().biquad_tiled_state(
-        mode, x2.data_ptr(), *(ptr(a) for a in arrays), strides, count,
-        *values, y.data_ptr(), *ptrs, st.data_ptr(), st2.data_ptr(), B, n,
-        raw_stream(x2.device))
+    with on_device(x2.device):
+        err = library().biquad_tiled_state(
+            mode, x2.data_ptr(), *(ptr(a) for a in arrays), strides, count,
+            *values, y.data_ptr(), *ptrs, st.data_ptr(), st2.data_ptr(), B, n,
+            raw_stream(x2.device))
     if err:
         raise RuntimeError(f"biquad_stream kernel launch failed: CUDA "
                            f"error {err}")
@@ -583,9 +587,10 @@ def _launch_serial(x2, st, s0):
         x2 = xp
     y = torch.empty((B, stride), dtype=torch.float32, device=x2.device)
     s1 = torch.empty_like(s0)
-    err = library().biquad_serial_state(
-        st.mode, ptr(x2), *(ptr(t) for t in st.arrays), *st.values,
-        *st.layout, ptr(y), B, n, stride, ptr(s0), ptr(s1), stream_of(x2))
+    with on_device(x2.device):
+        err = library().biquad_serial_state(
+            st.mode, ptr(x2), *(ptr(t) for t in st.arrays), *st.values,
+            *st.layout, ptr(y), B, n, stride, ptr(s0), ptr(s1), stream_of(x2))
     if err:
         raise RuntimeError(f"biquad_serial_stream kernel launch failed: "
                            f"CUDA error {err}")

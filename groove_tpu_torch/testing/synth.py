@@ -324,6 +324,34 @@ def welsh_project(measures: int = 1, bpm: float = 120.0) -> dict:
     }
 
 
+# Welsh voice branches that the analogue's two voices leave out: name ->
+# (the device replaced, its inline patch)
+WELSH_VARIANTS = {
+    # a monophonic lead gliding 80 ms between its notes
+    "glide": ("lead", dict(WELSH_LEAD, glide=0.08, polyphony="mono")),
+    # a lead under a pitch LFO: host phase tables where a bucket is within
+    # welsh.HOST_PHASE_MAX_ELEMS
+    "pitch-lfo": ("lead", dict(WELSH_LEAD, lfo={
+        "routing": "pitch", "waveform": "triangle", "frequency": 4.0,
+        "depth": {"pct": 0.1}})),
+    # a unison pad: three rendered notes a note
+    "unison": ("pad", dict(WELSH_PAD, unison=True)),
+}
+
+
+def welsh_variant_project(name: str, measures: int = 1,
+                          bpm: float = 120.0) -> dict:
+    """The Welsh analogue with one voice's patch replaced by
+    WELSH_VARIANTS[name] (same notes, gains and cables)."""
+    uvid, patch = WELSH_VARIANTS[name]
+    p = welsh_project(measures, bpm)
+    for dev in p["devices"]:
+        if dev["instrument"][0] == uvid:
+            dev["instrument"][1]["welsh-raw"][1] = dict(patch)
+    p["title"] = f"welsh analogue, {name}"
+    return p
+
+
 # kitchen-sink route -> (effect kind, static params, trip targets: param
 # -> (trip value at the start, at the end), driven by the sidechain)
 KITCHEN_SINK = {

@@ -1,7 +1,8 @@
 """groove_tpu_torch imports nothing of groove_tpu or jax, and its copies of
 groove_tpu's host modules (core/, project/, the compiler's events,
-automation and params, io/midi_smf, io/wav's reader and writers) are held to their
-originals: the same code statement for statement (imports renamed, the
+automation and params, io/midi_smf, io/wav's reader and writers, and
+parallel/'s partition_components, _sub_song and effect_memory_seconds)
+are held to their originals: the same code statement for statement (imports renamed, the
 documented departures listed below), and the same results on the same
 projects, patterns, automation and WAV files.
 
@@ -73,6 +74,12 @@ COPIES = {
 }
 WAV_FUNCTIONS = ("_chunk_to_i2", "write_wav_16bit_stereo",
                  "write_wav_16bit_stereo_stream", "read_wav")
+# module -> host functions of parallel/ copied statement for statement
+# (imports renamed; no departures)
+PARALLEL_FUNCTIONS = {
+    "parallel/multidevice.py": ("partition_components", "_sub_song"),
+    "parallel/meshrender.py": ("effect_memory_seconds",),
+}
 
 
 def _port_files():
@@ -113,7 +120,9 @@ def test_import_walk_covers_the_effect_layer():
             "io/native.py", "engine/service.py", "engine/factory.py",
             "project/save.py", "shell.py", "utils/spectrum.py",
             "utils/profiling.py", "gui/model.py", "gui/prefs.py",
-            "gui/tui.py", "gui/web.py"} <= files
+            "gui/tui.py", "gui/web.py", "parallel/__init__.py",
+            "parallel/mesh.py", "parallel/multidevice.py",
+            "parallel/timeshard.py", "parallel/meshrender.py"} <= files
 
 
 def _function(path: Path, name: str) -> str:
@@ -177,6 +186,21 @@ def test_copy_is_the_original(module):
                                      .read_text()))
     copy = ast.parse((PORT / module).read_text())
     assert _body(copy, COPIES[module]) == _body(orig, COPIES[module])
+
+
+@pytest.mark.parametrize("module", list(PARALLEL_FUNCTIONS))
+def test_parallel_host_functions_are_the_originals(module):
+    """partition_components, _sub_song and effect_memory_seconds: the
+    originals statement for statement, docstrings included."""
+    def defs(tree):
+        return {n.name: ast.dump(n) for n in tree.body
+                if isinstance(n, ast.FunctionDef)
+                and n.name in PARALLEL_FUNCTIONS[module]}
+
+    theirs = defs(_Rename().visit(ast.parse(
+        (REPO / "groove_tpu" / module).read_text())))
+    assert theirs.keys() == set(PARALLEL_FUNCTIONS[module])
+    assert defs(ast.parse((PORT / module).read_text())) == theirs
 
 
 def test_wav_reader_and_writers_are_the_originals():

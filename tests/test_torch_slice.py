@@ -398,12 +398,24 @@ def test_unported_parts_raise(assets, case):
 
 @pytest.mark.parametrize("flag", [["--mp3"], ["--multidevice"],
                                   ["-q"], ["--mesh"]])
-def test_cli_refuses_unported_flags(flag, capsys):
-    """--multidevice and --mesh still refuse; --mp3 and -q are taken (on
-    an input of "-", which the CLI skips, as the reference does)."""
+def test_cli_refuses_unported_flags(flag, assets, tmp_path, monkeypatch,
+                                    capsys):
+    """No flag of the reference's CLI refuses: --mp3 and -q are taken (on
+    an input of "-", which the CLI skips, as the reference does), and
+    --multidevice and --mesh render the high sweep on --device cpu to the
+    single-device WAV."""
     if flag[0] in ("--multidevice", "--mesh"):
-        with pytest.raises(SystemExit, match="not ported yet"):
-            cli.main(["song.json", *flag])
+        path = synth.write_project(tmp_path / "hs.json",
+                                   synth.high_sweep_project())
+        monkeypatch.setenv("GROOVE_ASSETS", str(assets))
+        assert cli.main([str(path), "--wav", "--device", "cpu", *flag,
+                         "--out-dir", str(tmp_path / "o")]) == 0
+        x, _ = read_wav(tmp_path / "o" / "hs.wav")
+        q = Renderer(compile_song(SongSettings.from_project_file(path),
+                                  Paths(roots=[assets])),
+                     "cpu").render_quantized()
+        assert np.abs(np.round(x * 32768).astype(np.int32) - q).max() <= 1
+        assert np.abs(q).max() > 1000
         return
     assert cli.main(["-", "--device", "cpu", *flag]) == 0
     assert "not ported" not in capsys.readouterr().err

@@ -215,15 +215,20 @@ def _with(project, devices=None, cables=None, **extra):
 def test_unported_stream_cases_raise(tmp_path, capsys):
     """What still refuses: a loop of a sliced device (its carried note
     state cannot follow a seek, as in the reference), through the renderer
-    and the CLI, and the CLI's multi-device and mesh flags."""
+    and the CLI; the CLI's multi-device and mesh flags render the song to
+    the single-device WAV."""
     base = synth.welsh_project(1, BPM)
     c = _compiled(base)
     with pytest.raises(NotImplementedError, match="linear-stream only"):
         next(Sliced(c, "cpu", 4096).stream_loop(0, 1))
     path = synth.write_project(tmp_path / "w.json", base)
+    q = Renderer(c, "cpu").render_quantized()
     for flag in (["--mesh"], ["--multidevice"]):
-        with pytest.raises(SystemExit, match="not ported yet"):
-            cli.main([str(path), "--device", "cpu", *flag])
+        out = tmp_path / flag[0].strip("-")
+        assert cli.main([str(path), "--device", "cpu", "--wav", "--quiet",
+                         *flag, "--out-dir", str(out)]) == 0
+        x = np.round(read_wav(out / "w.wav")[0] * 32768).astype(np.int32)
+        assert x.shape == q.shape and np.abs(x - q).max() <= 1
     assert cli.main([str(path), "--loop", "0", "1", "--sliced",
                      "--segment-frames", "4096", "--device", "cpu",
                      "--out-dir", str(tmp_path / "o")]) == 1
