@@ -11,6 +11,7 @@
     python -m groove_tpu_torch.cli <project> --wav --play
     python -m groove_tpu_torch.cli <project> --wav --debug [--quiet] [--mp3]
     python -m groove_tpu_torch.cli <project> --wav (--multidevice | --mesh)
+    python -m groove_tpu_torch.cli <project> --wav --trace-dir DIR
     python -m groove_tpu_torch.cli --version
 
 The whole-timeline path of groove_tpu/cli.py: compile_song (or, for a
@@ -36,6 +37,11 @@ each device's own render time (utils/profiling.profile_render), -q/--quiet
 leaves out the status lines, -m/--mp3 says that MP3 output is not
 implemented (as the reference does) and renders on, -v/--version prints
 the version; an input of "-" is skipped, as the reference skips it.
+--trace-dir DIR runs each file's processing (compile included) under
+torch.profiler (utils/profiling.trace), writes its Chrome trace into DIR
+with a range for each of the program's spans (compile, render, stream,
+block, their layers and the kernels), on the card's timeline too, and
+prints the host milliseconds and host syncs of the spans by name.
 --multidevice renders the song's independent components concurrently,
 one Renderer each, round-robin over the devices
 (parallel/multidevice.py); --mesh shards its timeline, one shard a
@@ -68,6 +74,11 @@ def build_parser() -> argparse.ArgumentParser:
                    help="print each device's own render time")
     p.add_argument("-p", "--perf", action="store_true",
                    help="print perf information")
+    p.add_argument("--trace-dir", metavar="DIR", default=None,
+                   help="trace each file's processing with torch.profiler "
+                        "into a Chrome trace in DIR, the program's spans "
+                        "included, and print host ms and host syncs by "
+                        "span")
     p.add_argument("-q", "--quiet", action="store_true",
                    help="suppress status updates")
     p.add_argument("-v", "--version", action="store_true",
@@ -144,6 +155,7 @@ def main(argv=None, perf_out: list | None = None) -> int:
         from groove_tpu_torch import require_cuda
         require_cuda()
     from groove_tpu_torch.project.paths import Paths
+    from groove_tpu_torch.utils import profiling
 
     if args.mp3:
         print("MP3 output is not yet implemented", file=sys.stderr)
@@ -153,16 +165,32 @@ def main(argv=None, perf_out: list | None = None) -> int:
         if input_filename == "-":
             continue
         try:
-            perf = _process_file(input_filename, paths, args)
+            with profiling.trace(args.trace_dir):
+                perf = _process_file(input_filename, paths, args)
         except (OSError, ValueError, NotImplementedError) as e:
             # per-file isolation, like the reference CLI: a bad project
             # must not abort the batch
             print(f"error: {input_filename}: {e}", file=sys.stderr)
             rc = 1
             continue
+        if args.trace_dir:
+            _print_spans(args.trace_dir)
         if perf_out is not None:
             perf_out.append(perf)
     return rc
+
+
+def _print_spans(trace_dir: str) -> None:
+    """The traced file's spans by name: count, host ms, self ms (less
+    the children's) and host syncs."""
+    from groove_tpu_torch.utils import profiling
+
+    print(f"Trace: {trace_dir}")
+    print(f"  {'span':<12} {'count':>7} {'host ms':>11} {'self ms':>11} "
+          f"{'host syncs':>10}")
+    for name, n, total, own, syncs in profiling.summary():
+        print(f"  {name:<12} {n:>7} {total:>11.3f} {own:>11.3f} "
+              f"{syncs:>10}")
 
 
 def _process_file(input_filename: str, paths, args) -> dict:

@@ -39,6 +39,7 @@ from groove_tpu_torch.io.midi_input import MidiInputService
 from groove_tpu_torch.models import welsh as welsh_model
 from groove_tpu_torch.project.patches import WelshPatchSettings
 from groove_tpu_torch.project.paths import Paths
+from groove_tpu_torch.utils import profiling
 
 BLOCK = SAMPLE_BUFFER_SIZE
 
@@ -136,7 +137,7 @@ class LiveSynth:
                 t0=self._frames & 0x7FFFFFFF)
             self._age += BLOCK
             self._frames += BLOCK
-        m = mono.cpu().numpy()
+        m = profiling.host_sync(mono)
         return np.stack([m, m], axis=-1)
 
 

@@ -66,6 +66,7 @@ from groove_tpu_torch.ops import oscillator as osc_ops
 from groove_tpu_torch.ops import prng
 from groove_tpu_torch.ops.dca import pan_gains
 from groove_tpu_torch.project.schema import warn
+from groove_tpu_torch.utils import profiling
 
 BLOCK = SAMPLE_BUFFER_SIZE
 FAR = np.int32(welsh_model.LIVE_FAR)  # "held" / "unused" sentinel frame
@@ -152,7 +153,7 @@ class LiveSongRenderer(StreamingRenderer):
             xs = self._seg_xs(self.frame, self.block_frames)
         scratch = {k: v.clone() for k, v in self._st.items()}
         self.step(scratch, xs, self.block_frames)
-        torch.cuda.synchronize(self.device)
+        profiling.sync(self.device)
 
     # ---- state and input overrides -----------------------------------------
 
@@ -376,25 +377,31 @@ class LiveSongRenderer(StreamingRenderer):
 
     def render_block(self) -> np.ndarray:
         """The next stereo block [block_frames, 2] through the whole
-        graph."""
-        return self._fetch(self._dispatch_block())
+        graph (root span "block": "inputs", "step", "copy", "fetch")."""
+        with profiling.span("block", frames=self.block_frames):
+            return self._fetch(self._dispatch_block())
 
     def render_block_pipelined(self) -> np.ndarray:
         """Depth-1 pipelined pull: dispatch block b + 1 before fetching
         block b, so b's device work and copy to the host overlap b + 1's
         host dispatch. One more block of note-to-audio latency; the audio
         stream is the plain pull's, bit for bit (the same state chain)."""
-        if self._inflight is None:
-            self._inflight = self._dispatch_block()
-        prev, self._inflight = self._inflight, self._dispatch_block()
-        return self._fetch(prev)
+        with profiling.span("block", frames=self.block_frames):
+            if self._inflight is None:
+                self._inflight = self._dispatch_block()
+            prev, self._inflight = self._inflight, self._dispatch_block()
+            return self._fetch(prev)
 
     def _fetch(self, handle) -> np.ndarray:
-        if isinstance(handle, tuple):
-            host, done = handle
-            done.synchronize()
-            return host.numpy()
-        return np.ascontiguousarray(handle.numpy())
+        """The block's host array: on a card, once its copy's event has
+        passed (a host sync); on the CPU the tensor's array."""
+        with profiling.span("fetch"):
+            if isinstance(handle, tuple):
+                host, done = handle
+                profiling.host_sync(done, torch.cuda.Event.synchronize)
+                return host.numpy()
+            return np.ascontiguousarray(
+                profiling.host_sync(handle, torch.Tensor.numpy))
 
     def _dispatch_block(self):
         """Advance one block; returns a handle on its audio: on a card
@@ -407,7 +414,7 @@ class LiveSongRenderer(StreamingRenderer):
                 # (past the plan every sequenced track would repeat its
                 # final block)
                 self.play_song = False
-            xs = self._seg_xs(self.frame, nb)
+            xs = self._segment_inputs(self.frame, nb)
             self.frame += nb
             self._abs_frame += nb
             if not self.play_song and self.frame >= REBASE_AT:
@@ -423,10 +430,12 @@ class LiveSongRenderer(StreamingRenderer):
         audio = self.step(self._st, xs, nb)
         if self.device.type != "cuda":
             return audio
-        host = torch.empty(audio.shape, dtype=audio.dtype, pin_memory=True)
-        host.copy_(audio, non_blocking=True)
-        done = torch.cuda.Event()
-        done.record()
+        with profiling.span("copy", bytes=audio.nbytes):
+            host = torch.empty(audio.shape, dtype=audio.dtype,
+                               pin_memory=True)
+            host.copy_(audio, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record()
         return host, done
 
 

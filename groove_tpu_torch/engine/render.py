@@ -71,6 +71,7 @@ from groove_tpu_torch.models.voices import (bucket_notes, note_freqs,
 from groove_tpu_torch.ops import delayfx, drums, dynamics, effects, iir
 from groove_tpu_torch.ops import oscillator as osc_ops
 from groove_tpu_torch.ops.dca import pan_gains
+from groove_tpu_torch.utils import profiling
 
 BLOCK = SAMPLE_BUFFER_SIZE
 WELSH = ("welsh", "welsh-raw")
@@ -549,7 +550,10 @@ class Renderer:
         def one(lo: int, hi: int) -> torch.Tensor:
             hc = {k: v[lo:hi] if k in welsh_model.HOST_CTL_PER_NOTE else v
                   for k, v in ctl.items()}
-            return scatter_notes(render(lo, hi, hc or None), on[lo:hi], n)
+            with profiling.span("voices"):
+                windows = render(lo, hi, hc or None)
+            with profiling.span("scatter"):
+                return scatter_notes(windows, on[lo:hi], n)
 
         if len(chunks) == 1:
             return one(*chunks[0])
@@ -582,13 +586,17 @@ class Renderer:
         all its rows, then the windows times their amp scattered into a
         mono timeline."""
         sr = float(self.c.sample_rate)
-        osc, filt, amp = welsh_model.render_notes_parts(
-            self.c.devices[uvid].voice, inputs[f"{b}/keys"],
-            inputs[f"{b}/vels"], inputs[f"{b}/gate"], span, sr,
-            note_ids=inputs[f"{b}/ids"], prev_keys=inputs.get(f"{b}/prev"),
-            host_ctl=self._hc_for(inputs, b))
-        y = welsh_model.apply_cascade(osc, filt, sr, fidelity=fid)
-        return scatter_notes(y * amp, self._host_on[f"{b}/on"], n)
+        with profiling.span("voices", uvid=uvid):
+            osc, filt, amp = welsh_model.render_notes_parts(
+                self.c.devices[uvid].voice, inputs[f"{b}/keys"],
+                inputs[f"{b}/vels"], inputs[f"{b}/gate"], span, sr,
+                note_ids=inputs[f"{b}/ids"],
+                prev_keys=inputs.get(f"{b}/prev"),
+                host_ctl=self._hc_for(inputs, b))
+        with profiling.span("cascade", uvid=uvid):
+            y = welsh_model.apply_cascade(osc, filt, sr, fidelity=fid)
+        with profiling.span("scatter", uvid=uvid):
+            return scatter_notes(y * amp, self._host_on[f"{b}/on"], n)
 
     # ---- render -------------------------------------------------------------
 
@@ -936,54 +944,83 @@ class Renderer:
         for src, aux, amount in c.sends:
             sends_by_aux.setdefault(aux, []).append((src, amount))
 
-        welsh_monos = self._render_welsh_merged(inputs, n)
+        if self._wm_plan:
+            with profiling.span("instrument", kind="welsh"):
+                welsh_monos = self._render_welsh_merged(inputs, n)
+        else:
+            welsh_monos = {}
         for uvid in c.order:
             dev = c.devices[uvid]
             if dev.role == "instrument" or dev.kind == "calculator":
-                outputs[uvid] = self._render_instrument(inputs, dev, n,
-                                                        welsh_monos)
+                with profiling.span("instrument", kind=dev.kind, uvid=uvid):
+                    outputs[uvid] = self._render_instrument(
+                        inputs, dev, n, welsh_monos)
                 continue
-            acc = self._zeros(n)
-            for s in c.sinks.get(uvid, []):
-                if s in outputs:
-                    acc = acc + outputs[s]
-            for s, amount in sends_by_aux.get(uvid, []):
-                if s in outputs:
-                    acc = acc + amount * outputs[s]  # BusRoute send
+            with profiling.span("mix", uvid=uvid):
+                acc = self._zeros(n)
+                for s in c.sinks.get(uvid, []):
+                    if s in outputs:
+                        acc = acc + outputs[s]
+                for s, amount in sends_by_aux.get(uvid, []):
+                    if s in outputs:
+                        acc = acc + amount * outputs[s]  # BusRoute send
             if dev.role == "controller" \
                     and dev.kind != "signal-passthrough-controller":
                 continue  # non-audio controllers have no audio output
-            outputs[uvid] = self._apply_effect(inputs, dev, acc, n, overrides)
+            with profiling.span("effect", kind=dev.kind, uvid=uvid):
+                outputs[uvid] = self._apply_effect(inputs, dev, acc, n,
+                                                   overrides)
             if uvid in sidechain_by_src:
-                # last sample of block b-1 -> control value for block b
-                last = acc[:, BLOCK - 1::BLOCK]
-                val = torch.abs(torch.mean(last, dim=0))
-                val = torch.cat([torch.zeros(1, dtype=val.dtype,
-                                             device=val.device), val[:-1]])
-                per_sample = _upsample_block(val, n)
-                for tgt, pname in sidechain_by_src[uvid]:
-                    p = param_mod.resolve(c.devices[tgt].kind, pname)
-                    overrides[(tgt, pname)] = (
-                        param_mod.to_domain_array(p, per_sample)
-                        if p is not None else per_sample)
+                with profiling.span("mix", kind="sidechain", uvid=uvid):
+                    # last sample of block b-1 -> control value for
+                    # block b
+                    last = acc[:, BLOCK - 1::BLOCK]
+                    val = torch.abs(torch.mean(last, dim=0))
+                    val = torch.cat([torch.zeros(1, dtype=val.dtype,
+                                                 device=val.device),
+                                     val[:-1]])
+                    per_sample = _upsample_block(val, n)
+                    for tgt, pname in sidechain_by_src[uvid]:
+                        p = param_mod.resolve(c.devices[tgt].kind, pname)
+                        overrides[(tgt, pname)] = (
+                            param_mod.to_domain_array(p, per_sample)
+                            if p is not None else per_sample)
 
         out = outputs.get(MAIN_MIXER_UVID, self._zeros(n))
         return out.T  # [n, 2]
 
     # ---- public -------------------------------------------------------------
 
+    # Each of the three opens the root span "render": the graph's enqueue
+    # ("graph"), then render_quantized's "quantize" and the fetch, where
+    # the host waits for the card ("fetch", a host sync).
+
+    def _graph(self) -> torch.Tensor:
+        with profiling.span("graph"):
+            return self._render(self.inputs)
+
+    def _fetch(self, y: torch.Tensor) -> np.ndarray:
+        with profiling.span("fetch", bytes=y.nbytes):
+            return profiling.host_sync(y)
+
     def render_device(self) -> torch.Tensor:
         """Device-resident float render [n, 2] (no host copy)."""
-        return self._render(self.inputs)
+        with profiling.span("render", frames=self.c.n_frames):
+            return self._graph()
 
     def render(self) -> np.ndarray:
         """Float render [n, 2] on the host."""
         if self.c.n_frames == 0:
             return np.zeros((0, 2), np.float32)
-        return self.render_device().cpu().numpy()
+        with profiling.span("render", frames=self.c.n_frames):
+            return self._fetch(self._graph())
 
     def render_quantized(self) -> np.ndarray:
         """int16 render [n, 2], quantized on the device (io.wav spec)."""
         if self.c.n_frames == 0:
             return np.zeros((0, 2), np.int16)
-        return quantize_16bit(self.render_device()).cpu().numpy()
+        with profiling.span("render", frames=self.c.n_frames):
+            y = self._graph()
+            with profiling.span("quantize"):
+                q = quantize_16bit(y)
+            return self._fetch(q)

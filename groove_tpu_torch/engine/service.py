@@ -287,6 +287,8 @@ class EngineService:
         self.renderer."""
         import numpy as np
 
+        from groove_tpu_torch.utils import profiling
+
         if self._ensure_rendered() is None:
             return None
         dev = self.compiled.devices.get(device)
@@ -294,7 +296,7 @@ class EngineService:
             raise ValueError(f"{device!r} is not an instrument")
         r = self.renderer
         audio = r._render_instrument(r.inputs, dev, self.compiled.n_frames)
-        return audio.cpu().numpy().T  # [n, 2]
+        return profiling.host_sync(audio).T  # [n, 2]
 
     def _loop(self):
         while True:

@@ -76,6 +76,7 @@ from groove_tpu_torch.ops import stream as sops
 from groove_tpu_torch.ops.dca import pan_gains
 from groove_tpu_torch.ops.iir_kernels import as_f32, is_scalar
 from groove_tpu_torch.project.schema import warn
+from groove_tpu_torch.utils import profiling
 
 BLOCK = SAMPLE_BUFFER_SIZE  # 64
 WELSH = ("welsh", "welsh-raw")
@@ -322,7 +323,7 @@ class StreamingRenderer:
         else:
             mono = simple_model.oscillator_instrument(str(wf), freq, n, sr,
                                                       device=self.device)
-        return mono.cpu().numpy()
+        return profiling.host_sync(mono)
 
     def _collect_inputs(self) -> None:
         """The host inputs, key for key and bit for bit groove_tpu's
@@ -508,8 +509,13 @@ class StreamingRenderer:
         return xs
 
     def _upload(self, arr: np.ndarray) -> torch.Tensor:
-        """A per-segment host array on this renderer's device."""
-        return torch.from_numpy(arr).to(self.device)
+        """A per-segment host array on this renderer's device. On a card
+        the copy from pageable memory waits for the card's queue: a host
+        sync."""
+        t = torch.from_numpy(arr)
+        if self.device.type == "cuda":
+            return profiling.host_sync(t, lambda t: t.to(self.device))
+        return t.to(self.device)
 
     # ---- launch plan --------------------------------------------------------
 
@@ -1155,7 +1161,13 @@ class StreamingRenderer:
 
     def step(self, state: dict, xs: dict, n: int) -> torch.Tensor:
         """Render one segment [n, 2] at xs["t0"], advancing `state` (in
-        place) past it."""
+        place) past it (span "step": the enqueue of the segment's graph,
+        with the offline Renderer's instrument, effect and mix
+        children)."""
+        with profiling.span("step", frames=n):
+            return self._step(state, xs, n)
+
+    def _step(self, state: dict, xs: dict, n: int) -> torch.Tensor:
         c = self.c
         t0 = xs["t0"]
         outputs: dict[str, torch.Tensor] = {}
@@ -1166,40 +1178,48 @@ class StreamingRenderer:
         sends_by_aux: dict = {}
         for src, aux, amount in c.sends:
             sends_by_aux.setdefault(aux, []).append((src, amount))
-        merged = self._render_sliced_merged(xs, t0, n, state) \
-            if self.WELSH_SLICE_MERGE and self._sliced else None
+        merged = None
+        if self.WELSH_SLICE_MERGE and self._sliced:
+            with profiling.span("instrument", kind="welsh"):
+                merged = self._render_sliced_merged(xs, t0, n, state)
         for uvid in c.order:
             dev = c.devices[uvid]
             if dev.role == "instrument" or dev.kind == "calculator":
-                outputs[uvid] = self._render_instrument_seg(
-                    dev, xs, t0, n, state, sliced_merged=merged)
+                with profiling.span("instrument", kind=dev.kind, uvid=uvid):
+                    outputs[uvid] = self._render_instrument_seg(
+                        dev, xs, t0, n, state, sliced_merged=merged)
                 continue
-            acc = self._zeros(n)
-            for s in c.sinks.get(uvid, []):
-                if s in outputs:
-                    acc = acc + outputs[s]
-            for s, amount in sends_by_aux.get(uvid, []):
-                if s in outputs:
-                    acc = acc + amount * outputs[s]
+            with profiling.span("mix", uvid=uvid):
+                acc = self._zeros(n)
+                for s in c.sinks.get(uvid, []):
+                    if s in outputs:
+                        acc = acc + outputs[s]
+                for s, amount in sends_by_aux.get(uvid, []):
+                    if s in outputs:
+                        acc = acc + amount * outputs[s]
             if dev.role == "controller" \
                     and dev.kind != "signal-passthrough-controller":
                 continue
-            outputs[uvid] = self._apply_effect_seg(dev, acc, t0, n,
-                                                   overrides, state)
+            with profiling.span("effect", kind=dev.kind, uvid=uvid):
+                outputs[uvid] = self._apply_effect_seg(dev, acc, t0, n,
+                                                       overrides, state)
             if uvid in sidechain_by_src:
-                # one-block-delayed |mean|; the carried scalar is the value
-                # leaving the previous segment
-                last = acc[:, BLOCK - 1::BLOCK]
-                val = torch.abs(torch.mean(last, dim=0))
-                shifted = torch.cat([state[f"{uvid}/sc"][None], val[:-1]])
-                state[f"{uvid}/sc"] = val[-1]
-                per_sample = iir.upsample_hold(shifted, n, BLOCK)
-                for tgt, pname in sidechain_by_src[uvid]:
-                    # ControlValue -> domain units, as the Renderer maps it
-                    p = param_mod.resolve(c.devices[tgt].kind, pname)
-                    overrides[(tgt, pname)] = (
-                        param_mod.to_domain_array(p, per_sample)
-                        if p is not None else per_sample)
+                with profiling.span("mix", kind="sidechain", uvid=uvid):
+                    # one-block-delayed |mean|; the carried scalar is the
+                    # value leaving the previous segment
+                    last = acc[:, BLOCK - 1::BLOCK]
+                    val = torch.abs(torch.mean(last, dim=0))
+                    shifted = torch.cat([state[f"{uvid}/sc"][None],
+                                         val[:-1]])
+                    state[f"{uvid}/sc"] = val[-1]
+                    per_sample = iir.upsample_hold(shifted, n, BLOCK)
+                    for tgt, pname in sidechain_by_src[uvid]:
+                        # ControlValue -> domain units, as the Renderer
+                        # maps it
+                        p = param_mod.resolve(c.devices[tgt].kind, pname)
+                        overrides[(tgt, pname)] = (
+                            param_mod.to_domain_array(p, per_sample)
+                            if p is not None else per_sample)
         if self.taps is not None:
             self.taps.clear()
             self.taps.update(outputs)
@@ -1207,6 +1227,10 @@ class StreamingRenderer:
         return out.T  # [n, 2]
 
     # ---- render loops ------------------------------------------------------
+
+    def _segment_inputs(self, t0: int, n: int) -> dict:
+        with profiling.span("inputs", frames=n):
+            return self._seg_xs(t0, n)
 
     def stream(self, prefetch_segments: int = 4, batch_segments: int = 1,
                quantize: bool = False, mono_fold: bool | None = None):
@@ -1216,32 +1240,46 @@ class StreamingRenderer:
         batch_segments > 1 renders that many segments with the same step
         and fetches them as one array (bitwise the same audio). mono_fold
         (None = auto by channel_symmetric): fetch one channel plus a
-        device-computed tripwire, duplicated on the host."""
+        device-computed tripwire, duplicated on the host. The root span
+        "stream" runs from the first next to exhaustion: "state", then
+        "inputs" and "step" a segment, "quantize" (the batch's
+        concatenation and quantizer) and "fetch" a batch."""
+        return profiling.spanned(
+            "stream", self._stream(prefetch_segments, batch_segments,
+                                   quantize, mono_fold),
+            frames=self.c.n_frames)
+
+    def _stream(self, prefetch_segments, batch_segments, quantize,
+                mono_fold):
         fold = self.mono_foldable if mono_fold is None else bool(mono_fold)
         k = max(1, min(int(batch_segments), self.n_segs))
-        state = self.init_state()
+        with profiling.span("state"):
+            state = self.init_state()
         pending: deque = deque()
         emitted = 0
 
         def fetch(audio):
             nonlocal emitted
-            out = audio.cpu().numpy()
-            if fold:
-                out = _unfold_mono(out)
+            with profiling.span("fetch", bytes=audio.nbytes):
+                out = profiling.host_sync(audio)
+                if fold:
+                    out = _unfold_mono(out)
             take = min(len(out), self.c.n_frames - emitted)
             emitted += take
             return out[:take]
 
         for first in range(0, self.n_segs, k):
-            segs = [self.step(state, self._seg_xs(s * self.S, self.S),
+            segs = [self.step(state,
+                              self._segment_inputs(s * self.S, self.S),
                               self.S)
                     for s in range(first, min(first + k, self.n_segs))]
-            audio = segs[0] if len(segs) == 1 else torch.cat(segs)
-            if fold:
-                audio = (_fold_mono_i16 if quantize
-                         else _fold_mono_f32)(audio)
-            elif quantize:
-                audio = quantize_16bit(audio)
+            with profiling.span("quantize"):
+                audio = segs[0] if len(segs) == 1 else torch.cat(segs)
+                if fold:
+                    audio = (_fold_mono_i16 if quantize
+                             else _fold_mono_f32)(audio)
+                elif quantize:
+                    audio = quantize_16bit(audio)
             pending.append(audio)
             if len(pending) > prefetch_segments:
                 yield fetch(pending.popleft())
@@ -1261,10 +1299,16 @@ class StreamingRenderer:
     def render_scan(self) -> np.ndarray:
         """Every segment through the same step in one call, fetched once
         (the reference's lax.scan loop; bitwise render() here)."""
-        state = self.init_state()
-        segs = [self.step(state, self._seg_xs(k * self.S, self.S), self.S)
-                for k in range(self.n_segs)]
-        return torch.cat(segs).cpu().numpy()[: self.c.n_frames]
+        with profiling.span("stream", frames=self.c.n_frames):
+            with profiling.span("state"):
+                state = self.init_state()
+            segs = [self.step(state,
+                              self._segment_inputs(k * self.S, self.S),
+                              self.S)
+                    for k in range(self.n_segs)]
+            audio = torch.cat(segs)
+            with profiling.span("fetch", bytes=audio.nbytes):
+                return profiling.host_sync(audio)[: self.c.n_frames]
 
     # ---- loop-range playback ----------------------------------------------
 
@@ -1290,22 +1334,31 @@ class StreamingRenderer:
         """Loop-range playback: [0, end), then [start, end) repeatedly,
         carried state crossing every seam (the reference's clock seek).
         iterations=None loops forever; yields host float32 [frames, 2]
-        arrays."""
+        arrays. The root span "stream" runs from the first next to
+        exhaustion, as stream's does: "inputs", "step" and "fetch" a
+        segment."""
+        return profiling.spanned(
+            "stream", self._stream_loop(start_beats, end_beats, iterations))
+
+    def _stream_loop(self, start_beats, end_beats, iterations):
         if self._sliced:
             raise NotImplementedError(
                 "sliced welsh is linear-stream only: a seek rewinds note "
                 "ages, which the carried per-note cascade state cannot "
                 "follow — use WELSH_SLICED=False for loop playback")
         ls, le = self.loop_frames(start_beats, end_beats)
-        state = self.init_state()
+        with profiling.span("state"):
+            state = self.init_state()
 
         def play_window(lo, hi):
             t0 = lo
             while t0 < hi:
                 n = min(self.S, hi - t0)  # a multiple of 64
-                audio = self.step(state, self._seg_xs(t0, n), n)
+                audio = self.step(state, self._segment_inputs(t0, n), n)
                 t0 += n
-                yield audio.cpu().numpy()
+                with profiling.span("fetch", bytes=audio.nbytes):
+                    out = profiling.host_sync(audio)
+                yield out
 
         yield from play_window(0, le)
         it = 0

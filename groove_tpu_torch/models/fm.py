@@ -36,6 +36,7 @@ from groove_tpu_torch.ops import envelope as env_ops
 from groove_tpu_torch.ops import oscillator as osc_ops
 from groove_tpu_torch.ops import scan_kernels
 from groove_tpu_torch.project.patches import FmSynthParams
+from groove_tpu_torch.utils import profiling
 
 TWO_PI = 2.0 * np.pi
 CBLOCK = 64  # the reference's control block and phase-sum block
@@ -210,7 +211,7 @@ def render_notes(params: FmSynthParams, keys, vels, gate_frames, span: int,
     gate_s = torch.div(f32(torch.as_tensor(gate_frames), device),
                        sr)[:, None]
     if freqs is None:
-        freqs = note_freqs(keys.cpu().numpy())
+        freqs = note_freqs(profiling.card_read(keys))
     f_c = f32(freqs, device)[:, None]
     cur = {}
     if on_frames is not None:

@@ -29,6 +29,7 @@ from groove_tpu_torch.core.types import note_to_frequency
 from groove_tpu_torch.io.wav import read_wav
 from groove_tpu_torch.project.paths import Paths
 from groove_tpu_torch.project.schema import warn
+from groove_tpu_torch.utils import profiling
 
 # GM percussion note -> 707 sample base name (the same map as groove_tpu)
 GM_707_MAP = {
@@ -226,11 +227,14 @@ def accumulate_oneshots(table_data: torch.Tensor, table_lengths, slots,
     out = torch.zeros((2, n_frames + max_len), dtype=table_data.dtype,
                       device=dev)
     j = torch.arange(max_len, dtype=torch.float32, device=dev)[None, :]
-    lengths = torch.as_tensor(table_lengths).tolist()
+    lengths = profiling.card_read(torch.as_tensor(table_lengths),
+                                  torch.Tensor.tolist)
     gate = torch.as_tensor(gate_frames, dtype=torch.float32)
     vel = torch.as_tensor(vels, dtype=torch.float32, device=dev)
-    for i, (slot, on) in enumerate(zip(torch.as_tensor(slots).tolist(),
-                                       torch.as_tensor(on_frames).tolist())):
+    slots = profiling.card_read(torch.as_tensor(slots), torch.Tensor.tolist)
+    ons = profiling.card_read(torch.as_tensor(on_frames),
+                              torch.Tensor.tolist)
+    for i, (slot, on) in enumerate(zip(slots, ons)):
         if slot < 0:
             continue
         limit = min(float(lengths[slot]), float(gate[i]))

@@ -25,6 +25,7 @@ from groove_tpu_torch.models.voices import (f32, live_ages, live_freqs,
 from groove_tpu_torch.ops import envelope as env_ops
 from groove_tpu_torch.ops import oscillator as osc_ops
 from groove_tpu_torch.ops import prng
+from groove_tpu_torch.utils import profiling
 
 
 def oscillator_instrument(kind: str, frequency: float, n_frames: int,
@@ -70,7 +71,7 @@ def envelope_instrument(adsr_seconds, keys, vels, gate_frames, span: int,
     keys = torch.as_tensor(keys)
     device = keys.device
     if freqs is None:
-        freqs = note_freqs(keys.cpu().numpy())
+        freqs = note_freqs(profiling.card_read(keys))
     f = torch.as_tensor(freqs).to(device=device, dtype=torch.float32)
     sr = f32(sample_rate, device)
     t = time_base(span, sample_rate, device)[None, :]

@@ -10,6 +10,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from groove_tpu_torch.utils import profiling
+
 
 def f32(v, device) -> torch.Tensor:
     """A float32 tensor on `device` (a Python number becomes a 0-dim
@@ -95,9 +97,9 @@ def scatter_notes(note_audio: torch.Tensor, on_frames,
     mono = note_audio.dim() == 2
     shape = (n_frames + span,) if mono else (2, n_frames + span)
     out = torch.zeros(shape, dtype=note_audio.dtype, device=note_audio.device)
-    starts = on_frames if torch.is_tensor(on_frames) \
-        else np.asarray(on_frames)
-    for i, start in enumerate(starts.tolist()):
+    starts = profiling.card_read(on_frames, torch.Tensor.tolist) \
+        if torch.is_tensor(on_frames) else np.asarray(on_frames).tolist()
+    for i, start in enumerate(starts):
         start = min(max(int(start), 0), n_frames)
         out[..., start:start + span].add_(note_audio[i])
     return out[..., :n_frames]

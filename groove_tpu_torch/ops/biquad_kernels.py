@@ -67,6 +67,8 @@ def _streams(x: torch.Tensor, coefs, mode: int, count: int) -> Streams:
     (b0, b1, b2, a1, a2), each broadcast against x.shape[:-1] + (count,)
     (ignored for SCALAR)."""
     if mode == SCALAR:
+        # host tensors: a card's coefficient is read (a counted host
+        # sync) in scalar32
         prepped = _prep(*(torch.tensor(scalar32(c)) for c in coefs))
         return Streams(SCALAR, [c.item() for c in prepped], 1)
     prepped = _prep(*(as_f32(c, x.device) for c in coefs))

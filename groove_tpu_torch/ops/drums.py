@@ -20,6 +20,7 @@ import torch
 
 from groove_tpu_torch.kernels import build
 from groove_tpu_torch.ops import iir_kernels
+from groove_tpu_torch.utils import profiling
 
 CHUNK = 65536    # timeline frames per hit-list chunk (multiple of 128)
 
@@ -86,17 +87,19 @@ def accumulate_hits(table_padded: torch.Tensor, counts, slots, starts,
     """K1: sum prepared one-shot hits into a [2, n_frames] timeline
     (the reference's accumulate_oneshots_pallas). table_padded:
     [slots, 2, row_len] f32 (prepare_table); the hit arrays as
-    prepare_hits returns them, as tensors on the table's device."""
-    if table_padded.device.type == "cpu":
-        return accumulate_hits_plain(table_padded, counts, slots, starts,
-                                     shifts, limits, vels, n_frames)
-    if table_padded.device.type != "cuda":
-        raise RuntimeError(
-            f"drum kernel: unsupported device {table_padded.device}")
-    y = _launch(table_padded, counts, slots, starts, shifts, limits, vels,
-                n_frames)
-    LAUNCHES["drums"] += 1
-    return y
+    prepare_hits returns them, as tensors on the table's device. Runs in
+    a "kernel" span of kind "drums"."""
+    with profiling.span("kernel", kind="drums"):
+        if table_padded.device.type == "cpu":
+            return accumulate_hits_plain(table_padded, counts, slots, starts,
+                                         shifts, limits, vels, n_frames)
+        if table_padded.device.type != "cuda":
+            raise RuntimeError(
+                f"drum kernel: unsupported device {table_padded.device}")
+        y = _launch(table_padded, counts, slots, starts, shifts, limits,
+                    vels, n_frames)
+        LAUNCHES["drums"] += 1
+        return y
 
 
 def _launch(table, counts, slots, starts, shifts, limits, vels,

@@ -61,6 +61,8 @@ import ctypes
 import numpy as np
 import torch
 
+from groove_tpu_torch.utils import profiling
+
 CBLOCK = 64
 SCALAR, BLOCK, SAMPLE = 0, 1, 2  # tdf2::Mode
 
@@ -88,7 +90,11 @@ def is_scalar(c) -> bool:
 
 
 def scalar32(c) -> np.float32:
-    return np.float32(c.item() if torch.is_tensor(c) else c)
+    """A static coefficient as a float32 number (reading a card's tensor
+    waits for the card: a host sync)."""
+    if not torch.is_tensor(c):
+        return np.float32(c)
+    return np.float32(profiling.card_read(c, torch.Tensor.item))
 
 
 def as_f32(c, device) -> torch.Tensor:
@@ -196,13 +202,15 @@ def check_input(x2: torch.Tensor, what: str) -> None:
 def dispatch(x2: torch.Tensor, plain, launch, key: str, counts: dict,
              what: str) -> torch.Tensor:
     """The wrappers' device rule: the twin for a CPU tensor, the kernel
-    (counted) for a CUDA tensor, an error otherwise — no fallback."""
-    if x2.device.type == "cpu":
-        return plain()
-    if x2.device.type == "cuda":
-        y = launch()
-        counts[key] += 1
-        return y
+    (counted) for a CUDA tensor, an error otherwise — no fallback. Either
+    runs in a "kernel" span whose kind is `key`."""
+    with profiling.span("kernel", kind=key):
+        if x2.device.type == "cpu":
+            return plain()
+        if x2.device.type == "cuda":
+            y = launch()
+            counts[key] += 1
+            return y
     raise RuntimeError(f"{what}: unsupported device {x2.device}")
 
 

@@ -19,6 +19,7 @@ from groove_tpu_torch.models import welsh as welsh_model
 from groove_tpu_torch.models.voices import row_sum, scatter_notes
 from groove_tpu_torch.ops import iir
 from groove_tpu_torch.parallel import resolve_devices
+from groove_tpu_torch.utils import profiling
 
 
 def make_mesh(n_devices: int | None = None) -> list[torch.device]:
@@ -89,4 +90,4 @@ def render_songs_data_parallel(songs, devices=None) -> list[np.ndarray]:
     devices = resolve_devices(devices)
     renders = [Renderer(song, device=devices[i % len(devices)])
                .render_device() for i, song in enumerate(songs)]
-    return [r.cpu().numpy() for r in renders]
+    return [profiling.host_sync(r) for r in renders]

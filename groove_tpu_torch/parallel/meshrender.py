@@ -40,6 +40,7 @@ from groove_tpu_torch.compiler.song import CompiledSong
 from groove_tpu_torch.engine.stream import BLOCK, StreamingRenderer
 from groove_tpu_torch.io.wav import quantize_16bit
 from groove_tpu_torch.parallel import resolve_devices
+from groove_tpu_torch.utils import profiling
 
 
 def effect_memory_seconds(compiled: CompiledSong) -> float:
@@ -168,11 +169,11 @@ class MeshRenderer:
         """Float render [n, 2] on the host."""
         if self.c.n_frames == 0:
             return np.zeros((0, 2), np.float32)
-        return self.render_device().cpu().numpy()
+        return profiling.host_sync(self.render_device())
 
     def render_quantized(self) -> np.ndarray:
         """int16 render [n, 2], quantized on the first device (io.wav
         spec, bitwise the host quantization)."""
         if self.c.n_frames == 0:
             return np.zeros((0, 2), np.int16)
-        return quantize_16bit(self.render_device()).cpu().numpy()
+        return profiling.host_sync(quantize_16bit(self.render_device()))

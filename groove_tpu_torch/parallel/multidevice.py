@@ -33,6 +33,7 @@ from groove_tpu_torch.compiler.song import MAIN_MIXER_UVID, CompiledSong
 from groove_tpu_torch.engine.render import Renderer
 from groove_tpu_torch.io.wav import quantize_16bit
 from groove_tpu_torch.parallel import resolve_devices
+from groove_tpu_torch.utils import profiling
 
 
 def partition_components(c: CompiledSong) -> list[list[str]]:
@@ -126,7 +127,7 @@ class MultiDeviceRenderer:
         """Float render [n, 2] on the host."""
         if self.c.n_frames == 0:
             return np.zeros((0, 2), np.float32)
-        return self.render_device().cpu().numpy()
+        return profiling.host_sync(self.render_device())
 
     def render_quantized(self) -> np.ndarray:
         """int16 render [n, 2], quantized on the first device (io.wav
@@ -134,4 +135,4 @@ class MultiDeviceRenderer:
         --multidevice path."""
         if self.c.n_frames == 0:
             return np.zeros((0, 2), np.int16)
-        return quantize_16bit(self.render_device()).cpu().numpy()
+        return profiling.host_sync(quantize_16bit(self.render_device()))
