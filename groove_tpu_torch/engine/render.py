@@ -237,6 +237,16 @@ def note_chunk_cap(device) -> int:
     return int(total // 4 // NOTE_PEAK_BYTES_PER_ELEM)
 
 
+def _pinned_like(y: torch.Tensor) -> torch.Tensor | None:
+    """Page-locked host memory shaped as y, from torch's host caching
+    allocator (a dense y's strides kept, as y.cpu() keeps them); None
+    where it cannot be had."""
+    try:
+        return torch.empty_like(y, device="cpu", pin_memory=True)
+    except RuntimeError:
+        return None
+
+
 class Renderer:
     """Renders one compiled song on one torch device.
 
@@ -993,15 +1003,30 @@ class Renderer:
 
     # Each of the three opens the root span "render": the graph's enqueue
     # ("graph"), then render_quantized's "quantize" and the fetch, where
-    # the host waits for the card ("fetch", a host sync).
+    # the host waits for the card ("fetch", a host sync, and one of the
+    # counters "fetch_pinned" and "fetch_pageable").
 
     def _graph(self) -> torch.Tensor:
         with profiling.span("graph"):
             return self._render(self.inputs)
 
     def _fetch(self, y: torch.Tensor) -> np.ndarray:
+        """y on the host as its own array. A card's y is copied into
+        page-locked memory from torch's host cache with y's strides (one
+        DMA, the layout of y.cpu().numpy()) and the host waits once for
+        the current stream; the block goes back to the cache when the
+        caller drops the array. A host tensor, or a card's y when no
+        page-locked memory can be had, is read as y.cpu().numpy()."""
         with profiling.span("fetch", bytes=y.nbytes):
-            return profiling.host_sync(y)
+            host = _pinned_like(y) if y.is_cuda else None
+            if host is None:
+                profiling.count("fetch_pageable")
+                return profiling.host_sync(y)
+            profiling.count("fetch_pinned")
+            host.copy_(y, non_blocking=True)
+            profiling.host_sync(torch.cuda.current_stream(y.device),
+                                torch.cuda.Stream.synchronize)
+            return host.numpy()
 
     def render_device(self) -> torch.Tensor:
         """Device-resident float render [n, 2] (no host copy)."""

@@ -25,9 +25,11 @@ Spans. The program opens a span at each layer boundary (`span`):
 A span is (name, attrs, request, parent, start_ns, end_ns) with attrs
 kind (a device or kernel kind), uvid, frames and bytes. Its parent is the
 innermost span open on its thread; a span opened with none open is a
-root and starts a new request id, which its descendants share. The
-counter "host_syncs" (`host_sync`) adds to the innermost open span, or
-to `Recorder.orphans` when none is open.
+root and starts a new request id, which its descendants share. A
+counter (`count`) adds to the innermost open span's `counts`, or to
+`Recorder.orphans` when none is open: "host_syncs" (`host_sync`), and
+on the bounce's `fetch` "fetch_pinned" or "fetch_pageable", 1 as its
+result lands in page-locked or pageable host memory.
 
 When it records. Only while a torch.profiler session is active
 (torch.autograd._profiler_enabled()) or inside `recording()`. It keeps
@@ -250,15 +252,22 @@ def _to_numpy(t):
     return t.cpu().numpy()
 
 
+def count(counter: str, n: int = 1) -> None:
+    """Add n to `counter` in the innermost open span (`Recorder.orphans`
+    when none is open); nothing when nothing records."""
+    if _gate or _profiler_on():
+        RECORDER._add(counter, n)
+
+
 def host_sync(obj, read=_to_numpy):
     """read(obj), counted as one host sync ("host_syncs") in the innermost
     open span: a call in which the host waits for the card's queue. By
     default obj.cpu().numpy(); else torch.Tensor.item, torch.Tensor.tolist,
-    an event's synchronize, torch.cuda.synchronize, a copy from pageable
-    host memory to the card. The fetch sites count on every device (the
-    CPU tests see them); the other sites come here only on a card."""
-    if _gate or _profiler_on():
-        RECORDER._add("host_syncs", 1)
+    an event's or a stream's synchronize, torch.cuda.synchronize, a copy
+    from pageable host memory to the card. The fetch sites count on every
+    device (the CPU tests see them); the other sites come here only on a
+    card."""
+    count("host_syncs")
     return read(obj)
 
 

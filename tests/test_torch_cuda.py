@@ -24,7 +24,9 @@ captured graph), plus short renders of the slices, of a streamed Welsh song and
 of the same song offline, of the kitchen-sink and perf-1 analogues, of
 the FM and instruments analogues, of a MIDI file, and of the 10-second
 kitchen-sink and 2-second sidechain analogues streamed unsliced, on the
-card against the same renders on the CPU.
+card against the same renders on the CPU; and the bounce's fetch into
+page-locked memory: y.cpu().numpy()'s bits, shape, dtype and strides,
+an array of its own each call, its counters, the pageable fallback.
 
 These tests need an NVIDIA GPU (marker `cuda`; they skip without one) and
 import no jax, so the machine with the card runs them:
@@ -1401,3 +1403,91 @@ def test_service_worker_render_equals_main_thread(cuda_device, tmp_path,
     want = np.concatenate(list(StreamingRenderer(compiled, cuda_device)
                                .stream_loop(1.0, 3.0, iterations=2)))
     assert np.array_equal(looped, want) and np.abs(master).max() > 0.05
+
+
+# ---- the bounce's fetch into page-locked memory ----------------------------
+
+@pytest.fixture(scope="module")
+def kitchen_sink(tmp_path_factory):
+    assets = synth.write_assets(tmp_path_factory.mktemp("ks-assets"),
+                                max_seconds=0.4)
+    return compile_song(SongSettings.from_json(synth.kitchen_sink_project(1)),
+                        Paths(roots=[assets]))
+
+
+def _bounce(r, quantized: bool):
+    return r.render_quantized() if quantized else r.render()
+
+
+@pytest.mark.parametrize("quantized", [True, False],
+                         ids=["render_quantized", "render"])
+def test_pinned_fetch_equals_the_pageable_read(cuda_device, kitchen_sink,
+                                               quantized):
+    """The fetch lands in page-locked memory and gives what
+    y.cpu().numpy() gives, bit for bit, with its shape, dtype and
+    strides."""
+    from groove_tpu_torch.io.wav import quantize_16bit
+
+    r = Renderer(kitchen_sink, cuda_device)
+    out = _bounce(r, quantized)
+    y = r.render_device()
+    want = (quantize_16bit(y) if quantized else y).cpu().numpy()
+    assert isinstance(out.base, torch.Tensor) and out.base.is_pinned()
+    assert out.dtype == want.dtype == (np.int16 if quantized
+                                       else np.float32)
+    assert out.shape == want.shape == (kitchen_sink.n_frames, 2)
+    assert out.strides == want.strides
+    assert np.array_equal(out, want)
+
+
+def test_pinned_fetches_are_arrays_of_their_own(cuda_device, kitchen_sink):
+    """Three bounces held at once share no memory, and the first is
+    unchanged after the third."""
+    r = Renderer(kitchen_sink, cuda_device)
+    first = r.render_quantized()
+    kept = first.copy()
+    second = r.render_quantized()
+    third = r.render_quantized()
+    for a, b in ((first, second), (first, third), (second, third)):
+        assert not np.shares_memory(a, b)
+    assert np.array_equal(first, kept)
+    assert np.array_equal(second, kept) and np.array_equal(third, kept)
+    assert np.abs(kept).max() > 1000
+
+
+@pytest.mark.parametrize("quantized", [True, False],
+                         ids=["render_quantized", "render"])
+def test_pinned_fetch_counts_on_the_card(cuda_device, kitchen_sink,
+                                         quantized):
+    """Under recording() each bounce's fetch counts fetch_pinned 1,
+    fetch_pageable 0 and the bounce one host sync."""
+    from groove_tpu_torch.utils import profiling
+
+    r = Renderer(kitchen_sink, cuda_device)
+    _bounce(r, quantized)
+    for _ in range(2):
+        with profiling.recording() as rec:
+            _bounce(r, quantized)
+        spans = rec.closed()
+        (fetch,) = [s for s in spans if s.name == "fetch"]
+        assert fetch.counts.get("fetch_pinned") == 1
+        assert fetch.counts.get("fetch_pageable", 0) == 0
+        assert profiling.host_syncs(spans) == 1 and rec.orphans == {}
+
+
+def test_fetch_falls_back_to_the_pageable_read(cuda_device, kitchen_sink,
+                                               monkeypatch):
+    """Where no page-locked memory can be had the card's bounce is read
+    pageable, counted as fetch_pageable, with the same bits."""
+    from groove_tpu_torch.engine import render as render_mod
+    from groove_tpu_torch.utils import profiling
+
+    r = Renderer(kitchen_sink, cuda_device)
+    pinned = r.render_quantized()
+    monkeypatch.setattr(render_mod, "_pinned_like", lambda y: None)
+    with profiling.recording() as rec:
+        out = r.render_quantized()
+    (fetch,) = [s for s in rec.closed() if s.name == "fetch"]
+    assert fetch.counts == {"fetch_pageable": 1, "host_syncs": 1}
+    assert not (isinstance(out.base, torch.Tensor) and out.base.is_pinned())
+    assert out.strides == pinned.strides and np.array_equal(out, pinned)

@@ -7,9 +7,10 @@ equal to the fetch sites reached; under torch.profiler the recorder on,
 no range of the program's among the profiler's events, and the root
 span converted onto the profiler's timeline within 100 us of a range
 around the call; `trace` and `cli --trace-dir` writing a Chrome trace
-with the spans' names; the same int16 output with recording on and off.
-The `cuda` test holds host_syncs to the synchronising operations torch's
-sync debug mode reports on a card:
+with the spans' names; the same int16 output with recording on and off;
+a CPU bounce's fetch counted as a pageable read (`fetch_pageable`) with
+the array y.cpu().numpy() gives. The `cuda` test holds host_syncs to the
+synchronising operations torch's sync debug mode reports on a card:
 
     python -m pytest tests/test_torch_tracing.py -q -m cuda
 """
@@ -27,8 +28,10 @@ import pytest
 import torch
 
 from groove_tpu_torch.compiler.song import compile_song
+from groove_tpu_torch.engine import render as render_mod
 from groove_tpu_torch.engine.render import Renderer
 from groove_tpu_torch.engine.stream import StreamingRenderer
+from groove_tpu_torch.io.wav import quantize_16bit
 from groove_tpu_torch.project.paths import Paths
 from groove_tpu_torch.project.schema import SongSettings
 from groove_tpu_torch.testing import synth
@@ -147,9 +150,75 @@ def test_a_bounce_is_one_request(compiled):
     assert all(s.parent.name in ("instrument", "effect") for s in kernels)
     fetch = spans[-1]
     assert fetch.name == "fetch" and fetch.bytes == y.nbytes
-    # the one fetch site a bounce reaches on the CPU
-    assert fetch.counts == {"host_syncs": 1}
+    # the one fetch site a bounce reaches on the CPU, a pageable read
+    assert fetch.counts == {"host_syncs": 1, "fetch_pageable": 1}
     assert profiling.host_syncs(spans) == 1 and rec.orphans == {}
+
+
+@pytest.mark.parametrize("quantized", [True, False],
+                         ids=["render_quantized", "render"])
+def test_a_cpu_fetch_is_a_pageable_read(compiled, quantized):
+    """On the CPU the fetch takes the pageable read: fetch_pageable 1 and
+    no fetch_pinned on its span, and the array y.cpu().numpy() gives,
+    with its shape, dtype and strides."""
+    r = Renderer(compiled, "cpu")
+    bounce = r.render_quantized if quantized else r.render
+    with profiling.recording() as rec:
+        out = bounce()
+    (fetch,) = [s for s in rec.closed() if s.name == "fetch"]
+    assert fetch.counts.get("fetch_pageable") == 1
+    assert fetch.counts.get("fetch_pinned", 0) == 0
+    assert fetch.counts.get("host_syncs") == 1 and rec.orphans == {}
+    y = r.render_device()
+    want = (quantize_16bit(y) if quantized else y).cpu().numpy()
+    assert out.dtype == want.dtype == (np.int16 if quantized
+                                       else np.float32)
+    assert out.shape == want.shape == (compiled.n_frames, 2)
+    assert out.strides == want.strides
+    assert np.array_equal(out, want)
+
+
+def test_the_fetch_counters_are_free_when_off(compiled):
+    """Off, neither the bounces nor a bare count record anything."""
+    r = Renderer(compiled, "cpu")
+    with profiling.recording():
+        pass
+    r.render_quantized()
+    r.render()
+    profiling.count("fetch_pinned")
+    assert not profiling._gate
+    assert profiling.RECORDER.spans == [] and profiling.RECORDER.orphans == {}
+
+
+def test_a_count_lands_in_the_innermost_span_or_the_orphans():
+    with profiling.recording() as rec:
+        profiling.count("fetch_pageable")
+        with profiling.span("render"):
+            with profiling.span("fetch"):
+                profiling.count("fetch_pinned")
+                profiling.count("fetch_pinned", 2)
+    assert rec.orphans == {"fetch_pageable": 1}
+    render, fetch = rec.closed()
+    assert render.counts is None and fetch.counts == {"fetch_pinned": 3}
+
+
+def test_pinned_like_keeps_the_layout_or_gives_none(monkeypatch):
+    """The pinned destination has y's shape, dtype and strides where the
+    host has page-locked memory (a CUDA build with a card); None where it
+    raises, as on a CPU-only build."""
+    y = torch.arange(10, dtype=torch.int16).reshape(2, 5).T
+    h = render_mod._pinned_like(y)
+    if torch.cuda.is_available():
+        assert h.is_pinned() and h.device.type == "cpu"
+        assert (h.shape, h.stride(), h.dtype) \
+            == (y.shape, y.stride(), y.dtype)
+    else:
+        assert h is None
+
+    def refuse(*a, **kw):
+        raise RuntimeError("no page-locked memory")
+    monkeypatch.setattr(torch, "empty_like", refuse)
+    assert render_mod._pinned_like(y) is None
 
 
 def test_a_stream_is_one_request(compiled):
