@@ -35,13 +35,13 @@ def main(argv=None) -> int:
 
     from benchmark import check, manifest
     from benchmark.kit import write_kit
-    from benchmark.reference.render import render as reference
 
     m = manifest.load()
     cells = [manifest.Cell(m, w) for w in args.workloads.split(",")]
     cfg = cells[0].config
     if any(c.config["name"] != cfg["name"] for c in cells):
         raise SystemExit("control: the workloads must share a config")
+    reference = cells[0].reference
     if args.program and not torch.cuda.is_available():
         raise SystemExit("control: the program's readings need a card")
     for seed in (int(s) for s in args.seeds.split(",")):

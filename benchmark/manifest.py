@@ -1,6 +1,8 @@
 """BENCHMARK.json and the files it names, found by name: a cell's
 configuration (configs/<config>.json and its song maker
-configs/<config>.py), its traffic mix (traffic/<traffic>.json), the
+configs/<config>.py), the configuration's plain reference
+(reference/<config>.py where it has one of its own, else the shared
+reference/render.py), its traffic mix (traffic/<traffic>.json), the
 mix's entry (entries/<entry>.py), the cell's limits (limits/<cell>.json)
 and each metric's reader (metrics/<metric>.py)."""
 
@@ -8,6 +10,7 @@ from __future__ import annotations
 
 import importlib.util
 import json
+from functools import cached_property
 from pathlib import Path
 
 HERE = Path(__file__).resolve().parent
@@ -61,6 +64,21 @@ class Cell:
                            if workload in m.get("workloads", [workload])]
         self.per_layer = [m for m in manifest["per_layer"]
                           if workload in m.get("workloads", [workload])]
+
+    @cached_property
+    def reference(self):
+        """The configuration's plain reference, `render(project, assets,
+        sample_rate, round_to=None) -> int16 [n, 2]` (round_to="bfloat16"
+        is the control): reference/<config>.py's `render` where that file
+        exists, else the shared reference's. Loaded on first use, so a
+        run's set-up does not pay for it."""
+        path = self.root / "reference" / f"{self.workload['config']}.py"
+        if path.exists():
+            return module(path, "benchmark_reference_"
+                          + _slug(self.workload["config"])).render
+        from benchmark.reference.render import render
+
+        return render
 
     def reader(self, metric: str):
         return module(self.root / "metrics" / f"{metric}.py",

@@ -1,9 +1,12 @@
-"""Each cell run through the harness on the CPU at two measures: the
-program against the plain reference, the control in bfloat16 failing
-the comparison, and the timed path broken underneath in each way a cell
-can be broken, seen as not correct."""
+"""Each cell run through the harness on the CPU at about 4 s of its
+song: the program against the cell's plain reference, the
+control in bfloat16 failing the comparison, and the timed path broken
+underneath in each way a cell of its entry can be broken, seen as not
+correct. Cells are taken by configuration and traffic mix, so a cell
+added as files is tested here too."""
 
 import copy
+import math
 
 import numpy as np
 import pytest
@@ -11,16 +14,16 @@ import torch
 
 from benchmark import check, manifest
 from benchmark.kit import write_kit
-from benchmark.reference.render import render as reference
 from benchmark.run import run
 
 M = manifest.load()
 CELLS = [w["name"] for w in M["workloads"]]
-# measures that keep a CPU run to seconds: 4 s of the kitchen sink
-SMALL = {"kitchen-sink": 2}
-# the stream cut into 65536-frame segments, so 2 measures carry state
-# across segments
-SMALL_TRAFFIC = {"stream": {"segment_frames": 65536, "batch_segments": 2}}
+ENTRY = {cell: manifest.Cell(M, cell).traffic["entry"] for cell in CELLS}
+# seconds of song that keep a CPU run to seconds
+CPU_SECONDS = 4
+# by entry: the stream cut into 65536-frame segments, so a few seconds
+# of song carry state across segments
+SMALL_ENTRY = {"stream": {"segment_frames": 65536, "batch_segments": 2}}
 
 
 @pytest.fixture(scope="module")
@@ -29,9 +32,15 @@ def manifest_path():
 
 
 def small(cell):
-    w = {x["name"]: x for x in M["workloads"]}[cell]
-    return ({"measures": SMALL[w["config"]]},
-            SMALL_TRAFFIC.get(w["traffic"], {}))
+    """(configuration overrides, traffic overrides) that keep a CPU run
+    to seconds: the whole measures that hold CPU_SECONDS of the song at
+    its tempo and time signature, and no more than the song has."""
+    c = manifest.Cell(M, cell)
+    clock = c.maker.project(c.config, 0)["clock"]
+    beats = clock.get("time-signature", [4, 4])[0]
+    measures = min(int(c.config["measures"]),
+                   math.ceil(CPU_SECONDS * clock["bpm"] / (60 * beats)))
+    return ({"measures": measures}, SMALL_ENTRY.get(ENTRY[cell], {}))
 
 
 def cpu_run(path, cell, seed=2147483647 + 12345, trace=False):
@@ -69,11 +78,12 @@ def test_control_fails(cell, tmp_path):
     c = manifest.Cell(M, cell)
     over, _ = small(cell)
     cfg = {**c.config, **over}
+    rate = int(cfg["sample_rate"])
     for seed in (3, 4):
         assets = write_kit(tmp_path / str(seed), seed, cfg["kit"])
         song = c.maker.project(cfg, seed)
-        ref = reference(song, assets)
-        control = reference(song, assets, round_to="bfloat16")
+        ref = c.reference(song, assets, rate)
+        control = c.reference(song, assets, rate, round_to="bfloat16")
         ok, shown = check.judge(check.compare(control, ref), c.limits)
         assert not ok, shown
 
@@ -130,10 +140,13 @@ def _state_unchanged(monkeypatch):
     monkeypatch.setattr(StreamingRenderer, "step", stale)
 
 
-FAULTS = [("kitchen-sink.offline", _alter_offline),
-          ("kitchen-sink.stream", _alter_stream),
-          ("kitchen-sink.stream", _half_left_out),
-          ("kitchen-sink.stream", _state_unchanged)]
+# each fault by the entry it breaks, attached to every cell of that entry
+FAULTS = [(cell, fault)
+          for entry, fault in (("offline", _alter_offline),
+                               ("stream", _alter_stream),
+                               ("stream", _half_left_out),
+                               ("stream", _state_unchanged))
+          for cell in CELLS if ENTRY[cell] == entry]
 
 
 @pytest.mark.parametrize("cell,fault", FAULTS,

@@ -7,6 +7,7 @@ import re
 import pytest
 
 from benchmark import manifest
+from benchmark.reference.render import render as shared_render
 
 M = manifest.load()
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
@@ -28,12 +29,24 @@ def test_names():
         assert all(NAME.match(n) for n in names)
     metric_names = [m["name"] for m in M["end_to_end"] + M["per_layer"]]
     assert len(metric_names) == len(set(metric_names))
+    # reference/<config>.py shares its folder with the shared reference:
+    # no configuration takes a shared file's name, and every other file
+    # there is a configuration's
+    shared = {"__init__", "render", "song"}
+    configs = {c["name"] for c in M["configs"]}
+    assert not configs & shared
+    assert {p.stem for p in (manifest.HERE / "reference").glob("*.py")} \
+        <= shared | configs
 
 
 @pytest.mark.parametrize("cell", CELLS)
 def test_cell_resolves(cell):
     c = manifest.Cell(M, cell)
     assert callable(c.maker.project)
+    # the configuration's own reference where it has one, else the shared
+    own = manifest.HERE / "reference" / f"{c.workload['config']}.py"
+    assert callable(c.reference)
+    assert (c.reference is shared_render) == (not own.exists())
     assert hasattr(c.entry, "Entry") and hasattr(c.entry, "SPANS")
     assert set(c.limits) == {"max_lsb", "rms_lsb"}
     for m in c.end_to_end + c.per_layer:
